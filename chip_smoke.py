@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`kd6d_pose_adlp_tpu_torch`) on one NVIDIA
+card: the quickest proof that the port builds, starts and answers on the GPU.
+
+    python3 chip_smoke.py                  # all phases, one card
+    python3 chip_smoke.py --phases kernel  # kernel checks and timings only
+
+Phases:
+  set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
+           nvcc (one process per source, all started together).
+  kernel   at the serving shapes (B=8: stem 3->8 @256², s2 8->16 @128²)
+           holds K2 (conv3x3_bn_act_flat) and K3 (conv3x3_bn_act_stacked),
+           and the stem segment in both forms, against their plain PyTorch
+           versions on the card (atol 1e-4) and times each with CUDA events
+           beside its bound, the plain version and one library call
+           (F.conv2d / matmul + affine + leaky_relu, a yardstick only).
+  serving  builds the full-width darknet_tiny_h PoseNet from a seeded
+           generator and answers requests of 8 synthetic 256² uint8 crops
+           through build_infer_fn(device="cuda"): 4 requests on the default
+           flat stem (K2 twice per request), then 2 on the stacked stem (K3
+           twice per request). Launch counts are zeroed just before each
+           run and read just after. Outputs must be finite and the network
+           outputs must match the same weights run on the CPU (atol 1e-3).
+  pose     runs a planted ground-truth scene through the port's postprocess
+           on the card: rotation error < 3 deg, translation error < 15 mm.
+
+TF32 is off for matmuls and convolutions throughout, so the comparisons are
+fp32 against fp32. Prints the per-kernel JSON line, the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}. Any failure
+raises before that line. Details go to the --json_out file
+(default outputs/chip_smoke.json).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+FP32_FLOPS = 67e12             # H100 SXM fp32, CUDA cores
+ATOL_KERNEL = 1e-4
+ATOL_NETWORK = 1e-3
+BATCH = 8
+RES = 256
+CONV_SRC = "kd6d_pose_adlp_tpu_torch/csrc/conv3x3_bn_act.cu"
+REPLACES = {
+    "conv3x3_bn_act_flat": "kd6d_pose_adlp_tpu/ops/conv_pallas.py:105",
+    "conv3x3_bn_act_stacked": "kd6d_pose_adlp_tpu/ops/conv_pallas.py:178",
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def gpu_name_and_power() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def time_cuda(torch, fn, args_list, iters: int = 50, warmup: int = 5,
+              graph: bool = True) -> float:
+    """Mean ms per call over `iters` calls, cycling through `args_list` so the
+    inputs come from HBM rather than L2, timed with CUDA events.
+
+    graph=True captures the `iters` calls in one CUDA graph and times its
+    replay: device time of back-to-back launches, without the host cost of
+    each eager call (which for a ~10 us kernel is larger than the kernel).
+    graph=False times the eager calls as issued."""
+    for i in range(warmup):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    g = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(iters):
+                fn(*args_list[i % len(args_list)])
+        g.replay()
+        torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    if graph:
+        g.replay()
+    else:
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del g
+    return ms
+
+
+def n_copies(nbytes: int) -> int:
+    """Enough input copies to cycle through > 2x the 50 MB L2."""
+    return max(2, math.ceil(100e6 / nbytes))
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+def kernel_phase(torch, F, cf, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    shapes = {"stem": (3, 8, RES, RES), "s2": (8, 16, RES // 2, RES // 2)}
+    rows, params = [], {}
+    for tag, (C, O, H, W) in shapes.items():
+        Wp, M = W + 2, H * (W + 2)
+        L = (H + 2) * Wp + 2
+        k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
+        w = cf.pack_weights(k)
+        sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
+        bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
+        params[tag] = (k, w, sc, bi)
+        x_nhwc = torch.randn((BATCH, H, W, C), generator=g, device=dev)
+        x_nchw = x_nhwc.permute(0, 3, 1, 2).contiguous()
+        xf = cf.nhwc_to_flat(x_nhwc)
+        xs = cf.stack_taps(xf, H, W)
+        k_oihw = k.permute(3, 2, 0, 1).contiguous()
+        w_mat = w.permute(1, 0, 2).reshape(O, 9 * C).contiguous()
+        flops = BATCH * M * O * (2 * 9 * C + 2)
+        out_bytes = 4 * BATCH * O * M
+        par_bytes = 4 * (9 * O * C + 2 * O)
+
+        def library_flat(xn):
+            y = F.conv2d(xn, k_oihw, padding=1)
+            return F.leaky_relu(y * sc.reshape(1, O, 1, 1) + bi.reshape(1, O, 1, 1), 0.1)
+
+        def library_stacked(xsn):
+            y = torch.matmul(w_mat, xsn.reshape(BATCH, 9 * C, M))
+            return F.leaky_relu(y * sc + bi, 0.1)
+
+        for name, inp, kern, plain, lib_fn, lib_inp in (
+                ("conv3x3_bn_act_flat", xf,
+                 lambda a: cf.conv3x3_bn_act_flat(a, w, sc, bi, H=H, W=W),
+                 lambda a: cf.conv3x3_bn_act_flat_plain(a, w, sc, bi, H=H, W=W),
+                 library_flat, x_nchw),
+                ("conv3x3_bn_act_stacked", xs,
+                 lambda a: cf.conv3x3_bn_act_stacked(a, w, sc, bi),
+                 lambda a: cf.conv3x3_bn_act_stacked_plain(a, w, sc, bi),
+                 library_stacked, xs)):
+            got = kern(inp)
+            torch.cuda.synchronize()
+            want = plain(inp)
+            err = (got - want).abs().max().item()
+            # the valid columns also against the library conv
+            lib_err = (cf.flat_to_nhwc(got, H, W)
+                       - library_flat(x_nchw).permute(0, 2, 3, 1)).abs().max().item()
+            log(f"[kernel] {name} {tag}: max|kernel-plain| {err:.3e}, "
+                f"max|kernel-library| (valid cols) {lib_err:.3e}")
+            if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
+                raise AssertionError(f"{name} {tag} disagrees with its plain version")
+            in_bytes = 4 * inp.numel()
+            copies = [(inp.clone(),) for _ in range(n_copies(in_bytes))]
+            lib_copies = [(lib_inp.clone(),) for _ in range(n_copies(4 * lib_inp.numel()))]
+            ms = time_cuda(torch, kern, copies)
+            eager_ms = time_cuda(torch, kern, copies, graph=False)
+            plain_ms = time_cuda(torch, plain, copies, iters=20)
+            library_ms = time_cuda(torch, lib_fn, lib_copies)
+            del copies, lib_copies
+            byte_s = (in_bytes + par_bytes + out_bytes) / HBM_BYTES_PER_S
+            op_s = flops / FP32_FLOPS
+            rows.append(dict(
+                name=name, shape=tag, C=C, O=O, H=H, W=W, B=BATCH,
+                route="cuda", source=CONV_SRC, replaces=REPLACES[name],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * max(byte_s, op_s),
+                bound_by="bytes" if byte_s >= op_s else "operations",
+                library_ms=library_ms, eager_ms=eager_ms,
+                bytes=in_bytes + par_bytes + out_bytes, flops=flops))
+            log(f"[kernel] {name} {tag}: {ms * 1e3:.1f} us  (bound "
+                f"{rows[-1]['bound_ms'] * 1e3:.1f} us by {rows[-1]['bound_by']}, "
+                f"plain {plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us; "
+                f"eager call incl. host {eager_ms * 1e3:.1f} us)")
+
+    # the whole stem segment, both forms, against the plain segment and the
+    # NHWC library chain
+    x = torch.randn((BATCH, RES, RES, 3), generator=g, device=dev)
+    (k1, w1, s1, b1), (k2, w2, s2, b2) = params["stem"], params["s2"]
+
+    def library_segment(xn):
+        y = F.max_pool2d(cf.conv3x3_bn_act_ref(xn, k1, s1, b1).permute(0, 3, 1, 2), 2)
+        p1 = y.permute(0, 2, 3, 1)
+        y = F.max_pool2d(cf.conv3x3_bn_act_ref(p1, k2, s2, b2).permute(0, 3, 1, 2), 2)
+        return p1, y.permute(0, 2, 3, 1)
+
+    ref = library_segment(x)
+    segment = []
+    for stacked in (False, True):
+        kern = lambda a: cf.stem_s2_segment_flat(a, w1, s1, b1, w2, s2, b2, stacked=stacked)
+        plain = lambda a: cf.stem_s2_segment_flat_plain(a, w1, s1, b1, w2, s2, b2,
+                                                        stacked=stacked)
+        got, want = kern(x), plain(x)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        lib_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        log(f"[kernel] stem_s2_segment_flat stacked={stacked}: max|seg-plain| "
+            f"{err:.3e}, max|seg-library| {lib_err:.3e}")
+        if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
+            raise AssertionError(f"segment stacked={stacked} disagrees")
+        copies = [(x.clone(),) for _ in range(n_copies(4 * x.numel()))]
+        segment.append(dict(stacked=stacked, max_abs_err=err,
+                            ms=time_cuda(torch, kern, copies, iters=20),
+                            plain_ms=time_cuda(torch, plain, copies, iters=20),
+                            library_ms=time_cuda(torch, library_segment, copies,
+                                                 iters=20)))
+        log(f"[kernel] segment stacked={stacked}: {json.dumps(segment[-1])}")
+    return rows, segment
+
+
+# ---------------------------------------------------------------------------
+# serving phase
+# ---------------------------------------------------------------------------
+
+def profile_request(torch, fn) -> dict:
+    """Device kernels, their summed device time and the top kernels by
+    device time for one call of fn, from torch.profiler (CUPTI), and the
+    wall time of that same call (profiler overhead included). Only device
+    activity is traced: host op recording more than doubles the wall time
+    of this launch-bound request."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    by_name = {}
+    for e in kern:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
+                wall_ms=wall_ms, top=[dict(name=n[:80], count=c, ms=t / 1e3) for n, (c, t) in top])
+
+
+def serving_phase(torch, cf, dev, n_flat: int = 4, n_stacked: int = 2):
+    from kd6d_pose_adlp_tpu_torch.config import Config
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from kd6d_pose_adlp_tpu_torch.engine.serving import SINGLE_KEYS, build_infer_fn
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+
+    cfg = Config()
+    assert cfg.model.backbone == "darknet_tiny_h" and cfg.model.input_res == RES
+    ds = SyntheticPoseDataset(n_fg=cfg.data.n_fg, input_res=RES, seed=0)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    net = init_pose_net(PoseNet(cfg.model, n_fg=cfg.data.n_fg), gen)
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    infer = build_infer_fn(cfg, ds.consts(device=dev), net, device=dev)
+    log(f"[serving] PoseNet darknet_tiny_h, {sum(p.numel() for p in net.parameters())} "
+        f"params, {cfg.model.num_cells} cells, TestConfig {cfg.test}")
+
+    reqs = [ds.requests(range(BATCH * r, BATCH * (r + 1)))
+            for r in range(1 + n_flat + n_stacked)]
+
+    def serve(fn, req, seed):
+        tm = {}
+        t0 = time.perf_counter()
+        out = fn(req["images"], req["bbox_trans"], req["class_ids"], seed=seed,
+                 timings=tm)
+        torch.cuda.synchronize()
+        tm["total_s"] = time.perf_counter() - t0
+        for k in SINGLE_KEYS:
+            if out[k].is_floating_point() and not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"non-finite serving output {k}")
+        tm["valid_images"] = int(out["valid"].sum())
+        tm["valid_votes"] = int(out["vote_valid"].sum())
+        return out, tm
+
+    # each stem form launches its kernel once per request at each of the two
+    # (C, O) shapes of the segment
+    seg_shapes = ((3, 8), (8, 16))
+
+    def check_launches(name, n_requests):
+        by_shape = dict(cf.launches)
+        for c, o in seg_shapes:
+            if by_shape.get((name, c, o), 0) != n_requests:
+                raise AssertionError(f"{name} {c}->{o} was not launched once per "
+                                     f"request: {by_shape}")
+        return by_shape
+
+    def per_kernel(by_shape):
+        totals = {}
+        for (n, _, _), v in by_shape.items():
+            totals[n] = totals.get(n, 0) + v
+        return totals
+
+    serve(infer, reqs[0], 0)                                # warm-up, not counted
+    cf.reset_launch_counts()
+    lat = [serve(infer, reqs[1 + r], r)[1] for r in range(n_flat)]
+    by_shape_flat = check_launches("conv3x3_bn_act_flat", n_flat)
+    counts_flat = per_kernel(by_shape_flat)
+    shapes_flat = {f"{n}:{c}->{o}": v for (n, c, o), v in by_shape_flat.items()}
+    log(f"[serving] flat stem, {n_flat} requests: launches {counts_flat} {shapes_flat}")
+    for i, t in enumerate(lat):
+        log(f"[serving] request {i}: {t['total_s'] * 1e3:.1f} ms "
+            f"(network {t['network_s'] * 1e3:.1f} ms, postprocess "
+            f"{t['postprocess_s'] * 1e3:.1f} ms; {t['valid_images']} valid images, "
+            f"{t['valid_votes']} votes)")
+
+    # one more request under torch.profiler: device busy time and launches
+    req = reqs[1]
+    prof = profile_request(torch, lambda: infer(req["images"], req["bbox_trans"],
+                                                req["class_ids"], seed=0))
+    log(f"[serving] profiled request: {prof['device_kernels']} device kernels, "
+        f"device busy {prof['device_busy_ms']:.1f} ms of its "
+        f"{prof['wall_ms']:.1f} ms wall time; top: {prof['top']}")
+
+    # the same weights on the CPU: the network outputs must agree
+    cpu = build_infer_fn(cfg, ds.consts(device="cpu"), state, device="cpu")
+    with torch.inference_mode():
+        gc, gr = infer.model(torch.as_tensor(req["images"]).to(dev))
+        cc, cr = cpu.model(torch.as_tensor(req["images"]))
+    net_err = max((gc.cpu() - cc).abs().max().item(), (gr.cpu() - cr).abs().max().item())
+    log(f"[serving] network cls/reg, card vs CPU: max abs diff {net_err:.3e}")
+    if not net_err <= ATOL_NETWORK:
+        raise AssertionError("card and CPU network outputs disagree")
+
+    # the stacked stem (K3) on the same weights
+    net_st = PoseNet(cfg.model, n_fg=cfg.data.n_fg, stem_stacked=True)
+    net_st.load_state_dict(state, strict=True)
+    infer_st = build_infer_fn(cfg, ds.consts(device=dev), net_st, device=dev)
+    serve(infer_st, reqs[0], 0)
+    cf.reset_launch_counts()
+    lat_st = [serve(infer_st, reqs[1 + n_flat + r], r)[1] for r in range(n_stacked)]
+    by_shape_st = check_launches("conv3x3_bn_act_stacked", n_stacked)
+    counts_st = per_kernel(by_shape_st)
+    log(f"[serving] stacked stem, {n_stacked} requests: launches {counts_st}")
+    with torch.inference_mode():
+        sc_, sr_ = infer_st.model(torch.as_tensor(req["images"]).to(dev))
+    st_err = max((sc_ - gc).abs().max().item(), (sr_ - gr).abs().max().item())
+    log(f"[serving] stacked vs flat stem network outputs: max abs diff {st_err:.3e}")
+    if not st_err <= ATOL_NETWORK:
+        raise AssertionError("stacked and flat stems disagree")
+
+    mean = lambda xs, k: sum(x[k] for x in xs) / len(xs)
+    summary = dict(
+        batch=BATCH, requests_flat=n_flat, requests_stacked=n_stacked,
+        request_ms=[1e3 * t["total_s"] for t in lat],
+        network_ms=[1e3 * t["network_s"] for t in lat],
+        postprocess_ms=[1e3 * t["postprocess_s"] for t in lat],
+        mean_request_ms=1e3 * mean(lat, "total_s"),
+        mean_network_ms=1e3 * mean(lat, "network_s"),
+        mean_postprocess_ms=1e3 * mean(lat, "postprocess_s"),
+        stacked_request_ms=[1e3 * t["total_s"] for t in lat_st],
+        launches_flat_run=counts_flat, launches_flat_run_by_shape=shapes_flat,
+        launches_stacked_run=counts_st, network_card_vs_cpu=net_err,
+        stacked_vs_flat=st_err, profile=prof)
+    # busy and wall time of the same (profiled) request
+    summary["device_idle_share"] = (
+        1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+        if prof["device_busy_ms"] > 0 else None)
+    # (name, C, O) -> launches; each stem form's run launches only its kernel
+    return summary, {**by_shape_flat, **by_shape_st}
+
+
+# ---------------------------------------------------------------------------
+# pose phase
+# ---------------------------------------------------------------------------
+
+def pose_phase(torch, dev):
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch.config import Config
+    from kd6d_pose_adlp_tpu_torch.data.batch import TaskConsts
+    from kd6d_pose_adlp_tpu_torch.engine.postprocess import build_postprocess
+    from kd6d_pose_adlp_tpu_torch.models import anchors as anchor_lib
+    from kd6d_pose_adlp_tpu_torch.utils import geometry as geo
+
+    cfg = Config()
+    m = cfg.model
+    n_fg = cfg.data.n_fg
+    K = cfg.data.internal_K_np()
+    rng = np.random.default_rng(0)
+    kp3d = np.stack([np.array([[sx * (30 + c), sy * 25, sz * 40]
+                               for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                              np.float32) for c in range(n_fg)])
+    cls_gt = 3
+    R_gt = geo.quaternion2rotation(rng.normal(size=4)).astype(np.float32)
+    T_gt = np.array([20.0, -15.0, 820.0], np.float32)
+    proj = geo.project_points(K, R_gt, T_gt, kp3d[cls_gt])
+    Mc = geo.dzi_affine(proj.mean(0), 260.0, RES)
+    kp_crop = geo.apply_affine(Mc, proj)
+    anchors = anchor_lib.make_anchors(RES, m.level_strides, m.level_sizes)
+    A = anchors.shape[0]
+    logits = np.full((A, n_fg), -8.0, np.float32)
+    hot = rng.choice(A, 30, replace=False)
+    logits[hot, cls_gt] = rng.uniform(-1.5, 3.0, size=30)
+    noisy = kp_crop[None] + rng.normal(scale=1.0, size=(A, 8, 2)).astype(np.float32)
+    enc = np.concatenate([(noisy[..., 0] - anchors[:, None, 0]) / anchors[:, None, 2],
+                          (noisy[..., 1] - anchors[:, None, 1]) / anchors[:, None, 3]], -1)
+    reg = np.tile(enc[:, None, :], (1, n_fg, 1)).reshape(A, n_fg * 16).astype(np.float32)
+
+    pp = build_postprocess(cfg, TaskConsts.create(K, kp3d, np.full(n_fg, 150.0), device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = pp(torch.as_tensor(logits, device=dev)[None],
+                 torch.as_tensor(reg, device=dev)[None],
+                 torch.tensor([cls_gt], device=dev),
+                 torch.as_tensor(Mc, device=dev)[None], generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    def rot_deg(Ra, Rb):
+        # from the chord |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): stable near 0,
+        # where arccos of the fp32 trace floors at a few hundredths of a degree
+        d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+        return float(np.degrees(2 * np.arcsin(min(d / (2 * np.sqrt(2)), 1.0))))
+
+    R = out["R"][0].cpu().numpy()
+    T = out["T"][0].cpu().numpy()
+    rot = rot_deg(R_gt, R)
+    trans = float(np.linalg.norm(T - T_gt))
+    log(f"[pose] planted scene: valid {bool(out['valid'][0])}, inliers "
+        f"{int(out['n_inliers'][0])}, rotation error {rot:.3f} deg, translation "
+        f"error {trans:.3f} mm, postprocess {dt * 1e3:.1f} ms (B=1)")
+    if not (bool(out["valid"][0]) and rot < 3.0 and trans < 15.0):
+        raise AssertionError("planted-scene pose is off")
+
+    # the same scene and RANSAC draws through the postprocess on the CPU:
+    # the card's pose math must agree with it
+    from kd6d_pose_adlp_tpu_torch.ops.epnp import sample_gumbel
+    t = cfg.test
+    gumbel = sample_gumbel((1, t.ransac_iters, t.max_votes * 8),
+                           torch.Generator().manual_seed(1), "cpu")
+    args = (torch.as_tensor(logits)[None], torch.as_tensor(reg)[None],
+            torch.tensor([cls_gt]), torch.as_tensor(Mc)[None])
+    pp_cpu = build_postprocess(cfg, TaskConsts.create(K, kp3d, np.full(n_fg, 150.0),
+                                                      device="cpu"))
+    with torch.inference_mode():
+        card = pp(*(a.to(dev) for a in args), gumbel=gumbel.to(dev))
+        host = pp_cpu(*args, gumbel=gumbel)
+    Rc, Rh = card["R"][0].cpu().numpy(), host["R"][0].numpy()
+    rot_ch = rot_deg(Rh, Rc)
+    trans_ch = float(np.linalg.norm(card["T"][0].cpu().numpy() - host["T"][0].numpy()))
+    same_votes = bool(torch.equal(card["vote_valid"].cpu(), host["vote_valid"]))
+    same_inliers = int(card["n_inliers"][0]) == int(host["n_inliers"][0])
+    log(f"[pose] same draws, card vs CPU: votes equal {same_votes}, inliers equal "
+        f"{same_inliers}, rotation {rot_ch:.4f} deg, translation {trans_ch:.4f} mm")
+    if not (same_votes and same_inliers and rot_ch < 0.1 and trans_ch < 0.5):
+        raise AssertionError("card and CPU postprocess disagree")
+    return dict(rotation_err_deg=rot, translation_err_mm=trans,
+                n_inliers=int(out["n_inliers"][0]), postprocess_ms=1e3 * dt,
+                card_vs_cpu_rotation_deg=rot_ch, card_vs_cpu_translation_mm=trans_ch)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="kernel,serving,pose")
+    ap.add_argument("--json_out", default="outputs/chip_smoke.json")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    from kd6d_pose_adlp_tpu_torch.ops import conv_fused as cf
+    from kd6d_pose_adlp_tpu_torch.utils import cuda_build
+
+    # fp32 comparisons: no TF32 in matmuls or cuDNN convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = gpu_name_and_power()
+    log(f"[set-up] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all(["conv3x3_bn_act"])
+    log(f"[set-up] built {[p.name for p in libs.values()]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for p in libs.values():
+        logf = p.with_suffix(".log")
+        if logf.exists():
+            for line in logf.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[set-up] ptxas: {line.strip()}")
+
+    result = {"card": card}
+    rows, launches = [], {}
+    if "kernel" in phases:
+        rows, result["segment"] = kernel_phase(torch, F, cf, dev)
+    if "serving" in phases:
+        result["serving"], launches = serving_phase(torch, cf, dev)
+    if "pose" in phases:
+        result["pose"] = pose_phase(torch, dev)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for r in rows:
+        r["launches"] = launches.get((r["name"], r["C"], r["O"]))
+        r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{r['H']}^2 B={r['B']}]")
+        kernels.append({k: r[k] for k in keys})
+    result["kernels"] = rows
+    os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
+    with open(args.json_out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

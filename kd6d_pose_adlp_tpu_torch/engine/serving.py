@@ -1,0 +1,98 @@
+"""The serving endpoint (port of `kd6d_pose_adlp_tpu/engine/serving.py:
+35-83,236-242`): one function `(images, bbox_trans, class_ids, seed) ->
+poses` closing over the network, the voting + RANSAC-EPnP + LHM postprocess
+and the task constants.
+
+Export (`torch.export`), the raw-frame endpoint and `mode="multi"` wait for
+later slices.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Config
+from ..data.batch import TaskConsts
+from ..models.pose_net import PoseNet
+from .postprocess import build_postprocess
+
+# serving outputs, in a fixed order so consumers can rely on it
+SINGLE_KEYS = ("R", "T", "score", "cls", "n_inliers", "valid", "kp2d",
+               "vote_valid")
+
+
+def build_infer_fn(cfg: Config, consts: TaskConsts,
+                   model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]],
+                   mode: str = "single", device="cuda"):
+    """Inference endpoint over a trained model, on `device`.
+
+    `model_or_state` is a `PoseNet` or its state_dict (loaded strictly).
+    Arguments of the returned `infer(images, bbox_trans, class_ids, seed=0,
+    gumbel=None, timings=None)`:
+      images     (B, res, res, 3) uint8 BGR crop or pre-normalized float RGB
+      bbox_trans (B, 2, 3) f32 — the DZI crop affine of each image
+      class_ids  (B,) int — the class to solve; negative marks it invalid
+      seed       int — seeds the RANSAC draws (a torch.Generator on `device`)
+      gumbel     optional (B, ransac_iters, max_votes*8) injected draws
+      timings    optional dict; if given, the card is synchronized after the
+                 network and after the postprocess, and their host-clock
+                 seconds are stored under "network_s" / "postprocess_s".
+    Returns a dict of tensors on `device` in SINGLE_KEYS order.
+    """
+    if mode != "single":
+        raise NotImplementedError(f"serving mode {mode!r} is not ported yet")
+    device = torch.device(device)
+    if isinstance(model_or_state, nn.Module):
+        net = model_or_state
+    else:
+        net = PoseNet(cfg.model, n_fg=cfg.data.n_fg)
+        net.load_state_dict(model_or_state, strict=True)
+    net = net.to(device).eval()
+    consts = consts.to(device)
+    pp = build_postprocess(cfg, consts)
+
+    def _sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def infer(images, bbox_trans, class_ids, seed: int = 0,
+              gumbel: Optional[torch.Tensor] = None,
+              timings: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        images = torch.as_tensor(images).to(device)
+        bbox_trans = torch.as_tensor(bbox_trans, dtype=torch.float32).to(device)
+        class_ids = torch.as_tensor(class_ids).to(device)
+        gen = None
+        if gumbel is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(seed))
+        else:
+            gumbel = gumbel.to(device)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            cls_logits, pred_reg = net(images)
+            if timings is not None:
+                _sync()
+                t1 = time.perf_counter()
+            out = pp(cls_logits, pred_reg, class_ids, bbox_trans,
+                     generator=gen, gumbel=gumbel)
+            if timings is not None:
+                _sync()
+                timings["network_s"] = t1 - t0
+                timings["postprocess_s"] = time.perf_counter() - t1
+        return {k: out[k] for k in SINGLE_KEYS}
+
+    infer.model = net
+    return infer
+
+
+def centered_bbox_trans(batch_size: int, res: int) -> np.ndarray:
+    """Identity-crop affine stack for callers serving pre-cropped images
+    (kp2d outputs then stay in the crop's own pixel frame)."""
+    M = np.zeros((batch_size, 2, 3), np.float32)
+    M[:, 0, 0] = 1.0
+    M[:, 1, 1] = 1.0
+    return M

@@ -1,0 +1,284 @@
+"""Fused 3x3 conv + BN-affine + LeakyReLU on the flat channel-major layout
+(port of `kd6d_pose_adlp_tpu/ops/conv_pallas.py`).
+
+Layout contract (unchanged from the JAX package): a map of logical (H, W)
+lives in a (C, H*Wp) slab, Wp = W + 2; logical (h, w) sits at flat index
+h*Wp + w and the last two columns of each row hold wrap-around garbage. The
+input slab is height-padded and 2-element tail-padded, (C, (H+2)*Wp + 2), so
+all nine tap shifts dy*Wp + dx stay in bounds.
+
+The two TPU kernels become one CUDA source, `csrc/conv3x3_bn_act.cu`, with
+two entry points:
+
+- `conv3x3_bn_act_flat`    (K2, `conv_pallas.py:105`)
+- `conv3x3_bn_act_stacked` (K3, `conv_pallas.py:178`)
+
+Each wrapper checks its inputs, allocates its output with `torch.empty`,
+launches the kernel on PyTorch's current stream and counts the launch in
+`launches` under (kernel name, C, O). For CPU tensors (and only for them) it
+runs the plain PyTorch version beside it, which computes the same flat
+formula, garbage columns included. fp32 only.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..utils import cuda_build
+
+# kernel launches since the last reset, keyed (kernel name, C, O)
+launches: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts():
+    launches.clear()
+
+
+# ---------------------------------------------------------------------------
+# layout helpers
+# ---------------------------------------------------------------------------
+
+def nhwc_to_flat(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, C, (H+2)*(W+2) + 2) zero-padded flat slab."""
+    B, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    flat = xp.permute(0, 3, 1, 2).reshape(B, C, (H + 2) * (W + 2))
+    return F.pad(flat, (0, 2))
+
+
+def flat_to_nhwc(y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(B, O, H*(W+2)) output slab -> (B, H, W, O), garbage columns dropped."""
+    B, O, _ = y.shape
+    return y.reshape(B, O, H, W + 2)[:, :, :, :W].permute(0, 2, 3, 1)
+
+
+def pack_weights(k: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, O) HWIO kernel -> (9, O, C): wmat[dy*3+dx, o, c] = k[dy, dx, c, o]."""
+    kh, kw, C, O = k.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"kernel {tuple(k.shape)} is not 3x3 HWIO")
+    return k.reshape(9, C, O).permute(0, 2, 1).contiguous()
+
+
+def stack_taps(x_flat: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(B, C, L) padded slab -> (B, 9, C, M) pre-shifted tap stack."""
+    B, C, L = x_flat.shape
+    Wp = W + 2
+    M = H * Wp
+    if L != (H + 2) * Wp + 2:
+        raise ValueError(f"slab length {L} != (H+2)*(W+2)+2 for H={H}, W={W}")
+    return torch.stack([x_flat[:, :, dy * Wp + dx: dy * Wp + dx + M]
+                        for dy in range(3) for dx in range(3)], dim=1)
+
+
+def _pool_valid(y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """2x2/stride-2 max pool of the VALID columns of an output slab
+    -> (B, O, H//2, W//2); the garbage columns never reach the max. An odd
+    last row or column is dropped, as flax nn.max_pool with VALID padding
+    drops it."""
+    B, O, _ = y.shape
+    Hh, Wh = H // 2, W // 2
+    v = y.reshape(B, O, H, W + 2)[:, :, :2 * Hh, :2 * Wh]
+    return v.reshape(B, O, Hh, 2, Wh, 2).amax(dim=(3, 5))
+
+
+def pool2x2_flat(y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Max pool an output slab into the next conv's zero-padded input slab:
+    (B, O, H*(W+2)) -> (B, O, (H//2+2)*(W//2+2)+2)."""
+    B, O, _ = y.shape
+    vp = F.pad(_pool_valid(y, H, W), (1, 1, 1, 1))
+    flat = vp.reshape(B, O, (H // 2 + 2) * (W // 2 + 2))
+    return F.pad(flat, (0, 2))
+
+
+def pool2x2_slab_to_nhwc(y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Max pool an output slab and convert: (B, O, H*(W+2)) -> (B, H//2, W//2, O)."""
+    return _pool_valid(y, H, W).permute(0, 2, 3, 1)
+
+
+def flat_slab_to_nhwc(x_flat: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Logical (B, H, W, C) view of a zero-padded INPUT slab (the inverse of
+    nhwc_to_flat; no copy)."""
+    B, C, _ = x_flat.shape
+    grid = x_flat[:, :, :(H + 2) * (W + 2)].reshape(B, C, H + 2, W + 2)
+    return grid[:, :, 1:H + 1, 1:W + 1].permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path of the wrappers; the card's oracle)
+# ---------------------------------------------------------------------------
+
+def _affine_act(acc, scale, bias, alpha):
+    acc = acc * scale + bias
+    return torch.where(acc >= 0, acc, alpha * acc)
+
+
+def conv3x3_bn_act_flat_plain(x_flat, wmat, scale, bias, *, H: int, W: int,
+                              alpha: float = 0.1) -> torch.Tensor:
+    """Nine accumulated (O, C) @ (C, M) tap products, then affine + act."""
+    Wp = W + 2
+    M = H * Wp
+    acc = None
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        off = dy * Wp + dx
+        prod = torch.matmul(wmat[tap], x_flat[:, :, off:off + M])
+        acc = prod if acc is None else acc + prod
+    return _affine_act(acc, scale, bias, alpha)
+
+
+def conv3x3_bn_act_stacked_plain(xs, wmat, scale, bias, *,
+                                 alpha: float = 0.1) -> torch.Tensor:
+    acc = None
+    for tap in range(9):
+        prod = torch.matmul(wmat[tap], xs[:, tap])
+        acc = prod if acc is None else acc + prod
+    return _affine_act(acc, scale, bias, alpha)
+
+
+def conv3x3_bn_act_ref(x, k, scale, bias, alpha: float = 0.1) -> torch.Tensor:
+    """Library-conv oracle with identical semantics, NHWC in/out; k HWIO."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=1)
+    y = y * scale.reshape(1, -1, 1, 1) + bias.reshape(1, -1, 1, 1)
+    return F.leaky_relu(y, alpha).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The built kernels with their C signatures declared."""
+    lib = cuda_build.load("conv3x3_bn_act")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.conv3x3_bn_act_flat.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.conv3x3_bn_act_stacked.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    lib.conv3x3_bn_act_flat.restype = i
+    lib.conv3x3_bn_act_stacked.restype = i
+    return lib
+
+
+def _check(x, wmat, scale, bias, C: int, O: int):
+    if wmat.shape != (9, O, C):
+        raise ValueError(f"wmat {tuple(wmat.shape)} != (9, {O}, {C})")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.shape not in ((O, 1), (O,)):
+            raise ValueError(f"{name} {tuple(t.shape)} is not ({O}, 1)")
+    for name, t in (("x", x), ("wmat", wmat), ("scale", scale), ("bias", bias)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda":
+        for name, t in (("x", x), ("wmat", wmat), ("scale", scale),
+                        ("bias", bias)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def conv3x3_bn_act_flat(x_flat, wmat, scale, bias, *, H: int, W: int,
+                        alpha: float = 0.1) -> torch.Tensor:
+    """Fused 3x3 conv (stride 1, SAME) + affine + LeakyReLU, flat layout (K2).
+
+    x_flat (B, C, (H+2)*(W+2)+2) from nhwc_to_flat; wmat (9, O, C) from
+    pack_weights; scale, bias (O, 1) folded BN affine
+    -> (B, O, H*(W+2)); the 2 pad columns per row hold wrap-around values.
+    """
+    B, C, L = x_flat.shape
+    Wp = W + 2
+    if L != (H + 2) * Wp + 2:
+        raise ValueError(f"slab length {L} != (H+2)*(W+2)+2 for H={H}, W={W}")
+    O = wmat.shape[1]
+    _check(x_flat, wmat, scale, bias, C, O)
+    if x_flat.device.type == "cpu":
+        return conv3x3_bn_act_flat_plain(x_flat, wmat, scale.reshape(O, 1),
+                                         bias.reshape(O, 1), H=H, W=W,
+                                         alpha=alpha)
+    out = torch.empty((B, O, H * Wp), device=x_flat.device, dtype=torch.float32)
+    with torch.cuda.device(x_flat.device):
+        err = _lib().conv3x3_bn_act_flat(
+            x_flat.data_ptr(), wmat.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), B, C, O, H, W, alpha,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "conv3x3_bn_act_flat")
+    launches[("conv3x3_bn_act_flat", C, O)] += 1
+    return out
+
+
+def conv3x3_bn_act_stacked(xs, wmat, scale, bias, *,
+                           alpha: float = 0.1) -> torch.Tensor:
+    """The same op over a pre-shifted tap stack xs (B, 9, C, M) (K3)."""
+    B, nine, C, M = xs.shape
+    if nine != 9:
+        raise ValueError(f"xs {tuple(xs.shape)} is not (B, 9, C, M)")
+    O = wmat.shape[1]
+    _check(xs, wmat, scale, bias, C, O)
+    if xs.device.type == "cpu":
+        return conv3x3_bn_act_stacked_plain(xs, wmat, scale.reshape(O, 1),
+                                            bias.reshape(O, 1), alpha=alpha)
+    out = torch.empty((B, O, M), device=xs.device, dtype=torch.float32)
+    with torch.cuda.device(xs.device):
+        err = _lib().conv3x3_bn_act_stacked(
+            xs.data_ptr(), wmat.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, C, O, M, alpha,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "conv3x3_bn_act_stacked")
+    launches[("conv3x3_bn_act_stacked", C, O)] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serving-stem segment
+# ---------------------------------------------------------------------------
+
+def _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked, flat_fn,
+             stacked_fn):
+    B, H, W, C = x.shape
+    if H < 4 or W < 4:
+        raise ValueError(f"stem segment needs H, W >= 4 (two 2x2 pools), got {H}x{W}")
+    xf = nhwc_to_flat(x)
+    if stacked:
+        y1 = stacked_fn(stack_taps(xf, H, W), w1, sc1, bi1, alpha=alpha)
+    else:
+        y1 = flat_fn(xf, w1, sc1, bi1, H=H, W=W, alpha=alpha)
+    x2 = pool2x2_flat(y1, H, W)
+    H2, W2 = H // 2, W // 2
+    if stacked:
+        y2 = stacked_fn(stack_taps(x2, H2, W2), w2, sc2, bi2, alpha=alpha)
+    else:
+        y2 = flat_fn(x2, w2, sc2, bi2, H=H2, W=W2, alpha=alpha)
+    return flat_slab_to_nhwc(x2, H2, W2), pool2x2_slab_to_nhwc(y2, H2, W2)
+
+
+def stem_s2_segment_flat(x, w1, sc1, bi1, w2, sc2, bi2, *, alpha: float = 0.1,
+                         stacked: bool = False):
+    """The serving-stem segment — stem conv -> pool -> s2 conv -> pool — in
+    flat channel-major layout, through the kernels.
+
+    x (B, H, W, C) NHWC; w1 (9, O1, C), sc1/bi1 (O1, 1); w2 (9, O2, O1),
+    sc2/bi2 (O2, 1) -> (pool1 (B, H//2, W//2, O1),
+    pool2 (B, (H//2)//2, (W//2)//2, O2)), NHWC views; each pool floors odd
+    maps as flax's VALID max pool does. pool2 is what the JAX
+    `stem_s2_segment_flat` returns; pool1 is the darknet pyramid's first map.
+    """
+    return _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked,
+                    conv3x3_bn_act_flat, conv3x3_bn_act_stacked)
+
+
+def stem_s2_segment_flat_plain(x, w1, sc1, bi1, w2, sc2, bi2, *,
+                               alpha: float = 0.1, stacked: bool = False):
+    """stem_s2_segment_flat through the plain versions, on any device."""
+    return _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked,
+                    conv3x3_bn_act_flat_plain, conv3x3_bn_act_stacked_plain)

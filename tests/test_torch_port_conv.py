@@ -1,0 +1,187 @@
+"""PyTorch port, fused conv module (`kd6d_pose_adlp_tpu_torch/ops/conv_fused.py`)
+against the JAX Pallas kernels of `kd6d_pose_adlp_tpu/ops/conv_pallas.py`,
+run here in interpret mode on the same seeded numpy inputs.
+
+On CPU tensors the wrappers run their plain PyTorch versions (the CUDA
+kernels build and run only on the card; `chip_smoke.py` holds them against
+these plain versions there). Tolerances, with the largest difference
+measured on this CPU beside them:
+  layout helpers                exact            (0)
+  K2 / K3 vs Pallas interpret   atol=rtol=1e-5   (max abs 3.3e-6)
+  stem segment vs Pallas        atol=1e-5        (max 2.4e-6)
+  pooled stage-1 vs library     atol=1e-5        (max 1.4e-6)
+  odd-sized segment vs library  atol=1e-5        (max 1.9e-6)
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kd6d_pose_adlp_tpu.ops import conv_pallas as J
+from kd6d_pose_adlp_tpu_torch.ops import conv_fused as T
+
+SHAPES = [(2, 16, 16, 3, 8), (2, 12, 20, 8, 16), (1, 8, 8, 16, 64)]
+
+
+def _inputs(seed, B, H, W, C, O):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    k = (rng.normal(size=(3, 3, C, O)) * 0.1).astype(np.float32)
+    sc = (rng.normal(size=(O, 1)) * 0.5 + 1.0).astype(np.float32)
+    bi = (rng.normal(size=(O, 1)) * 0.1).astype(np.float32)
+    return x, k, sc, bi
+
+
+def test_layout_helpers_equal_jax():
+    rng = np.random.default_rng(0)
+    B, H, W, C, O = 2, 10, 14, 8, 6
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    xf_j = J.nhwc_to_flat(jnp.asarray(x))
+    xf_t = T.nhwc_to_flat(torch.from_numpy(x))
+    np.testing.assert_array_equal(xf_t.numpy(), np.asarray(xf_j))
+    np.testing.assert_array_equal(T.stack_taps(xf_t, H, W).numpy(),
+                                  np.asarray(J.stack_taps(xf_j, H, W)))
+    np.testing.assert_array_equal(T.flat_slab_to_nhwc(xf_t, H, W).numpy(), x)
+    k = rng.normal(size=(3, 3, C, O)).astype(np.float32)
+    np.testing.assert_array_equal(T.pack_weights(torch.from_numpy(k)).numpy(),
+                                  np.asarray(J.pack_weights(jnp.asarray(k))))
+    y = rng.normal(size=(B, O, H * (W + 2))).astype(np.float32)
+    yj, yt = jnp.asarray(y), torch.from_numpy(y)
+    np.testing.assert_array_equal(T.flat_to_nhwc(yt, H, W).numpy(),
+                                  np.asarray(J.flat_to_nhwc(yj, H, W)))
+    np.testing.assert_array_equal(T.pool2x2_flat(yt, H, W).numpy(),
+                                  np.asarray(J.pool2x2_flat(yj, H, W)))
+    np.testing.assert_array_equal(T.pool2x2_slab_to_nhwc(yt, H, W).numpy(),
+                                  np.asarray(J.pool2x2_slab_to_nhwc(yj, H, W)))
+
+
+def test_garbage_columns_never_reach_the_pool():
+    """The 2 wrap-around columns per output row must not leak into the
+    pooled map: planting huge values there changes nothing."""
+    rng = np.random.default_rng(1)
+    B, O, H, W = 1, 4, 8, 6
+    y = torch.from_numpy(rng.normal(size=(B, O, H * (W + 2))).astype(np.float32))
+    dirty = y.clone().reshape(B, O, H, W + 2)
+    dirty[..., W:] = 1e6
+    dirty = dirty.reshape(B, O, -1)
+    np.testing.assert_array_equal(T.pool2x2_flat(dirty, H, W).numpy(),
+                                  T.pool2x2_flat(y, H, W).numpy())
+    np.testing.assert_array_equal(T.pool2x2_slab_to_nhwc(dirty, H, W).numpy(),
+                                  T.pool2x2_slab_to_nhwc(y, H, W).numpy())
+
+
+@pytest.mark.parametrize("B,H,W,C,O", SHAPES)
+def test_flat_matches_pallas_interpret(B, H, W, C, O):
+    """All columns, garbage included: both sides compute the same flat
+    formula. Valid columns also against the library conv."""
+    x, k, sc, bi = _inputs(0, B, H, W, C, O)
+    xf = J.nhwc_to_flat(jnp.asarray(x))
+    want = J.conv3x3_bn_act_flat(xf, J.pack_weights(jnp.asarray(k)),
+                                 jnp.asarray(sc), jnp.asarray(bi), H=H, W=W,
+                                 interpret=True)
+    got = T.conv3x3_bn_act_flat(T.nhwc_to_flat(torch.from_numpy(x)),
+                                T.pack_weights(torch.from_numpy(k)),
+                                torch.from_numpy(sc), torch.from_numpy(bi), H=H, W=W)
+    assert got.shape == (B, O, H * (W + 2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    ref = T.conv3x3_bn_act_ref(torch.from_numpy(x), torch.from_numpy(k),
+                               torch.from_numpy(sc), torch.from_numpy(bi))
+    np.testing.assert_allclose(T.flat_to_nhwc(got, H, W).numpy(), ref.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,W,C,O", SHAPES)
+def test_stacked_matches_pallas_interpret(B, H, W, C, O):
+    x, k, sc, bi = _inputs(7, B, H, W, C, O)
+    xs = J.stack_taps(J.nhwc_to_flat(jnp.asarray(x)), H, W)
+    want = J.conv3x3_bn_act_stacked(xs, J.pack_weights(jnp.asarray(k)),
+                                    jnp.asarray(sc), jnp.asarray(bi), interpret=True)
+    got = T.conv3x3_bn_act_stacked(
+        T.stack_taps(T.nhwc_to_flat(torch.from_numpy(x)), H, W),
+        T.pack_weights(torch.from_numpy(k)), torch.from_numpy(sc),
+        torch.from_numpy(bi))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_stem_segment_matches_jax(stacked):
+    rng = np.random.default_rng(3)
+    B, H, W = 2, 32, 24
+    x = rng.normal(size=(B, H, W, 3)).astype(np.float32)
+    k1 = (rng.normal(size=(3, 3, 3, 8)) * 0.3).astype(np.float32)
+    k2 = (rng.normal(size=(3, 3, 8, 16)) * 0.2).astype(np.float32)
+    s1, b1 = rng.uniform(0.5, 1.5, (8, 1)), rng.normal(0, 0.1, (8, 1))
+    s2, b2 = rng.uniform(0.5, 1.5, (16, 1)), rng.normal(0, 0.1, (16, 1))
+    s1, b1, s2, b2 = (a.astype(np.float32) for a in (s1, b1, s2, b2))
+    want = J.stem_s2_segment_flat(
+        jnp.asarray(x), J.pack_weights(jnp.asarray(k1)), s1, b1,
+        J.pack_weights(jnp.asarray(k2)), s2, b2, interpret=True, stacked=stacked)
+    t = torch.from_numpy
+    p1, p2 = T.stem_s2_segment_flat(t(x), T.pack_weights(t(k1)), t(s1), t(b1),
+                                    T.pack_weights(t(k2)), t(s2), t(b2),
+                                    stacked=stacked)
+    assert p2.shape == (B, H // 4, W // 4, 16)
+    np.testing.assert_allclose(p2.numpy(), np.asarray(want), atol=1e-5)
+    ref1 = torch.nn.functional.max_pool2d(
+        T.conv3x3_bn_act_ref(t(x), t(k1), t(s1), t(b1)).permute(0, 3, 1, 2), 2)
+    np.testing.assert_allclose(p1.numpy(), ref1.permute(0, 2, 3, 1).numpy(), atol=1e-5)
+    plain = T.stem_s2_segment_flat_plain(t(x), T.pack_weights(t(k1)), t(s1), t(b1),
+                                         T.pack_weights(t(k2)), t(s2), t(b2),
+                                         stacked=stacked)
+    np.testing.assert_array_equal(plain[1].numpy(), p2.numpy())
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_stem_segment_floors_odd_maps(stacked):
+    """Odd H, W: each pool drops the odd last row/column, as flax's VALID
+    max pool (and F.max_pool2d) do, so the segment equals the library chain
+    conv -> pool -> conv -> pool at any size it takes."""
+    rng = np.random.default_rng(4)
+    B, H, W = 2, 19, 14                     # 19 -> 9 -> 4, 14 -> 7 -> 3
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    x = t(rng.normal(size=(B, H, W, 3)))
+    k1, k2 = t(rng.normal(size=(3, 3, 3, 8)) * 0.3), t(rng.normal(size=(3, 3, 8, 16)) * 0.2)
+    s1, b1 = t(rng.uniform(0.5, 1.5, (8, 1))), t(rng.normal(0, 0.1, (8, 1)))
+    s2, b2 = t(rng.uniform(0.5, 1.5, (16, 1))), t(rng.normal(0, 0.1, (16, 1)))
+    p1, p2 = T.stem_s2_segment_flat(x, T.pack_weights(k1), s1, b1,
+                                    T.pack_weights(k2), s2, b2, stacked=stacked)
+    pool = lambda y: torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    ref1 = pool(T.conv3x3_bn_act_ref(x, k1, s1, b1))
+    ref2 = pool(T.conv3x3_bn_act_ref(ref1, k2, s2, b2))
+    assert p1.shape == (B, 9, 7, 8) and p2.shape == (B, 4, 3, 16)
+    np.testing.assert_allclose(p1.numpy(), ref1.numpy(), atol=1e-5)
+    np.testing.assert_allclose(p2.numpy(), ref2.numpy(), atol=1e-5)
+
+
+def test_stem_segment_rejects_maps_below_two_pools():
+    x = torch.zeros((1, 3, 8, 3))
+    w1, w2 = torch.zeros((9, 8, 3)), torch.zeros((9, 16, 8))
+    s1, s2 = torch.ones((8, 1)), torch.ones((16, 1))
+    with pytest.raises(ValueError):
+        T.stem_s2_segment_flat(x, w1, s1, s1, w2, s2, s2)
+
+
+def test_cpu_wrappers_do_not_count_launches():
+    T.reset_launch_counts()
+    x, k, sc, bi = _inputs(0, 1, 8, 8, 3, 8)
+    xf = T.nhwc_to_flat(torch.from_numpy(x))
+    w = T.pack_weights(torch.from_numpy(k))
+    T.conv3x3_bn_act_flat(xf, w, torch.from_numpy(sc), torch.from_numpy(bi), H=8, W=8)
+    T.conv3x3_bn_act_stacked(T.stack_taps(xf, 8, 8), w, torch.from_numpy(sc),
+                             torch.from_numpy(bi))
+    assert not T.launches
+
+
+def test_wrappers_reject_what_the_kernel_does_not_take():
+    x, k, sc, bi = _inputs(0, 1, 8, 8, 3, 8)
+    xf = T.nhwc_to_flat(torch.from_numpy(x))
+    w, s, b = T.pack_weights(torch.from_numpy(k)), torch.from_numpy(sc), torch.from_numpy(bi)
+    with pytest.raises(TypeError):
+        T.conv3x3_bn_act_flat(xf.double(), w, s, b, H=8, W=8)
+    with pytest.raises(ValueError):
+        T.conv3x3_bn_act_flat(xf, w, s, b, H=8, W=9)            # slab length
+    with pytest.raises(ValueError):
+        T.conv3x3_bn_act_flat(xf, w[:, :, :2], s, b, H=8, W=8)  # weight shape
+    with pytest.raises(ValueError):
+        T.conv3x3_bn_act_stacked(xf[:, None], w, s, b)          # not 9 taps
