@@ -4,16 +4,28 @@ card: the quickest proof that the port builds, starts and answers on the GPU.
 
     python3 chip_smoke.py                  # all phases, one card
     python3 chip_smoke.py --phases kernel  # kernel checks and timings only
+    python3 chip_smoke.py --phases train   # the KD steps only
 
 Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
-           nvcc (one process per source, all started together).
+           nvcc (one process per source, all started together) and prints
+           ptxas's register and spill lines.
   kernel   at the serving shapes (B=8: stem 3->8 @256², s2 8->16 @128²)
            holds K2 (conv3x3_bn_act_flat) and K3 (conv3x3_bn_act_stacked),
            and the stem segment in both forms, against their plain PyTorch
            versions on the card (atol 1e-4) and times each with CUDA events
            beside its bound, the plain version and one library call
            (F.conv2d / matmul + affine + leaky_relu, a yardstick only).
+           Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
+           problems of P = T = 64 points in [0, 1]², a quarter of the
+           weights zero) against its plain version: each of the four
+           potentials over its real (weight > 0) and its padded points
+           apart, max|kernel - plain| <= 1e-5 * max|plain| there (the self
+           potentials a_x, b_y are ~1e-6 at real points and ~1e-2 at
+           padded ones), and the divergence built from them (rtol 1e-4,
+           atol 1e-6); also at P != T and at the 128-point cap, and a raise
+           above it; timed by CUDA-graph replay beside its bound and the
+           plain version. No single PyTorch call computes it.
   serving  builds the full-width darknet_tiny_h PoseNet from a seeded
            generator and answers requests of 8 synthetic 256² uint8 crops
            through build_infer_fn(device="cuda"): 4 requests on the default
@@ -23,6 +35,21 @@ Phases:
            outputs must match the same weights run on the CPU (atol 1e-3).
   pose     runs a planted ground-truth scene through the port's postprocess
            on the card: rotation error < 3 deg, translation error < 15 mm.
+  train    builds the full-width darknet_tiny_h student and darknet53 teacher
+           (head prior 0.5, so the random teacher's votes pass
+           confidence_th) from seeded generators and runs
+           engine/loop.train(device="cuda") for 10 steps on synthetic 256²
+           batches of 16 (rendered on the host beforehand, then moved to the
+           card): finite metrics, loss_kd > 0 and K1 launched once per step
+           (counts zeroed just before, read just after). Median step ms,
+           images/s and peak device memory after 2 warm-up steps; one
+           profiled step (device activity only) for the idle share and the
+           top kernels; the teacher's forward and voting timed alone. Then
+           one step from the same weights, batch (B=2) and SSC draw on the
+           card and on the CPU: metrics within rtol 1e-3, every parameter's
+           gradient within ||g_card - g_cpu|| <= 1e-2 ||g_cpu|| (the worst
+           parameter tensor), BN statistics within 1e-4 of their largest
+           entry.
 
 TF32 is off for matmuls and convolutions throughout, so the comparisons are
 fp32 against fp32. Prints the per-kernel JSON line, the card's name and
@@ -42,14 +69,31 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, CUDA cores
+# special-function unit (expf/logf) results: 16 per clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), 132 SMs at the 1.98 GHz boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 ATOL_KERNEL = 1e-4
 ATOL_NETWORK = 1e-3
+# K1 vs its plain version: max|kernel - plain| over max|plain|, per
+# potential and per point group (real, padded); read at up to 2.5e-7 on an
+# H100 at N=128, P=T=64
+RTOL_POTENTIALS = 1e-5
+# one KD step, card vs CPU: the worst parameter tensor's
+# ||g_card - g_cpu|| / ||g_cpu||; read at 1.3e-3 (median 5.8e-4) on an H100,
+# the KD term's near one-hot plan at eps = 1e-6 turning float noise in the
+# potentials into ~1e-3 changes of its weights
+RTOL_GRADIENTS = 1e-2
 BATCH = 8
 RES = 256
+TRAIN_STEPS = 10
+TRAIN_WARMUP = 2
 CONV_SRC = "kd6d_pose_adlp_tpu_torch/csrc/conv3x3_bn_act.cu"
+SINKHORN_SRC = "kd6d_pose_adlp_tpu_torch/csrc/sinkhorn_potentials.cu"
 REPLACES = {
     "conv3x3_bn_act_flat": "kd6d_pose_adlp_tpu/ops/conv_pallas.py:105",
     "conv3x3_bn_act_stacked": "kd6d_pose_adlp_tpu/ops/conv_pallas.py:178",
+    "sinkhorn_potentials": "kd6d_pose_adlp_tpu/ops/sinkhorn_pallas.py:128",
 }
 
 
@@ -214,6 +258,126 @@ def kernel_phase(torch, F, cf, dev):
                                                  iters=20)))
         log(f"[kernel] segment stacked={stacked}: {json.dumps(segment[-1])}")
     return rows, segment
+
+
+def potential_errors(got, want, a, b) -> dict:
+    """K1 against its plain version: for each potential (a_x, b_y, a_y, b_x),
+    max|got - want| and, over its real (weight > 0) and its padded points
+    apart, that error over max|want| there. At the last eps (1e-6) the self
+    potentials a_x, b_y are ~1e-6 at real points and ~1e-2 at padded ones,
+    so one absolute tolerance over all points cannot see a wrong real-point
+    self potential."""
+    pots = {}
+    for name, u, v, m in zip(("a_x", "b_y", "a_y", "b_x"), got, want, (a, b, b, a)):
+        d, groups = (u - v).abs(), {}
+        for grp, sel in (("real", m > 0), ("pad", m == 0)):
+            if bool(sel.any()):
+                groups[grp] = (d[sel].max() / v[sel].abs().max().clamp_min(1e-30)).item()
+        pots[name] = dict(max_abs_err=d.max().item(), **groups)
+    return pots
+
+
+def potentials_agree(pots: dict) -> bool:
+    return all(r <= RTOL_POTENTIALS for e in pots.values() for k, r in e.items()
+               if k != "max_abs_err")
+
+
+def sinkhorn_kernel(torch, sf, dev):
+    """K1 at the KD loss's shape against its plain version, and its time."""
+    from kd6d_pose_adlp_tpu_torch.config import Config
+    from kd6d_pose_adlp_tpu_torch.ops import sinkhorn as sk
+
+    cfg = Config()
+    kd = cfg.kd
+    # one problem per (image, keypoint): B * 8 clouds of max_pos student and
+    # max_teacher_cells teacher points
+    N, P, T = cfg.solver.ims_per_batch * 8, cfg.solver.max_pos, kd.max_teacher_cells
+    kw = dict(p=kd.p, blur=kd.blur, scaling=kd.scaling, reach=kd.reach, diameter=2.0,
+              debias=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def problems(n, p_, t_):
+        x = torch.rand((n, p_, 2), generator=g, device=dev)
+        y = torch.rand((n, t_, 2), generator=g, device=dev)
+        w = lambda *s: ((0.1 + 0.9 * torch.rand(s, generator=g, device=dev))
+                        * (torch.rand(s, generator=g, device=dev) >= 0.25))
+        return x, y, w(n, p_), w(n, t_)
+
+    def compare(x, y, a, b, **kw_):
+        args = (x, y, sk._safe_log_weights(a), sk._safe_log_weights(b))
+        got = sf.solve_potentials(*args, **kw_)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            want = sf.solve_potentials_plain(*args, **kw_)
+            pots = potential_errors(got, want, a, b)
+            dg = sk.sinkhorn_value(x, y, a, b, got, **kw_)
+            dw = sk.sinkhorn_value(x, y, a, b, want, **kw_)
+        ok = potentials_agree(pots) and bool(torch.allclose(dg, dw, rtol=1e-4, atol=1e-6))
+        div_err = (dg - dw).abs().max().item()
+        return args, pots, ok, div_err, dw
+
+    def show(pots):
+        return "; ".join(f"{n} {e['max_abs_err']:.2e} ("
+                         + ", ".join(f"{g} {e[g]:.2e}" for g in ("real", "pad") if g in e)
+                         + ")" for n, e in pots.items())
+
+    x, y, a, b = problems(N, P, T)
+    args, pots, ok, div_err, div = compare(x, y, a, b, **kw)
+    err = max(e["max_abs_err"] for e in pots.values())
+    log(f"[kernel] sinkhorn_potentials N={N} P={P} T={T}: max|kernel-plain| "
+        f"(over max|plain| at real, padded points): {show(pots)}; divergence "
+        f"{div_err:.3e} (|divergence| up to {div.abs().max().item():.3e})")
+    if not ok:
+        raise AssertionError("sinkhorn_potentials disagrees with its plain version")
+    # other sizes the kernel takes (P != T, the 128-point cap, the balanced
+    # and biased forms); above 128 it raises
+    for (n, p_, t_), kw_ in (((8, 37, 128), dict(kw, reach=None, debias=False)),
+                             ((4, 128, 5), dict(kw, debias=True))):
+        _, pe, ok, de, _ = compare(*problems(n, p_, t_), **kw_)
+        log(f"[kernel] sinkhorn_potentials N={n} P={p_} T={t_} reach={kw_['reach']} "
+            f"debias={kw_['debias']}: {show(pe)}; divergence {de:.3e}")
+        if not ok:
+            raise AssertionError(f"sinkhorn_potentials disagrees at P={p_}, T={t_}")
+    try:
+        sf.solve_potentials(*problems(1, 129, 4)[:2], torch.zeros((1, 129), device=dev),
+                            torch.zeros((1, 4), device=dev), **kw)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("sinkhorn_potentials took P = 129")
+
+    in_bytes = 4 * sum(t.numel() for t in args)
+    out_bytes = 4 * N * 2 * (P + T)
+    copies = [tuple(t.clone() for t in args) for _ in range(n_copies(in_bytes))]
+    kern = lambda *t: sf.solve_potentials(*t, **kw)
+    plain = lambda *t: sf.solve_potentials_plain(*t, **kw)
+    ms = time_cuda(torch, kern, copies)
+    eager_ms = time_cuda(torch, kern, copies, graph=False)
+    with torch.no_grad():
+        plain_ms = time_cuda(torch, plain, copies, iters=20)
+    del copies
+    # per eps: 4 softmin passes (x over y, y over x, x over x, y over y), one
+    # expf per (row, column) and one logf per row; ~10 fp32 operations per
+    # (row, column) for the cost, the scale, the max and the sum
+    n_eps = len(sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)[0])
+    pairs = N * n_eps * (2 * P * T + P * P + T * T)
+    sfu_ops = pairs + N * n_eps * 2 * (P + T)
+    byte_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    op_s = max(sfu_ops / SFU_OPS_PER_S, 10 * pairs / FP32_FLOPS)
+    row = dict(name="sinkhorn_potentials", shape=f"N={N} P={P} T={T} eps={n_eps}",
+               route="cuda", source=SINKHORN_SRC, replaces=REPLACES["sinkhorn_potentials"],
+               max_abs_err=err, potentials=pots, divergence_max_abs_err=div_err, ms=ms,
+               plain_ms=plain_ms,
+               bound_ms=1e3 * max(byte_s, op_s),
+               bound_by="bytes" if byte_s >= op_s else "operations",
+               library_ms=None, eager_ms=eager_ms, bytes=in_bytes + out_bytes,
+               expf=pairs, sfu_ops=sfu_ops, P=P, T=T)
+    log(f"[kernel] sinkhorn_potentials: {ms * 1e3:.1f} us  (bound "
+        f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']}: {pairs / 1e6:.1f} M expf; "
+        f"plain {plain_ms * 1e3:.1f} us; no single PyTorch call computes it; eager call "
+        f"incl. host {eager_ms * 1e3:.1f} us)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -456,9 +620,176 @@ def pose_phase(torch, dev):
                 card_vs_cpu_rotation_deg=rot_ch, card_vs_cpu_translation_mm=trans_ch)
 
 
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+def train_configs():
+    """The KD configuration: darknet_tiny_h student and darknet53 teacher at
+    the repo defaults, the teacher's head prior raised to 0.5."""
+    import dataclasses
+
+    from kd6d_pose_adlp_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, max_iter=TRAIN_STEPS))
+    cfg_t = cfg.replace(model=dataclasses.replace(cfg.model, backbone="darknet53",
+                                                  prior=0.5))
+    assert cfg.model.backbone == "darknet_tiny_h" and cfg.model.input_res == RES
+    return cfg, cfg_t
+
+
+def one_step(torch, cfg, cfg_t, consts, student_sd, teacher_sd, batch, uniform, dev):
+    """One KD step from the given weights on `dev`: metrics, the student's
+    state_dict after it and the step's gradient of each parameter, on the
+    CPU."""
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet
+
+    n_fg = cfg.data.n_fg
+    net = PoseNet(cfg.model, n_fg=n_fg)
+    net.load_state_dict(student_sd, strict=True)
+    teacher = PoseNet(cfg_t.model, n_fg=n_fg)
+    teacher.load_state_dict(teacher_sd, strict=True)
+    opt = steps.make_optimizer(cfg)
+    state = steps.create_train_state(cfg, net.to(dev), opt)
+    step = steps.build_train_step(cfg, cfg_t, consts.to(dev), net, teacher.to(dev), opt)
+    _, m = step(state, batch.to(dev), uniform=uniform.to(dev))
+    return ({k: float(v) for k, v in m.items()},
+            {k: v.detach().cpu() for k, v in net.state_dict().items()},
+            {k: p.grad.detach().cpu() for k, p in net.named_parameters()
+             if p.grad is not None})
+
+
+def train_phase(torch, sf, dev):
+    import statistics
+
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.engine.loop import train
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+
+    cfg, cfg_t = train_configs()
+    n_fg, B = cfg.data.n_fg, cfg.solver.ims_per_batch
+    ds = SyntheticPoseDataset(n_fg=n_fg, input_res=RES, seed=0)
+    t0 = time.perf_counter()
+    batches = [ds.batch(range(B * i, B * (i + 1))).to(dev) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    teacher = init_pose_net(PoseNet(cfg_t.model, n_fg=n_fg),
+                            torch.Generator().manual_seed(1))
+    teacher_sd = {k: v.clone() for k, v in teacher.state_dict().items()}
+    consts = ds.consts(device=dev)
+    log(f"[train] student {cfg.model.backbone} ({cfg.model.out_channel}-wide FPN, "
+        f"{cfg.model.num_levels} levels), teacher {cfg_t.model.backbone} "
+        f"({sum(p.numel() for p in teacher.parameters())} params, "
+        f"{cfg_t.model.num_levels} levels), {TRAIN_STEPS} steps of B={B} at {RES}²; "
+        f"batches rendered in {render_s:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    sf.reset_launch_counts()
+    state, hist = train(cfg, consts, iter(batches), cfg_t=cfg_t,
+                        teacher_state_dict=teacher_sd, device=dev, log_every=1,
+                        verbose=False)
+    launches = dict(sf.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    k1 = launches.get(("sinkhorn_potentials", cfg.solver.max_pos,
+                       cfg.kd.max_teacher_cells), 0)
+    for h in hist:
+        log(f"[train] step {h['step']}: {h['step_ms']:.1f} ms, loss_total "
+            f"{h['loss_total']:.4f} (cls {h['loss_cls']:.4f}, reg {h['loss_reg']:.4f}, "
+            f"kd {h['loss_kd']:.5f}), num_pos {h['num_pos']:.0f}, grad_norm "
+            f"{h['grad_norm']:.3f}")
+    log(f"[train] K1 launches over the {TRAIN_STEPS} steps: {launches}")
+    if state.step != TRAIN_STEPS or len(hist) != TRAIN_STEPS:
+        raise AssertionError(f"train ran {state.step} steps, logged {len(hist)}")
+    for h in hist:
+        if not all(math.isfinite(v) for v in h.values()):
+            raise AssertionError(f"non-finite train metrics {h}")
+        if not (h["loss_kd"] > 0 and h["num_pos"] > 0):
+            raise AssertionError(f"KD term or positives missing at step {h['step']}: {h}")
+    if k1 != TRAIN_STEPS:
+        raise AssertionError(f"sinkhorn_potentials launched {k1} times in "
+                             f"{TRAIN_STEPS} steps, not once per step")
+    step_ms = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+    med = statistics.median(step_ms)
+    log(f"[train] median step {med:.2f} ms over steps {TRAIN_WARMUP + 1}-{TRAIN_STEPS} "
+        f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}): {1e3 * B / med:.1f} images/s; "
+        f"peak device memory {peak_gb:.2f} GiB")
+
+    # one more step of the same run under torch.profiler
+    teacher_dev = PoseNet(cfg_t.model, n_fg=n_fg)
+    teacher_dev.load_state_dict(teacher_sd, strict=True)
+    step = steps.build_train_step(cfg, cfg_t, consts, state.net,
+                                  teacher_dev.to(dev).eval(), steps.make_optimizer(cfg))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    holder = {}
+
+    def one():
+        holder["state"], m = step(state, batches[0], generator=gen)
+        holder["m"] = {k: float(v) for k, v in m.items()}
+
+    prof = profile_request(torch, one)
+    idle = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+    log(f"[train] profiled step: {prof['device_kernels']} device kernels, device busy "
+        f"{prof['device_busy_ms']:.1f} ms of its {prof['wall_ms']:.1f} ms wall time "
+        f"(idle share {idle:.3f}); top: {prof['top']}")
+    # the teacher's share of a step: its forward and voting alone (eager
+    # calls between CUDA events)
+    teacher_ms = time_cuda(torch, lambda b: steps.teacher_votes(cfg, cfg_t, teacher_dev, b),
+                           [(b,) for b in batches], iters=5, warmup=1, graph=False)
+    log(f"[train] teacher forward + voting alone: {teacher_ms:.2f} ms per B={B} batch")
+
+    # one step from the same weights, batch and SSC draw on the card and the CPU
+    student = init_pose_net(PoseNet(cfg.model, n_fg=n_fg), torch.Generator().manual_seed(2))
+    student_sd = {k: v.clone() for k, v in student.state_dict().items()}
+    small = ds.batch(range(2))
+    uniform = torch.rand((2, cfg.model.num_cells, ds.max_objs),
+                         generator=torch.Generator().manual_seed(3))
+    mc, sc, gc = one_step(torch, cfg, cfg_t, consts, student_sd, teacher_sd, small,
+                          uniform, dev)
+    mh, sh, gh = one_step(torch, cfg, cfg_t, ds.consts(device="cpu"), student_sd,
+                          teacher_sd, small, uniform, "cpu")
+    stat = lambda k: k.endswith(("running_mean", "running_var"))
+    st_rel = max(float((sc[k] - sh[k]).abs().max() / sh[k].abs().max().clamp_min(1e-12))
+                 for k in sc if stat(k))
+    met_rel = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh}
+    if set(gc) != set(gh):
+        raise AssertionError(f"gradients on the card for {sorted(set(gc) ^ set(gh))} "
+                             "but not on the CPU, or the other way round")
+    # the gradients, not the updated parameters: Adam's first update is
+    # about lr * sign(g) whatever |g| is
+    g_rel = {k: float(torch.linalg.vector_norm(gc[k] - gh[k])
+                      / torch.linalg.vector_norm(gh[k]).clamp_min(1e-30)) for k in gh}
+    worst = max(g_rel, key=g_rel.get)
+    g_all = float(torch.linalg.vector_norm(torch.cat([(gc[k] - gh[k]).reshape(-1) for k in gh]))
+                  / torch.linalg.vector_norm(torch.cat([gh[k].reshape(-1) for k in gh])))
+    log(f"[train] one step B=2, card vs CPU: metrics {mc} vs {mh} (largest relative "
+        f"difference {max(met_rel.values()):.2e}); gradients of {len(gh)} parameter "
+        f"tensors: worst ||g_card - g_cpu|| / ||g_cpu|| {g_rel[worst]:.2e} ({worst}), "
+        f"median {sorted(g_rel.values())[len(g_rel) // 2]:.2e}, all together "
+        f"{g_all:.2e}; BN statistics {st_rel:.2e} of their largest entry")
+    if not (mc["loss_kd"] > 0 and mc["num_pos"] == mh["num_pos"]
+            and max(met_rel.values()) <= 1e-3 and g_rel[worst] <= RTOL_GRADIENTS
+            and st_rel <= 1e-4):
+        raise AssertionError("the KD step on the card and on the CPU disagree")
+
+    return dict(
+        batch=B, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, render_s=render_s,
+        history=hist, step_ms=[h["step_ms"] for h in hist], median_step_ms=med,
+        images_per_sec=1e3 * B / med, peak_memory_gib=peak_gb, teacher_ms=teacher_ms,
+        k1_launches=k1, launches=
+        {f"{n}:{p}x{t}": v for (n, p, t), v in launches.items()},
+        profile=prof, device_idle_share=idle,
+        card_vs_cpu=dict(card=mc, cpu=mh, metric_rel=met_rel, grad_rel=g_rel,
+                         grad_rel_worst=g_rel[worst], grad_rel_all=g_all,
+                         bn_stat_rel=st_rel)), k1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernel,serving,pose")
+    ap.add_argument("--phases", default="kernel,serving,pose,train")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -471,6 +802,7 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from kd6d_pose_adlp_tpu_torch.ops import conv_fused as cf
+    from kd6d_pose_adlp_tpu_torch.ops import sinkhorn_fused as sf
     from kd6d_pose_adlp_tpu_torch.utils import cuda_build
 
     # fp32 comparisons: no TF32 in matmuls or cuDNN convolutions
@@ -480,24 +812,27 @@ def main(argv=None) -> int:
     card = gpu_name_and_power()
     log(f"[set-up] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["conv3x3_bn_act"])
+    libs = cuda_build.build_all(["conv3x3_bn_act", "sinkhorn_potentials"])
     log(f"[set-up] built {[p.name for p in libs.values()]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for p in libs.values():
+    for name, p in libs.items():
         logf = p.with_suffix(".log")
         if logf.exists():
             for line in logf.read_text().splitlines():
                 if "registers" in line or "spill" in line:
-                    log(f"[set-up] ptxas: {line.strip()}")
+                    log(f"[set-up] ptxas {name}: {line.strip()}")
 
     result = {"card": card}
-    rows, launches = [], {}
+    rows, launches, k1_row, k1_launches = [], {}, None, None
     if "kernel" in phases:
         rows, result["segment"] = kernel_phase(torch, F, cf, dev)
+        k1_row = sinkhorn_kernel(torch, sf, dev)
     if "serving" in phases:
         result["serving"], launches = serving_phase(torch, cf, dev)
     if "pose" in phases:
         result["pose"] = pose_phase(torch, dev)
+    if "train" in phases:
+        result["train"], k1_launches = train_phase(torch, sf, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -506,6 +841,12 @@ def main(argv=None) -> int:
         r["launches"] = launches.get((r["name"], r["C"], r["O"]))
         r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{r['H']}^2 B={r['B']}]")
         kernels.append({k: r[k] for k in keys})
+    if k1_row is not None:
+        # K1's launches are those of the train run
+        k1_row["launches"] = k1_launches
+        kernels.append({k: k1_row[k] for k in keys}
+                       | {"name": f"sinkhorn_potentials[{k1_row['shape']}]"})
+        rows.append(k1_row)
     result["kernels"] = rows
     os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
     with open(args.json_out, "w") as f:

@@ -221,12 +221,12 @@ class KDConfig:
     scaling: float = 0.5
     reach: Optional[float] = 0.5
     max_teacher_cells: int = 64  # fixed-shape cap for teacher voted cells
-    # Pallas fused potential solve is value-exact (bench "pallas_vs_jax_rel
-    # _diff" ~2e-5) but measurably NO faster than the pure-XLA iteration on
-    # the production 128x64 shape (0.468 ms vs 0.31 ms component probe,
-    # results/bench_components_r3v2.json; step-level A/B is noise) — XLA
-    # already fuses the tiny softmin chain well. Pure JAX is therefore the
-    # default; the kernel stays as a tested alternative for larger shapes.
+    # The JAX package's switch between its two routes to the same Sinkhorn
+    # potentials (the Pallas kernel or the XLA loop). The port has no XLA
+    # route: with gtype "sinkhorn" the potentials always come from K1's
+    # wrapper (ops/sinkhorn_fused.solve_potentials), the CUDA kernel on a
+    # CUDA tensor and its plain version on a CPU tensor, whatever this
+    # says. Kept so the two configs stay field-for-field identical.
     use_pallas: bool = False
     # which class channel the teacher votes: "gt" gathers the image's GT
     # class (identical to the reference's first-candidate label on

@@ -1,13 +1,38 @@
-"""Per-dataset constants as torch tensors (port of
-`kd6d_pose_adlp_tpu/data/batch.py:34-67`). The training `Batch` waits for
-the training slice; serving takes images, crop affines and class ids
-directly."""
+"""Fixed-shape batch and per-dataset constants as torch tensors (port of
+`kd6d_pose_adlp_tpu/data/batch.py:16-67`). Serving takes images, crop
+affines and class ids directly; training takes a `Batch`."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+class Batch(NamedTuple):
+    """One training step of data. All shapes static.
+
+    images:       (B, R, R, 3) float32, normalized RGB (DZI crops)
+    mask:         (B, R, R)    int32 instance ids: 0 bg, 1..G objects, -1 erased
+    class_ids:    (B, G)       int32 0-based class ids, -1 padding
+    rotations:    (B, G, 3, 3) float32
+    translations: (B, G, 3)    float32 (mm)
+    bbox_trans:   (B, 2, 3)    float32 affine internal-frame -> crop
+    """
+    images: torch.Tensor
+    mask: torch.Tensor
+    class_ids: torch.Tensor
+    rotations: torch.Tensor
+    translations: torch.Tensor
+    bbox_trans: torch.Tensor
+
+    @staticmethod
+    def from_numpy(**arrays) -> "Batch":
+        return Batch(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                        for k, v in arrays.items()})
+
+    def to(self, device) -> "Batch":
+        return Batch(*(t.to(device, non_blocking=True) for t in self))
 
 
 class TaskConsts(NamedTuple):

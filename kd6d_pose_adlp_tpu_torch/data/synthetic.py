@@ -2,9 +2,9 @@
 synthetic.py:68-231`, the same numpy RNG stream sample for sample; its
 class-restriction options, used only by JAX pretraining, are not ported).
 
-No LINEMOD data ships with the repo, so serving requests and task
-constants for smoke runs come from here: a painted cuboid per class under a
-random pose, cropped by a DZI affine.
+No LINEMOD data ships with the repo, so training batches, serving requests
+and task constants for smoke runs come from here: a painted cuboid per
+class under a random pose, cropped by a DZI affine.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 
 from ..utils import geometry as geo
-from .batch import TaskConsts
+from .batch import Batch, TaskConsts
 from .transforms import IMAGENET_MEAN, IMAGENET_STD
 
 _INTERNAL_K = np.array([[572.4114, 0, 325.2611],
@@ -149,6 +149,16 @@ class SyntheticPoseDataset:
                     rotations=rotations, translations=translations,
                     bbox_trans=M,
                     meta=dict(K=self.K, width=W, height=H, cls=cls, R=R, T=T))
+
+    def batch(self, indices, train: bool = True) -> Batch:
+        """A training Batch of CPU tensors (the JAX dataset's numpy leaves,
+        stacked); `Batch.to(device)` moves it."""
+        samples = [self.sample(i, train) for i in indices]
+        stack = lambda k: np.stack([s[k] for s in samples])
+        return Batch.from_numpy(
+            images=stack("image"), mask=stack("mask"),
+            class_ids=stack("class_ids"), rotations=stack("rotations"),
+            translations=stack("translations"), bbox_trans=stack("bbox_trans"))
 
     def requests(self, indices, train: bool = False):
         """A serving request batch: uint8 BGR crops (B, res, res, 3), crop

@@ -1,0 +1,195 @@
+"""The KD train step (port of `kd6d_pose_adlp_tpu/engine/steps.py:30-171`).
+
+One step: teacher forward (eval mode, no gradient) -> teacher-knowledge
+voting -> student forward in train mode (its BN statistics update) ->
+SSC targets, focal, object-space and Sinkhorn-OT losses -> backward ->
+optax-form global-norm clip -> AdamW with the OneCycle LR.
+
+JAX keeps the state as an immutable pytree; here the student module holds
+the parameters and BN statistics and the optimizer updates them in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.batch import Batch, TaskConsts
+from ..models.pose_net import PoseNet, init_pose_net
+from ..ops.object_space import select_class_pred
+from ..ops.voting import Votes, vote_cells, votes_to_internal_frame
+from .losses import pose_losses
+from .schedule import onecycle_linear_lr
+
+
+class AdamWState(NamedTuple):
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class AdamW:
+    """optax `chain(clip_by_global_norm(max_norm), adamw(lr_schedule, b1, b2,
+    eps, weight_decay))` over a parameter list, updating in place.
+
+    Clip as optax: g * (max_norm / |g|) when |g| >= max_norm, untouched
+    below (torch's clip_grad_norm_ divides by |g| + 1e-6 instead). The LR
+    is the schedule at the update count BEFORE it increments; the bias
+    corrections 1 - b**count are float32 powers, as XLA computes them."""
+
+    def __init__(self, lr_schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 1e-4,
+                 max_norm: float = 1.0):
+        self.lr_schedule = lr_schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.max_norm = weight_decay, max_norm
+
+    def init(self, params: List[torch.Tensor]) -> AdamWState:
+        zeros = lambda: [torch.zeros_like(p, memory_format=torch.preserve_format)
+                         for p in params]
+        return AdamWState(count=0, mu=zeros(), nu=zeros())
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdamWState):
+        """Applies one update to `params`; returns (new state, |grads|)."""
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(g_norm < self.max_norm, torch.ones_like(g_norm),
+                            self.max_norm / g_norm)
+        g = torch._foreach_mul(grads, scale)
+
+        mu, nu = state.mu, state.nu
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        count = state.count + 1
+        f32 = np.float32
+        bc1 = float(f32(1) - f32(self.b1) ** f32(count))
+        bc2 = float(f32(1) - f32(self.b2) ** f32(count))
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(u, den)
+        torch._foreach_add_(u, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, u, alpha=-self.lr_schedule(state.count))
+        return AdamWState(count=count, mu=mu, nu=nu), g_norm
+
+
+class TrainState(NamedTuple):
+    step: int
+    net: PoseNet          # parameters + BN statistics
+    opt_state: AdamWState
+
+
+def make_optimizer(cfg: Config, n_devices: int = 1) -> AdamW:
+    """AdamW(0.9, 0.999, 1e-8, wd) + OneCycle linear LR over max_iter + 100
+    steps (the reference passes MAX_ITER+100), LR divided by the device
+    count, grad-clip `solver.grad_clip`."""
+    total = cfg.solver.max_iter + 100
+    return AdamW(onecycle_linear_lr(cfg.solver.base_lr / n_devices, total),
+                 b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=cfg.solver.weight_decay,
+                 max_norm=cfg.solver.grad_clip)
+
+
+def create_train_state(cfg: Config, net: PoseNet, optimizer: AdamW,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
+    """Step 0 over `net` (its weights drawn from `generator` by
+    `init_pose_net` when one is given, else kept as they are)."""
+    if generator is not None:
+        init_pose_net(net, generator)
+    return TrainState(step=0, net=net,
+                      opt_state=optimizer.init(list(net.parameters())))
+
+
+def teacher_knowledge(t_cls: torch.Tensor, t_reg: torch.Tensor, batch: Batch,
+                      cfg_t: Config, max_votes: int,
+                      teacher_class: str = "gt") -> Votes:
+    """Teacher voted-cell extraction in the internal frame.
+
+    "gt" votes the image's GT class; "pred" votes the class of the
+    teacher's best-scoring (anchor, class) pair (the first on ties, as XLA's
+    argmax). The teacher-side RANSAC-PnP is skipped: the KD loss never
+    reads its pose."""
+    m = cfg_t.model
+    scores = torch.sigmoid(t_cls)                                 # (B,A,nfg)
+    B, A, n_fg = scores.shape
+    if teacher_class == "pred":
+        voted_cls = torch.argmax(scores.reshape(B, -1), dim=1) % n_fg
+    elif teacher_class == "gt":
+        voted_cls = batch.class_ids[:, 0].clamp_min(0).to(torch.int64)
+    else:
+        raise ValueError(f"teacher_class {teacher_class!r}")
+    s = torch.gather(scores, 2, voted_cls[:, None, None].expand(B, A, 1))[..., 0]
+    pred16 = select_class_pred(t_reg, voted_cls[:, None].expand(B, A))
+    votes = vote_cells(
+        s, pred16, input_res=m.input_res, strides=m.level_strides,
+        all_sizes=m.anchor_sizes, confidence_th=cfg_t.test.confidence_th,
+        positive_num=cfg_t.solver.positive_num,
+        positive_lambda=cfg_t.solver.positive_lambda, max_votes=max_votes)
+    kp_internal = votes_to_internal_frame(votes, batch.bbox_trans)
+    valid = votes.valid & (batch.class_ids[:, :1] >= 0)
+    return Votes(kp2d=kp_internal, score=votes.score, valid=valid,
+                 box_size=votes.box_size)
+
+
+@torch.no_grad()
+def teacher_votes(cfg: Config, cfg_t: Config, teacher_net: PoseNet,
+                  batch: Batch) -> Votes:
+    """Teacher forward (eval mode) + voted knowledge for one batch."""
+    teacher_net.eval()
+    t_cls, t_reg = teacher_net(batch.images)
+    return teacher_knowledge(t_cls, t_reg, batch, cfg_t, cfg.kd.max_teacher_cells,
+                             teacher_class=cfg.kd.teacher_class)
+
+
+def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
+                     net: PoseNet, teacher_net: Optional[PoseNet],
+                     optimizer: AdamW, distill: bool = True):
+    """Returns step_fn(state, batch, uniform=None, generator=None)
+    -> (state, metrics), metrics a dict of 0-dim tensors on the device.
+
+    `uniform` (B, A, G) is SSC's draw for this step; without it the draw
+    comes from `generator`. With distill=False (or no teacher) the teacher
+    is skipped and loss_kd is 0."""
+    w_img, h_img = float(cfg.data.internal_width), float(cfg.data.internal_height)
+    params = list(net.parameters())
+
+    def step_fn(state: TrainState, batch: Batch,
+                uniform: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        teacher = None
+        if distill and teacher_net is not None:
+            teacher = (teacher_votes(cfg, cfg_t, teacher_net, batch), w_img, h_img)
+
+        net.train()
+        for p in params:
+            p.grad = None
+        cls_logits, pred_reg = net(batch.images)
+        out = pose_losses(cls_logits, pred_reg, batch, consts, cfg,
+                          teacher=teacher, uniform=uniform, generator=generator)
+        total = (cfg.solver.loss_weight_cls * out.loss_cls
+                 + cfg.solver.loss_weight_reg * out.loss_reg)
+        if teacher is not None and cfg.kd.weight > 0:
+            total = total + cfg.kd.weight * out.loss_kd
+        total.backward()
+        # a parameter the loss does not reach (a head scale past num_levels)
+        # has a zero gradient in JAX, and weight decay still applies to it
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        opt_state, g_norm = optimizer.update(params, grads, state.opt_state)
+        metrics: Dict[str, torch.Tensor] = {
+            "loss_total": total.detach(),
+            "loss_cls": out.loss_cls.detach(),
+            "loss_reg": out.loss_reg.detach(),
+            "loss_kd": out.loss_kd.detach(),
+            "num_pos": out.num_pos,
+            "grad_norm": g_norm,
+        }
+        return TrainState(step=state.step + 1, net=net, opt_state=opt_state), metrics
+
+    return step_fn

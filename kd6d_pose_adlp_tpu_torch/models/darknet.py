@@ -9,8 +9,8 @@ In eval mode the first two stages — stage1_unit1 -> pool -> stage2_unit1 ->
 pool, both single 3x3 ConvBNAct units — always run as ONE flat-layout
 segment through the fused CUDA kernels (`ops/conv_fused.stem_s2_segment_flat`),
 with BN folded from the running statistics; the segment takes any H, W >= 4
-and raises below that. In train mode every unit is the plain ConvBNAct
-(training is the next slice).
+and raises below that. In train mode every unit is the plain ConvBNAct, as
+the JAX package runs no conv kernel in training.
 
 `stem_stacked=True` is a measurement hook, not a serving option: it sends
 the eval stem through the stacked-tap kernel (K3), which computes the same

@@ -17,14 +17,20 @@ from ..config import ModelConfig
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from .blocks import ConvBNAct
 from .darknet import DarkNet
+from .darknet53 import DarkNet53
 from .fpn import FPN
 from .head import PoseHead
 
-_BACKBONE_VERSIONS = {"darknet_tiny_h": "tiny-h"}
+_BACKBONE_VERSIONS = {"darknet_tiny_h": "tiny-h", "darknet53": None}
 
 
 class PoseNet(nn.Module):
-    """`stem_stacked` is a measurement hook (see `models/darknet.py`): it
+    """Backbones: `darknet_tiny_h` (the student; its eval stem runs the K2
+    segment) and `darknet53` (the KD teacher; plain units). Train mode runs
+    every unit as a plain ConvBNAct, as the JAX package runs no conv kernel
+    in training (`kd6d_pose_adlp_tpu/ops/conv_pallas.py:37-41`).
+
+    `stem_stacked` is a measurement hook (see `models/darknet.py`): it
     routes the eval-mode stem segment through the slower stacked-tap kernel
     (K3) instead of the flat one (K2); same function. Serving leaves it
     off."""
@@ -35,13 +41,19 @@ class PoseNet(nn.Module):
         if cfg.backbone not in _BACKBONE_VERSIONS:
             raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported")
         if cfg.compute_dtype != "float32" or cfg.bn_folded or cfg.quant_mode \
-                or cfg.code_bits:
+                or cfg.code_bits or cfg.remat:
             raise NotImplementedError(
-                "only the float32, unfolded, unquantized keypoint head is ported")
+                "only the float32, unfolded, unquantized, un-rematerialized "
+                "keypoint network is ported")
         self.cfg = cfg
         self.n_fg = n_fg
-        self.backbone = DarkNet(_BACKBONE_VERSIONS[cfg.backbone],
-                                stem_stacked=stem_stacked)
+        if cfg.backbone == "darknet53":
+            if stem_stacked:
+                raise ValueError("stem_stacked applies to darknet_tiny_h only")
+            self.backbone = DarkNet53()
+        else:
+            self.backbone = DarkNet(_BACKBONE_VERSIONS[cfg.backbone],
+                                    stem_stacked=stem_stacked)
         self.fpn = FPN(cfg.feat_channels, cfg.out_channel,
                        use_p6p7=cfg.use_higher_levels)
         self.head = PoseHead(cfg.out_channel, n_fg, n_conv=cfg.n_conv,

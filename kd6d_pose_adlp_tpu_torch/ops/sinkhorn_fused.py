@@ -1,0 +1,141 @@
+"""The Sinkhorn potential solve, kernel K1 (port of
+`kd6d_pose_adlp_tpu/ops/sinkhorn_pallas.py:128` `_solve_potentials`).
+
+For N independent weighted clouds x (N, P, 2), y (N, T, 2) with
+log-weights (N, P) / (N, T), K1 returns the four dual potentials
+(a_x, b_y, a_y, b_x) of the debiased (unbalanced) Sinkhorn divergence after
+the whole eps-annealing loop: 4 log-sum-exp softmins per eps, damping
+lambda = 1 / (1 + eps / rho), Jacobi 0.5-averaging. It is gradient-free:
+the wrapper runs on detached tensors under `no_grad`, and the gradient
+flows through the plain-torch extrapolation of `ops/sinkhorn.sinkhorn_value`.
+
+`solve_potentials` launches the hand-written CUDA kernel
+(`csrc/sinkhorn_potentials.cu`) for CUDA tensors and counts the launch in
+`launches` under (kernel name, P, T). For CPU tensors, and only for them,
+it runs `solve_potentials_plain` beside it, the same loop in torch ops.
+There is no fallback: a build or launch error propagates.
+
+The eps list and the damping factors are computed on the host by
+`ops/sinkhorn.schedule`, in double precision, and passed to the kernel as float32; rho enters only
+through lambda. P and T may be anything up to 128 (the kernel raises
+above); padding semantics are JAX's: log-weight -1e30, and a row whose
+entries are all -1e30 gives log(T) through the max-subtract.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..utils import cuda_build
+from .sinkhorn import _softmin, cost_matrix, schedule
+
+MAX_POINTS = 128      # largest P or T the kernel takes
+MAX_EPS = 64          # longest eps schedule the kernel takes
+
+# kernel launches since the last reset, keyed (kernel name, P, T)
+launches: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts():
+    launches.clear()
+
+
+def solve_potentials_plain(x, y, a_log, b_log, *, p: float, blur: float,
+                           scaling: float, reach: Optional[float],
+                           diameter: float, debias: bool):
+    """The annealing loop in torch ops (the JAX default path's solve)."""
+    eps_list, lams = schedule(p, blur, scaling, reach, diameter)
+    C_xy = cost_matrix(x, y, p)
+    C_yx = C_xy.transpose(-1, -2)
+    C_xx = cost_matrix(x, x, p)
+    C_yy = cost_matrix(y, y, p)
+
+    eps, lam = eps_list[0], lams[0]
+    b_x = lam * _softmin(eps, C_xy, b_log)
+    a_y = lam * _softmin(eps, C_yx, a_log)
+    a_x = lam * _softmin(eps, C_xx, a_log) if debias else torch.zeros_like(b_x)
+    b_y = lam * _softmin(eps, C_yy, b_log) if debias else torch.zeros_like(a_y)
+    for eps, lam in zip(eps_list[1:], lams[1:]):
+        bt_x = lam * _softmin(eps, C_xy, b_log + a_y / eps)
+        at_y = lam * _softmin(eps, C_yx, a_log + b_x / eps)
+        b_x = 0.5 * (b_x + bt_x)
+        a_y = 0.5 * (a_y + at_y)
+        if debias:
+            at_x = lam * _softmin(eps, C_xx, a_log + a_x / eps)
+            bt_y = lam * _softmin(eps, C_yy, b_log + b_y / eps)
+            a_x = 0.5 * (a_x + at_x)
+            b_y = 0.5 * (b_y + bt_y)
+    return a_x, b_y, a_y, b_x
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The built kernel with its C signature declared."""
+    lib = cuda_build.load("sinkhorn_potentials")
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sinkhorn_potentials.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                        i, i, i, vp, vp, i, f, i, vp]
+    lib.sinkhorn_potentials.restype = i
+    return lib
+
+
+def _check(x, y, a_log, b_log):
+    if x.dim() != 3 or y.dim() != 3 or x.shape[0] != y.shape[0] \
+            or x.shape[2] != 2 or y.shape[2] != 2:
+        raise ValueError(f"x {tuple(x.shape)}, y {tuple(y.shape)} are not "
+                         "(N, P, 2), (N, T, 2)")
+    N, P, T = x.shape[0], x.shape[1], y.shape[1]
+    if a_log.shape != (N, P) or b_log.shape != (N, T):
+        raise ValueError(f"log-weights {tuple(a_log.shape)}, {tuple(b_log.shape)}"
+                         f" are not ({N}, {P}), ({N}, {T})")
+    for name, t in (("x", x), ("y", y), ("a_log", a_log), ("b_log", b_log)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def solve_potentials(x, y, a_log, b_log, *, p: float = 2.0, blur: float = 1e-3,
+                     scaling: float = 0.5, reach: Optional[float] = 0.5,
+                     diameter: float = 2.0, debias: bool = True):
+    """K1: x (N, P, 2), y (N, T, 2), a_log (N, P), b_log (N, T) float32
+    -> (a_x (N, P), b_y (N, T), a_y (N, T), b_x (N, P)), no gradient.
+    With debias=False a_x and b_y are zeros."""
+    _check(x, y, a_log, b_log)
+    x, y, a_log, b_log = (t.detach() for t in (x, y, a_log, b_log))
+    kw = dict(p=p, blur=blur, scaling=scaling, reach=reach, diameter=diameter)
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return solve_potentials_plain(x, y, a_log, b_log, debias=debias, **kw)
+
+    N, P, T = x.shape[0], x.shape[1], y.shape[1]
+    if P > MAX_POINTS or T > MAX_POINTS:
+        raise ValueError(f"sinkhorn_potentials takes P, T <= {MAX_POINTS}, "
+                         f"got P={P}, T={T}")
+    eps_list, lams = schedule(**kw)
+    if len(eps_list) > MAX_EPS:
+        raise ValueError(f"eps schedule of {len(eps_list)} steps > {MAX_EPS}")
+    x, y, a_log, b_log = (t.contiguous() for t in (x, y, a_log, b_log))
+    a_x, b_x = (torch.empty((N, P), device=x.device) for _ in range(2))
+    b_y, a_y = (torch.empty((N, T), device=x.device) for _ in range(2))
+    if N == 0:
+        return a_x, b_y, a_y, b_x
+    eps_h = (ctypes.c_float * len(eps_list))(*eps_list)
+    lam_h = (ctypes.c_float * len(lams))(*lams)
+    with torch.cuda.device(x.device):
+        err = _lib().sinkhorn_potentials(
+            x.data_ptr(), y.data_ptr(), a_log.data_ptr(), b_log.data_ptr(),
+            a_x.data_ptr(), b_y.data_ptr(), a_y.data_ptr(), b_x.data_ptr(),
+            N, P, T, ctypes.addressof(eps_h), ctypes.addressof(lam_h),
+            len(eps_list), p, int(debias),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sinkhorn_potentials: CUDA error {err} at launch")
+    launches[("sinkhorn_potentials", P, T)] += 1
+    return a_x, b_y, a_y, b_x

@@ -27,23 +27,36 @@ def _conv(sd: Dict, prefix: str, node: Mapping):
         sd[prefix + ".bias"] = _t(node["bias"])
 
 
+def _conv_bn(sd: Dict, pre: str, block: Mapping, stats: Mapping):
+    """One ConvBNAct: flax {conv, bn} params + {bn} stats -> `pre.conv/bn.*`."""
+    _conv(sd, pre + ".conv", block["conv"])
+    bn, st = block["bn"], stats["bn"]
+    sd[pre + ".bn.weight"] = _t(bn["scale"])
+    sd[pre + ".bn.bias"] = _t(bn["bias"])
+    sd[pre + ".bn.running_mean"] = _t(st["mean"])
+    sd[pre + ".bn.running_var"] = _t(st["var"])
+    sd[pre + ".bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
 
+    # darknet (tiny-h): stage{i}_unit{j}; darknet53: init_block,
+    # stage{i}_unit1 and the residual stage{i}_unit{j}/conv{1,2}
     for name, block in params["backbone"].items():
-        m = re.fullmatch(r"stage(\d+)_unit(\d+)", name)
+        st = stats["backbone"][name]
+        m = re.fullmatch(r"init_block|stage(\d+)_unit(\d+)", name)
         if not m:
             raise KeyError(f"unexpected backbone module {name!r}")
-        pre = f"backbone.features.stage{m.group(1)}.unit{m.group(2)}"
-        _conv(sd, pre + ".conv", block["conv"])
-        bn, st = block["bn"], stats["backbone"][name]["bn"]
-        sd[pre + ".bn.weight"] = _t(bn["scale"])
-        sd[pre + ".bn.bias"] = _t(bn["bias"])
-        sd[pre + ".bn.running_mean"] = _t(st["mean"])
-        sd[pre + ".bn.running_var"] = _t(st["var"])
-        sd[pre + ".bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        pre = ("backbone.features.init_block" if m.group(1) is None else
+               f"backbone.features.stage{m.group(1)}.unit{m.group(2)}")
+        if "conv1" in block:
+            for sub in ("conv1", "conv2"):
+                _conv_bn(sd, f"{pre}.{sub}", block[sub], st[sub])
+        else:
+            _conv_bn(sd, pre, block, st)
 
     for name, node in params["fpn"].items():
         m = re.fullmatch(r"(inner|out)(\d+)|(p6|p7)", name)

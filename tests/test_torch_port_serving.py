@@ -182,7 +182,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'kd6d_pose_adlp_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'kd6d_pose_adlp_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith(p.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
