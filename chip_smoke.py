@@ -23,9 +23,13 @@ Phases:
            apart, max|kernel - plain| <= 1e-5 * max|plain| there (the self
            potentials a_x, b_y are ~1e-6 at real points and ~1e-2 at
            padded ones), and the divergence built from them (rtol 1e-4,
-           atol 1e-6); also at P != T and at the 128-point cap, and a raise
-           above it; timed by CUDA-graph replay beside its bound and the
-           plain version. No single PyTorch call computes it.
+           atol 1e-6); the same at the edges of its thread mapping (N, P, T
+           = 3, 1, 1; 5, 1, 128; 3, 128, 128; 7, 64, 37 balanced; 8, 37,
+           128 balanced and biased; 4, 128, 5) and at the 128-point cap
+           with the main path's N, every cloud keeping at least one real
+           point; P = 129 must raise. Timed by CUDA-graph replay beside its
+           bound and the plain version, at the main shape and (logged) at
+           the cap. No single PyTorch call computes it.
   serving  builds the full-width darknet_tiny_h PoseNet from a seeded
            generator and answers requests of 8 synthetic 256² uint8 crops
            through build_infer_fn(device="cuda"): 4 requests on the default
@@ -300,8 +304,14 @@ def sinkhorn_kernel(torch, sf, dev):
     def problems(n, p_, t_):
         x = torch.rand((n, p_, 2), generator=g, device=dev)
         y = torch.rand((n, t_, 2), generator=g, device=dev)
-        w = lambda *s: ((0.1 + 0.9 * torch.rand(s, generator=g, device=dev))
-                        * (torch.rand(s, generator=g, device=dev) >= 0.25))
+
+        def w(*s):
+            # a quarter of the points padded, the first point of every cloud
+            # kept real (a cloud of padding alone has no divergence, and its
+            # ~1e29 potentials would swamp the padded points' gate)
+            keep = torch.rand(s, generator=g, device=dev) >= 0.25
+            keep[:, 0] = True
+            return (0.1 + 0.9 * torch.rand(s, generator=g, device=dev)) * keep
         return x, y, w(n, p_), w(n, t_)
 
     def compare(x, y, a, b, **kw_):
@@ -331,9 +341,15 @@ def sinkhorn_kernel(torch, sf, dev):
     if not ok:
         raise AssertionError("sinkhorn_potentials disagrees with its plain version")
     # other sizes the kernel takes (P != T, the 128-point cap, the balanced
-    # and biased forms); above 128 it raises
+    # and biased forms) and the edges of its thread mapping (one point; 4, 2
+    # and 1 lanes per row; a row of exactly 128 columns; passes that split
+    # a warp); above 128 it raises
     for (n, p_, t_), kw_ in (((8, 37, 128), dict(kw, reach=None, debias=False)),
-                             ((4, 128, 5), dict(kw, debias=True))):
+                             ((4, 128, 5), dict(kw, debias=True)),
+                             ((3, 1, 1), kw),
+                             ((5, 1, 128), kw),
+                             ((3, 128, 128), dict(kw, debias=True)),
+                             ((7, 64, 37), dict(kw, reach=None))):
         _, pe, ok, de, _ = compare(*problems(n, p_, t_), **kw_)
         log(f"[kernel] sinkhorn_potentials N={n} P={p_} T={t_} reach={kw_['reach']} "
             f"debias={kw_['debias']}: {show(pe)}; divergence {de:.3e}")
@@ -347,32 +363,54 @@ def sinkhorn_kernel(torch, sf, dev):
     else:
         raise AssertionError("sinkhorn_potentials took P = 129")
 
-    in_bytes = 4 * sum(t.numel() for t in args)
-    out_bytes = 4 * N * 2 * (P + T)
-    copies = [tuple(t.clone() for t in args) for _ in range(n_copies(in_bytes))]
     kern = lambda *t: sf.solve_potentials(*t, **kw)
     plain = lambda *t: sf.solve_potentials_plain(*t, **kw)
-    ms = time_cuda(torch, kern, copies)
-    eager_ms = time_cuda(torch, kern, copies, graph=False)
-    with torch.no_grad():
-        plain_ms = time_cuda(torch, plain, copies, iters=20)
-    del copies
-    # per eps: 4 softmin passes (x over y, y over x, x over x, y over y), one
-    # expf per (row, column) and one logf per row; ~10 fp32 operations per
-    # (row, column) for the cost, the scale, the max and the sum
     n_eps = len(sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)[0])
-    pairs = N * n_eps * (2 * P * T + P * P + T * T)
-    sfu_ops = pairs + N * n_eps * 2 * (P + T)
-    byte_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    op_s = max(sfu_ops / SFU_OPS_PER_S, 10 * pairs / FP32_FLOPS)
+
+    def bound(args_, p_, t_):
+        """(bound s, bytes, expf count, SFU ops, bound_by) of one solve: per
+        eps 4 softmin passes (x over y, y over x, x over x, y over y), one
+        expf per (row, column) and one logf per row; ~10 fp32 operations per
+        (row, column) for the cost, the scale, the max and the sum."""
+        n = args_[0].shape[0]
+        nbytes = 4 * sum(t.numel() for t in args_) + 4 * n * 2 * (p_ + t_)
+        pairs_ = n * n_eps * (2 * p_ * t_ + p_ * p_ + t_ * t_)
+        sfu_ = pairs_ + n * n_eps * 2 * (p_ + t_)
+        byte_s_ = nbytes / HBM_BYTES_PER_S
+        op_s_ = max(sfu_ / SFU_OPS_PER_S, 10 * pairs_ / FP32_FLOPS)
+        return (max(byte_s_, op_s_), nbytes, pairs_, sfu_,
+                "bytes" if byte_s_ >= op_s_ else "operations")
+
+    def timed(args_):
+        copies = [tuple(t.clone() for t in args_) for _ in range(n_copies(4 * sum(
+            t.numel() for t in args_)))]
+        ms_, eager_ = time_cuda(torch, kern, copies), time_cuda(torch, kern, copies,
+                                                                graph=False)
+        with torch.no_grad():
+            plain_ = time_cuda(torch, plain, copies, iters=20)
+        return ms_, eager_, plain_
+
+    # the 128-point cap at the main path's N, held by the same gate and timed
+    # (logged, not a row of the kernels line)
+    cap_args, cap_pots, ok, cap_div, _ = compare(*problems(N, 128, 128), **kw)
+    if not ok:
+        raise AssertionError("sinkhorn_potentials disagrees at P = T = 128")
+    cap_ms, _, cap_plain = timed(cap_args)
+    cap_bound_s, *_, cap_by = bound(cap_args, 128, 128)
+    log(f"[kernel] sinkhorn_potentials at the cap, N={N} P=T=128: {show(cap_pots)}; "
+        f"divergence {cap_div:.3e}; {cap_ms * 1e3:.1f} us (bound {cap_bound_s * 1e6:.1f} us "
+        f"by {cap_by}, plain {cap_plain * 1e3:.1f} us)")
+
+    ms, eager_ms, plain_ms = timed(args)
+    bound_s, nbytes, pairs, sfu_ops, bound_by = bound(args, P, T)
     row = dict(name="sinkhorn_potentials", shape=f"N={N} P={P} T={T} eps={n_eps}",
                route="cuda", source=SINKHORN_SRC, replaces=REPLACES["sinkhorn_potentials"],
                max_abs_err=err, potentials=pots, divergence_max_abs_err=div_err, ms=ms,
-               plain_ms=plain_ms,
-               bound_ms=1e3 * max(byte_s, op_s),
-               bound_by="bytes" if byte_s >= op_s else "operations",
-               library_ms=None, eager_ms=eager_ms, bytes=in_bytes + out_bytes,
-               expf=pairs, sfu_ops=sfu_ops, P=P, T=T)
+               plain_ms=plain_ms, bound_ms=1e3 * bound_s, bound_by=bound_by,
+               library_ms=None, eager_ms=eager_ms, bytes=nbytes,
+               expf=pairs, sfu_ops=sfu_ops, P=P, T=T,
+               cap=dict(N=N, P=128, T=128, ms=cap_ms, plain_ms=cap_plain,
+                        bound_ms=1e3 * cap_bound_s))
     log(f"[kernel] sinkhorn_potentials: {ms * 1e3:.1f} us  (bound "
         f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']}: {pairs / 1e6:.1f} M expf; "
         f"plain {plain_ms * 1e3:.1f} us; no single PyTorch call computes it; eager call "

@@ -10,7 +10,7 @@
 //   f_i = -eps * (log sum_j exp(m_ij - max_j m_ij) + max_j m_ij),
 //   m_ij = h_j - C_ij / eps,  C = |x_i - y_j|^p / p
 //   pot <- lam * f (first eps)  or  0.5 * (pot + lam * f)   (Jacobi average)
-// for the four pairs (b_x: x over y, a_y: y over x, a_x: x over x,
+// for the four passes (b_x: x over y, a_y: y over x, a_x: x over x,
 // b_y: y over y; the last two only with debias). The eps and lam = 1 /
 // (1 + eps / rho) lists come from the host; rho enters only through lam.
 // Padding is JAX's: log-weight -1e30, so a padded column adds exp(-huge) = 0,
@@ -19,22 +19,49 @@
 //
 // What bounds it on an H100: at the KD loss's shape (N = B * 8 = 128,
 // P = T = 64, 12 eps values) it computes 128 * 12 * 4 * 64 * 64 = 25.2 M
-// expf, and reads/writes ~0.2 MB. The special-function units (16 results
-// per clock per SM, ~4.2 T/s over 132 SMs at 1.98 GHz) bound it at ~6 us;
-// the bytes and the fp32 arithmetic are below that. The 12 dependent eps
-// steps, each ending in a block barrier, keep it latency-bound above that.
+// expf and reads/writes ~0.3 MB. The special-function units (16 results
+// per clock per SM, ~4.2 T/s over 132 SMs at 1.98 GHz) bound it at ~6 us.
+// But an accurate expf is 8 instructions around its one SFU op, and each
+// (row, column) pair needs 5 more (scale, subtract, max, subtract, add),
+// so the instruction issue rate (4 warp instructions per clock per SM) is
+// the floor in practice, about 1.6 times the SFU bound.
 //
-// Design (not the TPU's 8 problems per program padded to a multiple of 8,
-// which Mosaic's (8, 128) tiling forced): one thread block per problem, no
-// padding of N; 128 problems fill the 132 SMs once. Coordinates, weights
-// and the four potentials stay in shared memory for the whole schedule; the
-// cost entries are recomputed from the coordinates (a few FMAs, cheaper
-// than holding four P x T matrices, which at P = T = 128 would not fit).
-// Each softmin row is one warp: lane l owns columns l, l + 32, l + 64, l + 96
-// (their coordinates and h values sit in registers), takes the row max and
-// the sum of expf by warp shuffles, and lane 0 applies logf and the update.
-// The Jacobi update reads old potentials only through the h vectors built
-// before a barrier, so each row updates its own potential in place.
+// Design. One thread block of 512 threads per problem, no padding of N
+// (128 problems fill the 132 SMs once). Within one eps the 2P + 2T softmin
+// rows of the four passes are independent (Jacobi), so threads are mapped
+// to rows, not to columns: G = 4, 2 or 1 neighbouring lanes share a row
+// (the largest G with G * rows <= 512; at P = T = 64, 256 rows and G = 2),
+// and the G lanes combine their partial max and sum by one or two
+// shuffles. Each thread's exponentials are independent of each other, so
+// 16 warps keep the pipelines full. The cost C_ij does not depend on eps:
+// a lane owns K * 32 / G columns of its row (K = ceil(max(P, T) / 32)),
+// and when those are at most 32 (`k1_kept`, the main path) it computes
+// their C entries once and keeps them in registers for the whole schedule,
+// so a pair costs one multiply, one subtract and one max before its
+// exponential. The h vectors live in shared memory, permuted so that a
+// lane's columns are contiguous (float4 loads; the lanes of a warp read
+// the same few addresses, a broadcast). The thread that owns a row keeps
+// its potential in a register, applies lam and the Jacobi average, and
+// writes the next eps's h entry into the other of two h buffers
+// (ping-pong): one barrier per eps, no separate h phase, and at the main
+// shape each pass group (b_x with a_y, a_x, b_y) waits only for itself.
+// Longer shares (G = 2 with P or T above 64, and G = 1, as at the 128-point
+// cap) take `k1_streamed`: one lane per row, C recomputed from the
+// coordinates in both sweeps.
+//
+// Rounding. The self potentials a_x, b_y at real points are ~1e-6 at the
+// last eps, and float32 rounding in the earlier eps steps, most of it in
+// the sum near 1.0 (the max term), moves them by ~1e-5 of that. So the
+// kernel rounds as the plain version (`solve_potentials_plain`, whose
+// torch.logsumexp runs on the card) does: C = d2 * 0.5 (p = 2), C / eps as
+// C * (1 / eps), h as log-weight + pot * (1 / eps), no FMA contraction,
+// accurate expf and logf, and the sum in the order of PyTorch's CUDA row
+// reduction: over 32 lanes, lane l adding columns l, l + 32, l + 64, l + 96
+// in turn (four consecutive columns 4l .. 4l + 3 when the row has exactly
+// 128), then a shuffle-down tree with offsets 16, 8, 4, 2, 1. A thread of
+// a G-lane group holds the partial sums of the lanes l = sub + G q and runs
+// the first steps of that tree in registers; the last log2(G) steps are
+// the shuffles.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,128 +70,297 @@ namespace {
 
 constexpr int kMaxPts = 128;
 constexpr int kMaxEps = 64;
-constexpr int kCols = kMaxPts / 32;   // columns per lane
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 32;   // lanes of the reference row reduction
 
 struct Schedule {
   int n;
   float eps[kMaxEps];
   float lam[kMaxEps];
+  float inv[kMaxEps];   // 1 / eps, rounded once on the host as the plain version does
 };
 
+struct Problem {
+  const float *x, *y, *a_log, *b_log;
+  float *a_x, *b_y, *a_y, *b_x;
+  int P, T, debias;
+  float p;
+};
+
+// C = |d|^p / p of one pair, rounded as the plain version's cost_matrix.
+template <int PK>   // 2 or 1 for p = 2 or p = 1, 0 for any other p
 __device__ __forceinline__ float cost(float dx, float dy, float p) {
-  const float d2 = dx * dx + dy * dy;
-  if (p == 2.f) return d2 * 0.5f;
+  const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  if (PK == 2) return __fmul_rn(d2, 0.5f);
   const float d = sqrtf(fmaxf(d2, 1e-20f));
-  if (p == 1.f) return d;
-  return powf(d, p) / p;
+  if (PK == 1) return d;
+  return __fmul_rn(powf(d, p), 1.f / p);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+// The reference's shuffle-down tree over the 32 lane sums, in two parts.
+// In a thread: v[q] (lane l = sub + G q) += v[q + O] for q < O, then the
+// same with O / 2, ..., 1 (the tree's offsets 16 .. G).
+template <int O>
+__device__ __forceinline__ void fold(float* v) {
+  if constexpr (O > 0) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// One softmin pass: rows (nr points at rows[2 * r]) over columns (nc points
-// at cols[2 * j], h values at h[j]); pot[r] takes the (averaged) result.
-__device__ __forceinline__ void softmin_rows(
-    const float* rows, int nr, const float* cols, const float* h, int nc,
-    float* pot, float eps, float lam, bool first, float p, int warp, int lane) {
-  float cx[kCols], cy[kCols], hv[kCols];
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    const int j = lane + 32 * k;
-    const bool ok = j < nc;
-    cx[k] = ok ? cols[2 * j] : 0.f;
-    cy[k] = ok ? cols[2 * j + 1] : 0.f;
-    hv[k] = ok ? h[j] : 0.f;
-  }
-  const float inv_eps = 1.f / eps;
-  for (int r = warp; r < nr; r += kWarps) {
-    const float rx = rows[2 * r], ry = rows[2 * r + 1];
-    float m[kCols];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      m[k] = hv[k] - cost(rx - cx[k], ry - cy[k], p) * inv_eps;
-      if (lane + 32 * k < nc) mx = fmaxf(mx, m[k]);
-    }
-    mx = warp_max(mx);
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kCols; ++k)
-      if (lane + 32 * k < nc) s += expf(m[k] - mx);
-    s = warp_sum(s);
-    if (lane == 0) {
-      const float f = lam * (-eps * (logf(s) + mx));
-      pot[r] = first ? f : 0.5f * (pot[r] + f);
-    }
+    for (int q = 0; q < O; ++q) v[q] = __fadd_rn(v[q], v[q + O]);
+    fold<O / 2>(v);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-sinkhorn_potentials_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                           const float* __restrict__ a_log,
-                           const float* __restrict__ b_log,
-                           float* __restrict__ ax_out, float* __restrict__ by_out,
-                           float* __restrict__ ay_out, float* __restrict__ bx_out,
-                           int P, int T, Schedule sched, float p, int debias) {
-  __shared__ float xs[2 * kMaxPts], ys[2 * kMaxPts];
-  __shared__ float al[kMaxPts], bl[kMaxPts];
-  __shared__ float ax[kMaxPts], by[kMaxPts], ay[kMaxPts], bx[kMaxPts];
-  // h vectors of the four passes: over y for b_x, over x for a_y,
-  // over x for a_x, over y for b_y
-  __shared__ float h_bx[kMaxPts], h_ay[kMaxPts], h_ax[kMaxPts], h_by[kMaxPts];
+// Across the G lanes of a group: offsets O = G / 2, ..., 1 (every lane of
+// the group ends with the same bits). The whole warp takes part.
+template <int O>
+__device__ __forceinline__ float group_sum(float s) {
+  if constexpr (O > 0)
+    return group_sum<O / 2>(__fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, O)));
+  else
+    return s;
+}
 
+template <int O>
+__device__ __forceinline__ float group_max(float s) {
+  if constexpr (O > 0)
+    return group_max<O / 2>(fmaxf(s, __shfl_xor_sync(0xffffffffu, s, O)));
+  else
+    return s;
+}
+
+// Slot of column j in a pass's h vector: lane l = j % 32 of the reference
+// reduction, sub = l % G of its group, q = l / G, k = j / 32; each sub's
+// columns are contiguous, in the order (k, q).
+template <int G>
+__device__ __forceinline__ int h_slot(int j) {
+  constexpr int Q = kLanes / G;
+  const int l = j % kLanes;
+  return (l % G) * (kMaxPts / G) + (j / kLanes) * Q + l / G;
+}
+
+// Shared state of one problem: the clouds, and per pass the h vector in
+// h_slot order (-inf past the pass's column count), two buffers.
+struct Smem {
+  float2 pts[2][kMaxPts];                 // x, y
+  __align__(16) float h[2][4][kMaxPts];   // [buffer][pass][slot]
+};
+
+// One thread's row: pass 0 (b_x: x over y, h from b_log and a_y), 1 (a_y:
+// y over x; a_log, b_x), 2 (a_x: x over x; a_log, a_x), 3 (b_y: y over y;
+// b_log, b_y); rows run P, T, P, T.
+struct Row {
+  bool active;
+  int pass, i, nc, feed;   // feed: the pass whose h this row's potential sets
+  float2 pt;               // the row's point
+  float logw;              // the row's log-weight
+  const float2* cols;      // the column cloud
+};
+
+template <int G>
+__device__ __forceinline__ Row setup(Smem& sm, const Problem& pr, int n) {
+  const int tid = threadIdx.x, P = pr.P, T = pr.T;
+  const float* an = pr.a_log + (size_t)n * P;
+  const float* bn = pr.b_log + (size_t)n * T;
+  // points past a cloud's count are (0, 0), so their costs stay finite
+  for (int j = tid; j < kMaxPts; j += kThreads) {
+    const float* xn = pr.x + (size_t)n * 2 * P;
+    const float* yn = pr.y + (size_t)n * 2 * T;
+    sm.pts[0][j] = j < P ? make_float2(xn[2 * j], xn[2 * j + 1]) : make_float2(0.f, 0.f);
+    sm.pts[1][j] = j < T ? make_float2(yn[2 * j], yn[2 * j + 1]) : make_float2(0.f, 0.f);
+  }
+  for (int idx = tid; idx < 4 * kMaxPts; idx += kThreads) {
+    const int pass = idx / kMaxPts, j = idx % kMaxPts;
+    const bool on_y = pass == 0 || pass == 3;
+    const float h = j < (on_y ? T : P) ? (on_y ? bn[j] : an[j]) : -INFINITY;
+    sm.h[0][pass][h_slot<G>(j)] = h;
+    sm.h[1][pass][h_slot<G>(j)] = h;
+  }
+  Row r;
+  const int rows = (pr.debias ? 2 : 1) * (P + T);
+  int i = tid / G, pass = 0;
+  r.active = i < rows;
+  if (i >= P) { i -= P; pass = 1; }
+  if (pass == 1 && i >= T) { i -= T; pass = 2; }
+  if (pass == 2 && i >= P) { i -= P; pass = 3; }
+  r.pass = pass;
+  r.i = i;
+  const bool row_on_x = pass == 0 || pass == 2;
+  r.nc = (pass == 0 || pass == 3) ? T : P;
+  r.feed = pass == 0 ? 1 : pass == 1 ? 0 : pass;
+  r.cols = sm.pts[row_on_x ? (pass == 0 ? 1 : 0) : (pass == 1 ? 0 : 1)];
+  r.pt = make_float2(0.f, 0.f);
+  r.logw = 0.f;
+  if (r.active) {
+    r.pt = make_float2(row_on_x ? pr.x[(size_t)n * 2 * P + 2 * i] : pr.y[(size_t)n * 2 * T + 2 * i],
+                       row_on_x ? pr.x[(size_t)n * 2 * P + 2 * i + 1]
+                                : pr.y[(size_t)n * 2 * T + 2 * i + 1]);
+    r.logw = row_on_x ? an[i] : bn[i];
+  }
+  return r;
+}
+
+// The barrier that ends an eps step. Passes 0 and 1 (b_x, a_y) feed each
+// other, pass 2 (a_x) and pass 3 (b_y) only themselves. When every thread
+// has a row and each of those groups fills whole warps, each group waits
+// only for itself (named barriers 1 .. 3): the groups drift out of step,
+// and one group's sweeps fill the others' serial tails (shuffles, logf,
+// the update). Otherwise the whole block waits.
+struct Barrier {
+  int id, count;   // id 0: the whole block
+  __device__ __forceinline__ void sync() const {
+    if (id == 0) __syncthreads();
+    else asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+  }
+};
+
+template <int G>
+__device__ __forceinline__ Barrier eps_barrier(const Problem& pr, int pass) {
+  const int P = pr.P, T = pr.T;
+  if (!pr.debias || 2 * G * (P + T) != kThreads || (G * P) % 32 || (G * T) % 32)
+    return Barrier{0, kThreads};
+  return pass < 2 ? Barrier{1, G * (P + T)} : pass == 2 ? Barrier{2, G * P} : Barrier{3, G * T};
+}
+
+// After the row's log-sum-exp at eps e: the potential, and the next eps's h
+// entry of the pass it feeds (written by one lane of the group).
+template <int G>
+__device__ __forceinline__ void finish(Smem& sm, const Row& r, const Schedule& s, int e,
+                                       float lse, float& pot) {
+  const float lf = __fmul_rn(s.lam[e], __fmul_rn(-s.eps[e], lse));
+  pot = e == 0 ? lf : __fmul_rn(0.5f, __fadd_rn(pot, lf));
+  if (threadIdx.x % G == 0 && e + 1 < s.n)
+    sm.h[(e + 1) & 1][r.feed][h_slot<G>(r.i)] =
+        __fadd_rn(r.logw, __fmul_rn(pot, s.inv[e + 1]));
+}
+
+__device__ __forceinline__ void store(const Problem& pr, const Row& r, int n, float pot) {
+  if (!r.active) return;
+  float* out = r.pass == 0 ? pr.b_x + (size_t)n * pr.P : r.pass == 1 ? pr.a_y + (size_t)n * pr.T
+             : r.pass == 2 ? pr.a_x + (size_t)n * pr.P : pr.b_y + (size_t)n * pr.T;
+  out[r.i] = pot;
+}
+
+__device__ __forceinline__ void zero_self_potentials(const Problem& pr, int n) {
+  if (pr.debias) return;
+  for (int j = threadIdx.x; j < pr.P; j += kThreads) pr.a_x[(size_t)n * pr.P + j] = 0.f;
+  for (int j = threadIdx.x; j < pr.T; j += kThreads) pr.b_y[(size_t)n * pr.T + j] = 0.f;
+}
+
+// A lane's C entries (lane l = sub + G q: columns l + 32 k); zero past the
+// row's column count, where h = -inf makes the column's m -inf.
+template <int PK, int G, int K>
+__device__ __forceinline__ void kept_costs(const Row& r, int sub, float p,
+                                           float (&C)[K][kLanes / G]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int q = 0; q < kLanes / G; ++q) {
+      const int j = sub + G * q + kLanes * k;
+      const float2 c = r.cols[j];
+      C[k][q] = r.active && j < r.nc
+                    ? cost<PK>(__fsub_rn(r.pt.x, c.x), __fsub_rn(r.pt.y, c.y), p) : 0.f;
+    }
+}
+
+// Every pass has at most 32 K columns and a lane owns K * 32 / G <= 32 of
+// them (lane l = sub + G q of the reference reduction: columns l + 32 k),
+// whose C entries it keeps in registers for the whole schedule.
+template <int G, int K>
+__global__ void __launch_bounds__(kThreads, 1)
+k1_kept(Problem pr, Schedule s) {
+  constexpr int Q = kLanes / G;
+  static_assert(Q * K <= 32 && (Q * K) % 4 == 0, "a lane keeps <= 32 columns, float4s");
+  __shared__ Smem sm;
   const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-
-  for (int i = tid; i < 2 * P; i += kThreads) xs[i] = x[(size_t)n * 2 * P + i];
-  for (int i = tid; i < 2 * T; i += kThreads) ys[i] = y[(size_t)n * 2 * T + i];
-  for (int i = tid; i < P; i += kThreads) { al[i] = a_log[(size_t)n * P + i]; ax[i] = 0.f; }
-  for (int i = tid; i < T; i += kThreads) { bl[i] = b_log[(size_t)n * T + i]; by[i] = 0.f; }
+  const Row r = setup<G>(sm, pr, n);
+  const int sub = threadIdx.x % G;
   __syncthreads();
 
-  for (int e = 0; e < sched.n; ++e) {
-    const float eps = sched.eps[e], lam = sched.lam[e];
-    const bool first = e == 0;
-    // h from the OLD potentials (the Jacobi step reads them all before any
-    // is overwritten)
-    for (int i = tid; i < P; i += kThreads) {
-      h_ay[i] = first ? al[i] : al[i] + bx[i] / eps;
-      h_ax[i] = first ? al[i] : al[i] + ax[i] / eps;
-    }
-    for (int j = tid; j < T; j += kThreads) {
-      h_bx[j] = first ? bl[j] : bl[j] + ay[j] / eps;
-      h_by[j] = first ? bl[j] : bl[j] + by[j] / eps;
-    }
-    __syncthreads();
-    softmin_rows(xs, P, ys, h_bx, T, bx, eps, lam, first, p, warp, lane);
-    softmin_rows(ys, T, xs, h_ay, P, ay, eps, lam, first, p, warp, lane);
-    if (debias) {
-      softmin_rows(xs, P, xs, h_ax, P, ax, eps, lam, first, p, warp, lane);
-      softmin_rows(ys, T, ys, h_by, T, by, eps, lam, first, p, warp, lane);
-    }
-    __syncthreads();
-  }
+  float C[K][Q];
+  if (pr.p == 2.f) kept_costs<2, G, K>(r, sub, pr.p, C);
+  else if (pr.p == 1.f) kept_costs<1, G, K>(r, sub, pr.p, C);
+  else kept_costs<0, G, K>(r, sub, pr.p, C);
 
-  for (int i = tid; i < P; i += kThreads) {
-    ax_out[(size_t)n * P + i] = ax[i];
-    bx_out[(size_t)n * P + i] = bx[i];
+  // every thread runs the sweeps (an idle one on a dummy row of zero
+  // costs), so the shuffles see whole warps; only active rows write
+  const Barrier bar = eps_barrier<G>(pr, r.pass);
+  float pot = 0.f;
+  for (int e = 0; e < s.n; ++e) {
+    const float inv_eps = s.inv[e];
+    const float4* h4 =
+        reinterpret_cast<const float4*>(&sm.h[e & 1][r.pass][sub * (kMaxPts / G)]);
+    float m[K][Q];
+    float mx0 = -INFINITY, mx1 = -INFINITY;   // two chains; max is exact in any order
+#pragma unroll
+    for (int u = 0; u < Q * K; u += 4) {
+      const float4 hv = h4[u / 4];
+      const float hs[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = (u + c) / Q, q = (u + c) % Q;
+        m[k][q] = __fsub_rn(hs[c], __fmul_rn(C[k][q], inv_eps));
+        if (c % 2) mx1 = fmaxf(mx1, m[k][q]);
+        else mx0 = fmaxf(mx0, m[k][q]);
+      }
+    }
+    const float mx = group_max<G / 2>(fmaxf(mx0, mx1));
+    float v[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      v[q] = expf(__fsub_rn(m[0][q], mx));
+#pragma unroll
+      for (int k = 1; k < K; ++k) v[q] = __fadd_rn(v[q], expf(__fsub_rn(m[k][q], mx)));
+    }
+    fold<Q / 2>(v);
+    const float lse = __fadd_rn(logf(group_sum<G / 2>(v[0])), mx);
+    if (r.active) finish<G>(sm, r, s, e, lse, pot);
+    bar.sync();
   }
-  for (int j = tid; j < T; j += kThreads) {
-    by_out[(size_t)n * T + j] = by[j];
-    ay_out[(size_t)n * T + j] = ay[j];
+  if (sub == 0) store(pr, r, n, pot);
+  zero_self_potentials(pr, n);
+}
+
+// Any column count up to 128, one lane per row, C recomputed from the
+// coordinates in both sweeps. A row of exactly 128 columns sums lane l's
+// columns 4l .. 4l + 3, any other l, l + 32, l + 64, l + 96.
+template <int PK>
+__global__ void __launch_bounds__(kThreads, 1)
+k1_streamed(Problem pr, Schedule s) {
+  __shared__ Smem sm;
+  const int n = blockIdx.x;
+  const Row r = setup<1>(sm, pr, n);
+  __syncthreads();
+
+  float pot = 0.f;
+  for (int e = 0; e < s.n; ++e) {
+    if (r.active) {
+      const float inv_eps = s.inv[e];
+      const float* h = sm.h[e & 1][r.pass];   // h_slot<1> is the identity
+      const bool vec = r.nc == kMaxPts;
+      auto m_of = [&](int q, int k) {
+        const int j = vec ? 4 * q + k : q + kLanes * k;
+        const float2 c = r.cols[j];
+        return __fsub_rn(h[j], __fmul_rn(cost<PK>(__fsub_rn(r.pt.x, c.x),
+                                                  __fsub_rn(r.pt.y, c.y), pr.p), inv_eps));
+      };
+      float mx = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int q = 0; q < kLanes; ++q) mx = fmaxf(mx, m_of(q, k));
+      float v[kLanes];
+#pragma unroll
+      for (int q = 0; q < kLanes; ++q) {
+        v[q] = expf(__fsub_rn(m_of(q, 0), mx));
+#pragma unroll
+        for (int k = 1; k < 4; ++k) v[q] = __fadd_rn(v[q], expf(__fsub_rn(m_of(q, k), mx)));
+      }
+      fold<kLanes / 2>(v);
+      finish<1>(sm, r, s, e, __fadd_rn(logf(v[0]), mx), pot);
+    }
+    __syncthreads();
   }
+  store(pr, r, n, pot);
+  zero_self_potentials(pr, n);
 }
 
 }  // namespace
@@ -188,8 +384,24 @@ extern "C" int sinkhorn_potentials(const float* x, const float* y,
   for (int i = 0; i < kMaxEps; ++i) {
     s.eps[i] = i < n_eps ? eps[i] : 1.f;
     s.lam[i] = i < n_eps ? lam[i] : 1.f;
+    s.inv[i] = 1.f / s.eps[i];
   }
-  sinkhorn_potentials_kernel<<<N, kThreads, 0, (cudaStream_t)stream>>>(
-      x, y, a_log, b_log, a_x, b_y, a_y, b_x, P, T, s, p, debias);
+  const Problem pr{x, y, a_log, b_log, a_x, b_y, a_y, b_x, P, T, debias, p};
+  // lanes per row: the most that still give every row its own group; a
+  // lane keeps its columns' costs in registers if they are at most 32
+  const int rows = (debias ? 2 : 1) * (P + T);
+  const int G = 4 * rows <= kThreads ? 4 : 2 * rows <= kThreads ? 2 : 1;
+  const int K = ((P > T ? P : T) + kLanes - 1) / kLanes;   // column blocks of 32
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(N), block(kThreads);
+  if (G == 4 && K == 1) k1_kept<4, 1><<<grid, block, 0, st>>>(pr, s);
+  else if (G == 4 && K == 2) k1_kept<4, 2><<<grid, block, 0, st>>>(pr, s);
+  else if (G == 4 && K == 3) k1_kept<4, 3><<<grid, block, 0, st>>>(pr, s);
+  else if (G == 4) k1_kept<4, 4><<<grid, block, 0, st>>>(pr, s);
+  else if (G == 2 && K == 1) k1_kept<2, 1><<<grid, block, 0, st>>>(pr, s);
+  else if (G == 2 && K == 2) k1_kept<2, 2><<<grid, block, 0, st>>>(pr, s);
+  else if (p == 2.f) k1_streamed<2><<<grid, block, 0, st>>>(pr, s);
+  else if (p == 1.f) k1_streamed<1><<<grid, block, 0, st>>>(pr, s);
+  else k1_streamed<0><<<grid, block, 0, st>>>(pr, s);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Time K1, the port's Sinkhorn potential solve, on one NVIDIA card, and
+split its time into a fixed part and a part per eps step.
+
+    python3 scripts/bench_k1.py                       # the committed source
+    python3 scripts/bench_k1.py --sources a.cu b.cu   # versions side by side
+
+Each source (default: kd6d_pose_adlp_tpu_torch/csrc/sinkhorn_potentials.cu)
+is built with the port's nvcc flags and called through the same C interface
+as `ops/sinkhorn_fused.solve_potentials`. Inputs are those of chip_smoke's
+K1 check: N = 128 problems of P = T = 64 points in [0, 1]^2, a quarter of
+the weights zero, KDConfig's schedule (p = 2, blur 1e-3, scaling 0.5,
+reach 0.5: 12 eps steps), and the 128-point cap. Each source is first held
+against the plain version with chip_smoke's per-potential gate, then timed
+by CUDA-graph replay at both shapes, the sources in turn and back (a, b, b,
+a), and at 1 to 36 eps steps (the schedule repeated) at the main shape; a
+least-squares line through those times gives the fixed and the per-step
+time. Prints one JSON line; runs only on the card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+EPS_STEPS = (1, 2, 4, 8, 12, 24, 36)
+
+
+def build(sources):
+    """Compile each source into its own library, all nvcc processes at once."""
+    from kd6d_pose_adlp_tpu_torch.utils import cuda_build as cb
+
+    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for src in sources:
+        name = os.path.splitext(os.path.basename(src))[0]
+        lib = cb.BUILD_DIR / f"bench_{name}.so"
+        jobs[name] = (lib, subprocess.Popen([cb.nvcc_path(), *cb.NVCC_FLAGS, "-o", str(lib), src],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+        handle = ctypes.CDLL(str(lib))
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        handle.sinkhorn_potentials.argtypes = [vp] * 8 + [i, i, i, vp, vp, i, f, i, vp]
+        handle.sinkhorn_potentials.restype = i
+        libs[name] = handle
+    return libs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sources", nargs="+", default=[os.path.join(
+        ROOT, "kd6d_pose_adlp_tpu_torch", "csrc", "sinkhorn_potentials.cu")])
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_k1: no CUDA device", file=sys.stderr)
+        return 2
+    from kd6d_pose_adlp_tpu_torch.config import Config
+    from kd6d_pose_adlp_tpu_torch.ops import sinkhorn as sk
+    from kd6d_pose_adlp_tpu_torch.ops import sinkhorn_fused as sf
+
+    dev = torch.device("cuda", 0)
+    kd = Config().kd
+    kw = dict(p=kd.p, blur=kd.blur, scaling=kd.scaling, reach=kd.reach, diameter=2.0,
+              debias=True)
+    eps_list, lams = sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)
+    libs = build(args.sources)
+
+    def solver(lib, steps=len(eps_list)):
+        eps = (list(eps_list) * 3)[:steps]
+        lam = (list(lams) * 3)[:steps]
+        eps_h = (ctypes.c_float * steps)(*eps)
+        lam_h = (ctypes.c_float * steps)(*lam)
+
+        def run(x, y, a_log, b_log):
+            N, P, T = x.shape[0], x.shape[1], y.shape[1]
+            a_x, b_x = (torch.empty((N, P), device=dev) for _ in range(2))
+            b_y, a_y = (torch.empty((N, T), device=dev) for _ in range(2))
+            err = lib.sinkhorn_potentials(
+                x.data_ptr(), y.data_ptr(), a_log.data_ptr(), b_log.data_ptr(),
+                a_x.data_ptr(), b_y.data_ptr(), a_y.data_ptr(), b_x.data_ptr(), N, P, T,
+                ctypes.addressof(eps_h), ctypes.addressof(lam_h), steps, kd.p, 1,
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return a_x, b_y, a_y, b_x
+        return run
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def problems(n, p_, t_):
+        x = torch.rand((n, p_, 2), generator=g, device=dev)
+        y = torch.rand((n, t_, 2), generator=g, device=dev)
+
+        def w(*s):
+            keep = torch.rand(s, generator=g, device=dev) >= 0.25
+            keep[:, 0] = True
+            return (0.1 + 0.9 * torch.rand(s, generator=g, device=dev)) * keep
+        a, b = w(n, p_), w(n, t_)
+        return (x, y, sk._safe_log_weights(a), sk._safe_log_weights(b)), a, b
+
+    shapes = {"main": (128, 64, 64), "cap": (128, 128, 128)}
+    inputs = {k: problems(*v) for k, v in shapes.items()}
+    result = {"card": cs.gpu_name_and_power(), "shapes": shapes, "sources": {}}
+    for name, lib in libs.items():
+        gate = {}
+        for shape, (t, a, b) in inputs.items():
+            got = solver(lib)(*t)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                want = sf.solve_potentials_plain(*t, **kw)
+            pots = cs.potential_errors(got, want, a, b)
+            gate[shape] = dict(agrees=cs.potentials_agree(pots), worst=max(
+                r for e in pots.values() for k, r in e.items() if k != "max_abs_err"))
+        result["sources"][name] = dict(gate=gate, ms={k: [] for k in shapes})
+        print(f"[gate] {name}: {gate}", flush=True)
+
+    def copies(t):
+        return [tuple(u.clone() for u in t) for _ in range(cs.n_copies(4 * sum(u.numel() for u in t)))]
+
+    order = list(libs) + list(libs)[::-1]
+    for name in order:
+        for shape, (t, _, _) in inputs.items():
+            ms = cs.time_cuda(torch, solver(libs[name]), copies(t), iters=100)
+            result["sources"][name]["ms"][shape].append(ms)
+            print(f"[time] {name} {shape}: {ms * 1e3:.2f} us", flush=True)
+    main_copies = copies(inputs["main"][0])
+    for name, lib in libs.items():
+        pts = [(n, cs.time_cuda(torch, solver(lib, n), main_copies, iters=100))
+               for n in EPS_STEPS]
+        mx = sum(n for n, _ in pts) / len(pts)
+        my = sum(t for _, t in pts) / len(pts)
+        slope = (sum((n - mx) * (t - my) for n, t in pts)
+                 / sum((n - mx) ** 2 for n, _ in pts))
+        fit = dict(per_eps_ms=slope, fixed_ms=my - slope * mx, points=pts)
+        result["sources"][name]["eps_steps"] = fit
+        print(f"[steps] {name}: {slope * 1e3:.3f} us per eps step + {fit['fixed_ms'] * 1e3:.2f} us "
+              f"fixed; {[(n, round(t * 1e3, 2)) for n, t in pts]}", flush=True)
+    print(json.dumps(result), flush=True)
+    print(result["card"], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,9 +5,11 @@ interpret mode as the JAX package's own tests run it).
 
 Inputs: 16 random problems of 64 + 64 points in [0, 1]², weights in
 [0.1, 1] with the tail zeroed as padding (the KD loss's shape per image
-and keypoint). Tolerances, with the largest difference measured on this CPU
-beside them:
-  K1 plain potentials vs JAX interpret     rtol 2e-4, atol 1e-6  (max abs 2.4e-7)
+and keypoint); the potentials also at the edge shapes that chip_smoke.py
+checks the CUDA kernel at (N, P, T) = (3, 1, 1), (5, 1, 128), (3, 128, 128)
+and (7, 64, 37). Tolerances, with the largest difference measured on this
+CPU beside them:
+  K1 plain potentials vs JAX interpret     rtol 2e-4, atol 1e-6  (max abs 7.2e-7)
     and per potential, over its real and its padded points apart,
     max|diff| <= 2e-4 * max|JAX| there                   (max ratio 5.7e-5)
   divergence vs the JAX default path       rtol 2e-4, atol 2e-5  (max abs 3.8e-6)
@@ -39,8 +41,8 @@ def _clouds(seed, N=16, P=64, T=64):
     y = rng.uniform(0, 1, (N, T, 2)).astype(np.float32)
     a = rng.uniform(0.1, 1.0, (N, P)).astype(np.float32)
     b = rng.uniform(0.1, 1.0, (N, T)).astype(np.float32)
-    a[:, 3 * P // 4:] = 0.0
-    b[:, 5 * T // 8:] = 0.0
+    a[:, max(1, 3 * P // 4):] = 0.0      # a one-point cloud keeps its point
+    b[:, max(1, 5 * T // 8):] = 0.0
     return x, y, a, b
 
 
@@ -55,12 +57,24 @@ def _assert_potentials_close(name, got, want, mask, ratio):
     tolerance over all points cannot see a wrong real-point value."""
     d = np.abs(got.astype(np.float64) - want)
     for grp, sel in (("real", mask), ("padded", ~mask)):
-        assert d[sel].max() <= ratio * np.abs(want[sel]).max(), (name, grp)
+        if sel.any():   # a one-point cloud has no padded points
+            assert d[sel].max() <= ratio * np.abs(want[sel]).max(), (name, grp)
 
 
-@pytest.mark.parametrize("reach,debias", [(0.5, True), (None, True), (0.5, False)])
-def test_plain_potentials_match_the_pallas_kernel(reach, debias):
-    x, y, a, b = _clouds(0)
+# the KD loss's shape in three forms, then the shapes at which chip_smoke.py
+# holds the CUDA kernel against this plain version: one point, one point
+# against the 128-point cap, the cap, and P != T
+@pytest.mark.parametrize("shape,reach,debias", [
+    pytest.param((16, 64, 64), 0.5, True, id="0.5-True"),
+    pytest.param((16, 64, 64), None, True, id="None-True"),
+    pytest.param((16, 64, 64), 0.5, False, id="0.5-False"),
+    pytest.param((3, 1, 1), 0.5, True, id="N3-P1-T1"),
+    pytest.param((5, 1, 128), 0.5, True, id="N5-P1-T128"),
+    pytest.param((3, 128, 128), 0.5, True, id="N3-P128-T128"),
+    pytest.param((7, 64, 37), None, True, id="N7-P64-T37-balanced"),
+])
+def test_plain_potentials_match_the_pallas_kernel(shape, reach, debias):
+    x, y, a, b = _clouds(0, *shape)
     al = np.asarray(jsk._safe_log_weights(jnp.asarray(a)))
     bl = np.asarray(jsk._safe_log_weights(jnp.asarray(b)))
     want = _solve_potentials(*map(jnp.asarray, (x, y, al, bl)), reach=reach,
