@@ -15,7 +15,13 @@ Phases:
            and the stem segment in both forms, against their plain PyTorch
            versions on the card (atol 1e-4) and times each with CUDA events
            beside its bound, the plain version and one library call
-           (F.conv2d / matmul + affine + leaky_relu, a yardstick only).
+           (F.conv2d / matmul + affine + leaky_relu, a yardstick only). The
+           bound's operation term counts an instance that runs on the
+           tensor cores (K2_MMA) as three TF32 products per product.
+           K2 also at the edges of its mappings (K2_EDGES: the stem at
+           255², 41x61 and 33x30, s2 at 67x61 and 30², and outside the two
+           serving instances 16->64 @20², 5->12 @9x7), held the same way,
+           times logged.
            Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
            problems of P = T = 64 points in [0, 1]², a quarter of the
            weights zero) against its plain version: each of the four
@@ -73,6 +79,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, CUDA cores
+TF32_FLOPS = 495e12            # H100 SXM TF32, tensor cores, dense (data sheet)
 # special-function unit (expf/logf) results: 16 per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), 132 SMs at the 1.98 GHz boost clock
@@ -92,6 +99,16 @@ BATCH = 8
 RES = 256
 TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
+# K2's edge shapes (B, C, O, H, W): the stem kernel at each row-shift
+# remainder (W + 2) % 4 = 1, 3, 0 (M odd in the first two), the s2 kernel
+# with M odd and with a ragged last tile, then two shapes of the general
+# kernel
+K2_EDGES = ((1, 3, 8, 255, 255), (1, 3, 8, 41, 61), (1, 3, 8, 33, 30),
+            (3, 8, 16, 67, 61), (2, 8, 16, 30, 30), (2, 16, 64, 20, 20),
+            (2, 5, 12, 9, 7))
+# the (C, O) instances of K2 whose products run on the tensor cores in
+# 3xTF32 (csrc/conv3x3_bn_act.cu, dispatch_flat)
+K2_MMA = ((8, 16),)
 CONV_SRC = "kd6d_pose_adlp_tpu_torch/csrc/conv3x3_bn_act.cu"
 SINKHORN_SRC = "kd6d_pose_adlp_tpu_torch/csrc/sinkhorn_potentials.cu"
 REPLACES = {
@@ -151,6 +168,28 @@ def n_copies(nbytes: int) -> int:
     return max(2, math.ceil(100e6 / nbytes))
 
 
+def conv_bound(in_bytes: int, B: int, C: int, O: int, M: int, mma: bool = False):
+    """(bound_ms, bound_by, bytes, flops) of a fused 3x3 conv + affine +
+    LeakyReLU (K2, K3) writing (B, O, M): bytes = the input once, the
+    parameters, the output once, over HBM; operations = the products over
+    fp32 on the CUDA cores, or with mma three TF32 products each (3xTF32)
+    over the tensor cores' TF32 rate, plus the affine over fp32."""
+    nbytes = in_bytes + 4 * (9 * O * C + 2 * O) + 4 * B * O * M
+    conv = B * M * O * 2 * 9 * C
+    flops = conv + 2 * B * M * O
+    op_s = (3 * conv / TF32_FLOPS + (flops - conv) / FP32_FLOPS if mma
+            else flops / FP32_FLOPS)
+    byte_s = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(byte_s, op_s), "bytes" if byte_s >= op_s else "operations",
+            nbytes, flops)
+
+
+def k2_bound(B: int, C: int, O: int, H: int, W: int):
+    """conv_bound of K2 (the flat form) on its (B, C, (H+2)(W+2)+2) slab."""
+    return conv_bound(4 * B * C * ((H + 2) * (W + 2) + 2), B, C, O, H * (W + 2),
+                      mma=(C, O) in K2_MMA)
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -161,8 +200,7 @@ def kernel_phase(torch, F, cf, dev):
     shapes = {"stem": (3, 8, RES, RES), "s2": (8, 16, RES // 2, RES // 2)}
     rows, params = [], {}
     for tag, (C, O, H, W) in shapes.items():
-        Wp, M = W + 2, H * (W + 2)
-        L = (H + 2) * Wp + 2
+        M = H * (W + 2)
         k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
         w = cf.pack_weights(k)
         sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
@@ -174,9 +212,6 @@ def kernel_phase(torch, F, cf, dev):
         xs = cf.stack_taps(xf, H, W)
         k_oihw = k.permute(3, 2, 0, 1).contiguous()
         w_mat = w.permute(1, 0, 2).reshape(O, 9 * C).contiguous()
-        flops = BATCH * M * O * (2 * 9 * C + 2)
-        out_bytes = 4 * BATCH * O * M
-        par_bytes = 4 * (9 * O * C + 2 * O)
 
         def library_flat(xn):
             y = F.conv2d(xn, k_oihw, padding=1)
@@ -214,20 +249,23 @@ def kernel_phase(torch, F, cf, dev):
             plain_ms = time_cuda(torch, plain, copies, iters=20)
             library_ms = time_cuda(torch, lib_fn, lib_copies)
             del copies, lib_copies
-            byte_s = (in_bytes + par_bytes + out_bytes) / HBM_BYTES_PER_S
-            op_s = flops / FP32_FLOPS
+            if name == "conv3x3_bn_act_flat":
+                bound_ms, bound_by, nbytes, flops = k2_bound(BATCH, C, O, H, W)
+            else:
+                bound_ms, bound_by, nbytes, flops = conv_bound(in_bytes, BATCH, C, O, M)
             rows.append(dict(
                 name=name, shape=tag, C=C, O=O, H=H, W=W, B=BATCH,
                 route="cuda", source=CONV_SRC, replaces=REPLACES[name],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=1e3 * max(byte_s, op_s),
-                bound_by="bytes" if byte_s >= op_s else "operations",
+                bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, eager_ms=eager_ms,
-                bytes=in_bytes + par_bytes + out_bytes, flops=flops))
+                bytes=nbytes, flops=flops))
             log(f"[kernel] {name} {tag}: {ms * 1e3:.1f} us  (bound "
                 f"{rows[-1]['bound_ms'] * 1e3:.1f} us by {rows[-1]['bound_by']}, "
                 f"plain {plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us; "
                 f"eager call incl. host {eager_ms * 1e3:.1f} us)")
+
+    k2_edges(torch, cf, dev, g)
 
     # the whole stem segment, both forms, against the plain segment and the
     # NHWC library chain
@@ -262,6 +300,32 @@ def kernel_phase(torch, F, cf, dev):
                                                  iters=20)))
         log(f"[kernel] segment stacked={stacked}: {json.dumps(segment[-1])}")
     return rows, segment
+
+
+def k2_edges(torch, cf, dev, g):
+    """K2 at the edges of its thread mappings (K2_EDGES): odd M that no
+    tile divides (scalar stores), each row-shift remainder of the stem
+    kernel, and shapes outside the two serving instances (the general
+    kernel). All columns against the plain version, the valid ones against
+    the library conv; each time is logged, not a row of the kernels line."""
+    for B, C, O, H, W in K2_EDGES:
+        k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
+        w = cf.pack_weights(k)
+        sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
+        bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
+        x_nhwc = torch.randn((B, H, W, C), generator=g, device=dev)
+        xf = cf.nhwc_to_flat(x_nhwc)
+        kern = lambda a: cf.conv3x3_bn_act_flat(a, w, sc, bi, H=H, W=W)
+        got = kern(xf)
+        torch.cuda.synchronize()
+        err = (got - cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=H, W=W)).abs().max().item()
+        lib_err = (cf.flat_to_nhwc(got, H, W)
+                   - cf.conv3x3_bn_act_ref(x_nhwc, k, sc, bi)).abs().max().item()
+        ms = time_cuda(torch, kern, [(xf.clone(),) for _ in range(n_copies(4 * xf.numel()))])
+        log(f"[kernel] conv3x3_bn_act_flat edge B={B} {C}->{O} @{H}x{W}: max|kernel-plain| "
+            f"{err:.3e}, max|kernel-library| (valid cols) {lib_err:.3e}; {ms * 1e3:.2f} us")
+        if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
+            raise AssertionError(f"conv3x3_bn_act_flat disagrees at B={B} {C}->{O} @{H}x{W}")
 
 
 def potential_errors(got, want, a, b) -> dict:
@@ -857,7 +921,7 @@ def main(argv=None) -> int:
         logf = p.with_suffix(".log")
         if logf.exists():
             for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "entry function" in line:
                     log(f"[set-up] ptxas {name}: {line.strip()}")
 
     result = {"card": card}

@@ -12,31 +12,49 @@
 // The last two columns of every output row are wrap-around values of the
 // flat formula, exactly as on the TPU; callers drop them.
 //
-// What bounds it on an H100: at the darknet_tiny_h stem/s2 widths (C <= 8,
-// O <= 16) each input value feeds at most 9 * O = 144 FMAs, far below the
-// ~20 FLOP/byte an H100 needs before fp32 CUDA-core math (67 TFLOP/s) rather
-// than HBM (3.35 TB/s) limits; the stem is bound by bytes (read 6.4 MB,
-// write 16.9 MB at B=8, 256^2: ~7 us) and s2 is close to balanced (13 MB,
-// ~3.8 us of bytes against 0.31 GFLOP, ~4.6 us of fp32 math). Tensor cores
-// do not help at K = 9 * C <= 72 with O <= 16.
+// What bounds the flat form (K2) on an H100, at the two shapes the serving
+// stem gives it (B = 8): the stem, 3 -> 8 at 256^2, reads 6.4 MB and writes
+// 16.9 MB against 0.12 GFLOP, so it is bound by bytes (~7.0 us at
+// 3.35 TB/s); s2, 8 -> 16 at 128^2, moves 13 MB (~3.8 us) against
+// 0.31 GFLOP, ~4.6 us of fp32 CUDA-core math at 67 TFLOP/s but ~1.9 us as
+// three TF32 tensor-core products each at 495 TFLOP/s, so on the tensor
+// cores it too is bound by bytes. Each instance has a kernel of its own; C and O are
+// constants there, so every tap and channel loop unrolls. Both copy their
+// (b, strip) tile's inputs, all C channels plus the 2 * (W + 2) + 2 halo,
+// into shared memory with cp.async, 4 bytes a thread (a channel row of the
+// slab is L * 4 bytes, not a multiple of 16, so TMA does not fit), and
+// write each output once in the epilogue, after the affine and LeakyReLU.
 //
-// Design (not the TPU's one-image-per-grid-step blocks, which would give 8
-// blocks for 132 SMs): one block takes one (b, strip of P * 256 output
-// columns) tile and computes all O outputs for it. The flat form stages the
-// strip plus its 2 * (W + 2) + 2 halo of all C channels in shared memory
-// once, so each input byte leaves HBM once (the halo re-reads hit L2), and
-// the nine taps become nine shifted shared-memory reads instead of the TPU's
-// lane rotates. The 9 * O * C weights sit in shared memory transposed to
-// [tap][c][o], so a thread reads four output channels' weights with one
-// 16-byte broadcast load and applies them to its P columns (P * 4 FMAs per
-// load). Accumulation is fp32 in registers; the affine and LeakyReLU run in
-// the epilogue, and each output value is written once, coalesced. The
-// stacked form reads its taps straight from global memory (every element
-// is used by exactly one output column, so staging buys nothing).
+// The stem (conv3x3_flat_tiled, CUDA cores): one commit group per channel,
+// all issued at once, so the block starts on channel 0 while the others are
+// in flight. Each thread owns 4 consecutive output columns for all 8
+// outputs: per (input row dy, channel c) it reads the 6 inputs it needs
+// with two 16-byte loads and applies the three dx taps, 96 FFMAs against 2
+// input loads and 6 broadcast 16-byte weight loads. The 16-byte loads need
+// the row's shift dy * (W + 2) in whole float4s; its remainder mod 4 is a
+// template parameter, so the 6 values are picked by constant indices. The
+// outputs go out 16 bytes a thread where M = H * (W + 2) is a multiple of 4.
+//
+// s2 (conv3x3_flat_mma, tensor cores): on the CUDA cores the same loop is
+// bound by its shared-memory weight loads (12 us at B = 8), so s2 runs
+// error-compensated TF32 products on the tensor cores instead: O = 16 is
+// the mma's M, each tap one k-step over the 8 channels, the weights split
+// hi + lo in registers for the whole block, and three m16n8k8 products per
+// (tap, 8 columns) that together miss the fp32 product by ~2^-20. Plain
+// TF32 (one product) would miss it by ~1e-3 of each term.
+//
+// Every other flat shape, and the stacked form (K3), run conv3x3_bn_act_kernel,
+// the first design: one block per (b, strip of P * 256 columns) with the
+// strip staged synchronously, runtime C, O tiled by OT, weights in shared
+// memory transposed to [tap][c][o] for 16-byte broadcast loads. The stacked
+// form reads its taps straight from global memory (every element is used by
+// exactly one output column, so staging buys nothing); its bound is bytes.
 // P (columns per thread) is picked per shape to keep at least two blocks per
 // SM in flight.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -188,6 +206,364 @@ cudaError_t dispatch(const float* x, const float* w, const float* scale,
   return launch<16, 1, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
 }
 
+// ---------------------------------------------------------------------------
+// the flat form at its serving instances
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n commit groups are pending (at most 2 for n > 2,
+// which waits longer than needed); n is a constant once the caller's loop
+// is unrolled, so the branches fold away
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n >= 2) {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else if (n == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+
+constexpr int kCols = 4;  // consecutive output columns per thread (FFMA form)
+constexpr int kStemThreads = 256;  // a stem block: kStemThreads * kCols columns
+constexpr int kStemMinBlocks = 4;  // the launch bound: 64 registers a thread
+
+// One input row (dy, c) for the thread's kCols output columns and O
+// outputs. xa is 16-byte aligned and lies R floats before the thread's
+// first input; the kCols + 2 inputs the three dx taps need come in two
+// 16-byte loads (three when R = 3). w points at the weights of tap
+// (dy, dx = 0), channel c; TS is the stride between dx taps.
+template <int O, int R, int TS>
+__device__ __forceinline__ void tap_row(const float* xa, const float* w,
+                                        float (&acc)[kCols][O]) {
+  constexpr int NV = (R + kCols + 2 + 3) / 4;
+  float u[4 * NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const float4 t = reinterpret_cast<const float4*>(xa)[v];
+    u[4 * v + 0] = t.x;
+    u[4 * v + 1] = t.y;
+    u[4 * v + 2] = t.z;
+    u[4 * v + 3] = t.w;
+  }
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const float4* w4 = reinterpret_cast<const float4*>(w + dx * TS);
+#pragma unroll
+    for (int q = 0; q < O / 4; ++q) {
+      const float4 wv = w4[q];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float xv = u[R + dx + j];
+        acc[j][4 * q + 0] = fmaf(wv.x, xv, acc[j][4 * q + 0]);
+        acc[j][4 * q + 1] = fmaf(wv.y, xv, acc[j][4 * q + 1]);
+        acc[j][4 * q + 2] = fmaf(wv.z, xv, acc[j][4 * q + 2]);
+        acc[j][4 * q + 3] = fmaf(wv.w, xv, acc[j][4 * q + 3]);
+      }
+    }
+  }
+}
+
+// The stem instance on the CUDA cores. One block takes one (b, strip of
+// kStemThreads * kCols output columns) tile; each thread kCols consecutive columns
+// for all O outputs. The strip is copied with one commit group per channel,
+// all issued at once, and the block starts on channel 0 as soon as it has
+// landed. WM = Wp % 4 makes each input row's shift remainder a constant.
+// S: floats per channel row of the strip, a multiple of 4; vec: 16-byte
+// output stores allowed (M % 4 == 0, out 16-byte aligned).
+template <int C, int O, int WM>
+__global__ void __launch_bounds__(kStemThreads, kStemMinBlocks)
+conv3x3_flat_tiled(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, float* __restrict__ out,
+                   int Wp, int L, int M, int S, int vec, float alpha) {
+  static_assert(O % 4 == 0, "outputs go in float4 groups");
+  constexpr int kTile = kStemThreads * kCols;
+  constexpr int kTapStride = C * O;
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;              // [9][C][O] weights
+  float* ss = ws + 9 * C * O;    // [O] scale
+  float* bs = ss + O;            // [O] bias
+  float* xs = bs + O;            // [C][S] input strip
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * kTile;
+
+  // the strip, one commit group per channel; past the slab's end, zeros
+  const float* xb = x + (size_t)b * C * L + m0;
+  const int n_in = min(S, L - m0);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    for (int i = tid; i < S; i += kStemThreads) {
+      if (i < n_in) {
+        cp_async4(xs + c * S + i, xb + (size_t)c * L + i);
+      } else {
+        xs[c * S + i] = 0.f;
+      }
+    }
+    cp_async_commit();
+  }
+  for (int i = tid; i < 9 * C * O; i += kStemThreads) {
+    const int o = i % O;
+    const int tc = i / O;
+    ws[i] = w[((tc / C) * O + o) * C + tc % C];
+  }
+  for (int i = tid; i < O; i += kStemThreads) {
+    ss[i] = scale[i];
+    bs[i] = bias[i];
+  }
+
+  constexpr int R1 = WM & 3;        // (1 * Wp) % 4
+  constexpr int R2 = (2 * WM) & 3;  // (2 * Wp) % 4
+  float acc[kCols][O];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j)
+#pragma unroll
+    for (int q = 0; q < O; ++q) acc[j][q] = 0.f;
+
+  const float* xt = xs + kCols * tid;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    // channel c has landed (this thread's copies), and every thread's
+    // copies and the weights are visible after the barrier
+    cp_async_wait(C - 1 - c);
+    __syncthreads();
+    const float* xc = xt + c * S;
+    const float* wc = ws + c * O;
+    tap_row<O, 0, kTapStride>(xc, wc, acc);
+    tap_row<O, R1, kTapStride>(xc + Wp - R1, wc + 3 * kTapStride, acc);
+    tap_row<O, R2, kTapStride>(xc + 2 * Wp - R2, wc + 6 * kTapStride, acc);
+  }
+
+  const int m = m0 + kCols * tid;
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    const float sc = ss[o];
+    const float bi = bs[o];
+    float v[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const float t = acc[j][o] * sc + bi;
+      v[j] = t >= 0.f ? t : alpha * t;
+    }
+    float* ob = out + ((size_t)b * O + o) * M + m;
+    if (vec && m + kCols <= M) {
+      *reinterpret_cast<float4*>(ob) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (m + j < M) ob[j] = v[j];
+    }
+  }
+}
+
+// Launch the FFMA instance if its strip fits in shared memory; *taken =
+// false (and nothing launched) if not.
+template <int C, int O>
+cudaError_t launch_tiled(const float* x, const float* w, const float* scale,
+                         const float* bias, float* out, int B, int Wp, int L,
+                         int M, float alpha, cudaStream_t stream,
+                         bool* taken) {
+  constexpr int kTile = kStemThreads * kCols;
+  // a thread reads up to 12 floats from its aligned start, which lies up
+  // to 2 * Wp past its first column
+  const int S = (kTile + 2 * Wp + 8 + 3) / 4 * 4;
+  const size_t smem = sizeof(float) * ((size_t)C * S + 9 * C * O + 2 * O);
+  *taken = smem <= 227 * 1024;
+  if (!*taken) return cudaSuccess;
+  void (*kernel)(const float*, const float*, const float*, const float*,
+                 float*, int, int, int, int, int, float);
+  switch (Wp & 3) {
+    case 0: kernel = conv3x3_flat_tiled<C, O, 0>; break;
+    case 1: kernel = conv3x3_flat_tiled<C, O, 1>; break;
+    case 2: kernel = conv3x3_flat_tiled<C, O, 2>; break;
+    default: kernel = conv3x3_flat_tiled<C, O, 3>; break;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int vec = (M % 4 == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const dim3 grid((M + kTile - 1) / kTile, B);
+  kernel<<<grid, kStemThreads, smem, stream>>>(x, w, scale, bias, out, Wp, L,
+                                               M, S, vec, alpha);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// s2 on the tensor cores: error-compensated TF32 (3xTF32) mma.sync
+// ---------------------------------------------------------------------------
+
+// a = hi + lo with hi exact in TF32 (the low 13 mantissa bits cleared) and
+// lo = a - hi exact in fp32; the mma reads lo's top 19 bits, so a product
+// a_hi b_hi + a_hi b_lo + a_lo b_hi misses a b by ~2^-20 of |a b|
+__device__ __forceinline__ void split_tf32(float a, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(a) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int kMmaWarps = 4;     // warps a block
+constexpr int kMmaGroups = 8;    // groups of 8 output columns a warp
+constexpr int kMmaInFlight = 4;  // groups a warp multiplies at a time
+constexpr int kMmaTile = kMmaWarps * kMmaGroups * 8;  // columns a block
+
+// C = 8, O = 16. One m16n8k8 product per (tap, 8 output columns): A is the
+// tap's (16 outputs x 8 channels) weights, held in registers for the whole
+// block, B the 8 channels x 8 columns of the strip at the tap's shift. A
+// block of kMmaWarps warps takes a tile of kMmaTile columns; each warp
+// kMmaGroups groups of 8, kMmaInFlight at a time. The strip's channel
+// stride S is 8 mod 32, so a B fragment's (4 channels x 8 columns) reads
+// hit 32 different banks.
+__global__ void __launch_bounds__(kMmaWarps * 32)
+conv3x3_flat_mma(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ scale, const float* __restrict__ bias,
+                 float* __restrict__ out, int Wp, int L, int M, int S,
+                 int vec2, float alpha) {
+  constexpr int C = 8, O = 16, NI = kMmaInFlight;
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;  // [C][S]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * kMmaTile;
+
+  // the strip (one commit group: a tap's product needs all 8 channels);
+  // past the slab's end, zeros
+  const float* xb = x + (size_t)b * C * L + m0;
+  const int n_in = min(S, L - m0);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    for (int i = tid; i < S; i += kMmaWarps * 32) {
+      if (i < n_in) {
+        cp_async4(xs + c * S + i, xb + (size_t)c * L + i);
+      } else {
+        xs[c * S + i] = 0.f;
+      }
+    }
+  }
+  cp_async_commit();
+
+  // the A fragments of the nine taps, split: rows g, g + 8; columns tg, tg + 4
+  unsigned ahi[9][4], alo[9][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const float* wt = w + t * O * C;
+    split_tf32(wt[g * C + tg], ahi[t][0], alo[t][0]);
+    split_tf32(wt[(g + 8) * C + tg], ahi[t][1], alo[t][1]);
+    split_tf32(wt[g * C + tg + 4], ahi[t][2], alo[t][2]);
+    split_tf32(wt[(g + 8) * C + tg + 4], ahi[t][3], alo[t][3]);
+  }
+  const float sc0 = scale[g], sc1 = scale[g + 8];
+  const float bi0 = bias[g], bi1 = bias[g + 8];
+  cp_async_wait(0);
+  __syncthreads();
+
+  const float* x0 = xs + tg * S + g;        // channel tg, column g
+  const float* x1 = xs + (tg + 4) * S + g;  // channel tg + 4
+#pragma unroll 1
+  for (int n0 = warp * kMmaGroups; n0 < (warp + 1) * kMmaGroups; n0 += NI) {
+    float d[NI][4];
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[i][r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int off = (t / 3) * Wp + t % 3;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int col = (n0 + i) * 8 + off;
+        unsigned bh0, bl0, bh1, bl1;
+        split_tf32(x0[col], bh0, bl0);
+        split_tf32(x1[col], bh1, bl1);
+        mma_tf32(d[i], alo[t], bh0, bh1);
+        mma_tf32(d[i], ahi[t], bl0, bl1);
+        mma_tf32(d[i], ahi[t], bh0, bh1);
+      }
+    }
+    // D: rows (outputs) g, g + 8; columns 2 tg, 2 tg + 1 of the group
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int m = m0 + (n0 + i) * 8 + 2 * tg;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sc = h ? sc1 : sc0, bi = h ? bi1 : bi0;
+        float v0 = d[i][2 * h] * sc + bi, v1 = d[i][2 * h + 1] * sc + bi;
+        v0 = v0 >= 0.f ? v0 : alpha * v0;
+        v1 = v1 >= 0.f ? v1 : alpha * v1;
+        float* ob = out + ((size_t)b * O + g + 8 * h) * M + m;
+        if (vec2 && m + 2 <= M) {
+          *reinterpret_cast<float2*>(ob) = make_float2(v0, v1);
+        } else {
+          if (m < M) ob[0] = v0;
+          if (m + 1 < M) ob[1] = v1;
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_mma(const float* x, const float* w, const float* scale,
+                       const float* bias, float* out, int B, int Wp, int L,
+                       int M, float alpha, cudaStream_t stream, bool* taken) {
+  // reads reach 2 * Wp + 2 + 7 past a group's first column
+  const int S = (kMmaTile + 2 * Wp + 16 + 31) / 32 * 32 + 8;
+  const size_t smem = sizeof(float) * (size_t)8 * S;
+  *taken = smem <= 227 * 1024;
+  if (!*taken) return cudaSuccess;
+  auto kernel = conv3x3_flat_mma;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int vec2 = (M % 2 == 0) && (reinterpret_cast<uintptr_t>(out) % 8 == 0);
+  const dim3 grid((M + kMmaTile - 1) / kMmaTile, B);
+  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(x, w, scale, bias, out, Wp,
+                                                 L, M, S, vec2, alpha);
+  return cudaGetLastError();
+}
+
+// The flat form: the serving stem's two (C, O) instances on their own
+// kernels, every other shape on the general one. A launch error returns.
+cudaError_t dispatch_flat(const float* x, const float* w, const float* scale,
+                          const float* bias, float* out, int B, int C, int O,
+                          int Wp, int L, int M, float alpha, cudaStream_t s) {
+  if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
+  bool taken = false;
+  cudaError_t e = cudaSuccess;
+  if (C == 3 && O == 8) {
+    // stem: 256 threads, 1024 columns a block
+    e = launch_tiled<3, 8>(x, w, scale, bias, out, B, Wp, L, M, alpha, s,
+                           &taken);
+  } else if (C == 8 && O == 16) {
+    // s2: 4 warps, 256 columns a block (520 blocks at B = 8, 128^2)
+    e = launch_mma(x, w, scale, bias, out, B, Wp, L, M, alpha, s, &taken);
+  }
+  if (taken || e != cudaSuccess) return e;
+  return dispatch<false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+}
+
 }  // namespace
 
 // x (B, C, (H+2)*(W+2)+2), w (9, O, C), scale/bias (O,), out (B, O, H*(W+2)).
@@ -197,9 +573,9 @@ extern "C" int conv3x3_bn_act_flat(const float* x, const float* w,
                                    float* out, int B, int C, int O, int H,
                                    int W, float alpha, void* stream) {
   const int Wp = W + 2;
-  return (int)dispatch<false>(x, w, scale, bias, out, B, C, O, Wp,
-                              (H + 2) * Wp + 2, H * Wp, alpha,
-                              (cudaStream_t)stream);
+  return (int)dispatch_flat(x, w, scale, bias, out, B, C, O, Wp,
+                            (H + 2) * Wp + 2, H * Wp, alpha,
+                            (cudaStream_t)stream);
 }
 
 // xs (B, 9, C, M), w (9, O, C), scale/bias (O,), out (B, O, M).

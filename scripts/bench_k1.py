@@ -23,43 +23,15 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from _bench import build  # noqa: E402
 
 EPS_STEPS = (1, 2, 4, 8, 12, 24, 36)
-
-
-def build(sources):
-    """Compile each source into its own library, all nvcc processes at once."""
-    from kd6d_pose_adlp_tpu_torch.utils import cuda_build as cb
-
-    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for src in sources:
-        name = os.path.splitext(os.path.basename(src))[0]
-        lib = cb.BUILD_DIR / f"bench_{name}.so"
-        jobs[name] = (lib, subprocess.Popen([cb.nvcc_path(), *cb.NVCC_FLAGS, "-o", str(lib), src],
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
-        handle = ctypes.CDLL(str(lib))
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        handle.sinkhorn_potentials.argtypes = [vp] * 8 + [i, i, i, vp, vp, i, f, i, vp]
-        handle.sinkhorn_potentials.restype = i
-        libs[name] = handle
-    return libs
 
 
 def main(argv=None) -> int:
@@ -81,7 +53,8 @@ def main(argv=None) -> int:
     kw = dict(p=kd.p, blur=kd.blur, scaling=kd.scaling, reach=kd.reach, diameter=2.0,
               debias=True)
     eps_list, lams = sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)
-    libs = build(args.sources)
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = build(args.sources, "sinkhorn_potentials", [vp] * 8 + [i, i, i, vp, vp, i, f, i, vp])
 
     def solver(lib, steps=len(eps_list)):
         eps = (list(eps_list) * 3)[:steps]

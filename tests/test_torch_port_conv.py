@@ -21,7 +21,11 @@ import torch
 from kd6d_pose_adlp_tpu.ops import conv_pallas as J
 from kd6d_pose_adlp_tpu_torch.ops import conv_fused as T
 
-SHAPES = [(2, 16, 16, 3, 8), (2, 12, 20, 8, 16), (1, 8, 8, 16, 64)]
+# (B, H, W, C, O): the serving stem's (3, 8) and (8, 16) instances, a shape
+# outside them, then the edges of the card kernel's mapping: M = H * (W + 2)
+# odd with (W + 2) % 4 = 3 and 1, and a (C, O) outside the tiled instances
+SHAPES = [(2, 16, 16, 3, 8), (2, 12, 20, 8, 16), (1, 8, 8, 16, 64),
+          (1, 15, 17, 3, 8), (3, 9, 7, 8, 16), (2, 9, 7, 5, 12)]
 
 
 def _inputs(seed, B, H, W, C, O):
