@@ -20,8 +20,10 @@ Phases:
            tensor cores (K2_MMA) as three TF32 products per product.
            K2 also at the edges of its mappings (K2_EDGES: the stem at
            255², 41x61 and 33x30, s2 at 67x61 and 30², and outside the two
-           serving instances 16->64 @20², 5->12 @9x7), held the same way,
-           times logged.
+           serving instances 16->64 @20², 5->12 @9x7), and K3 at its
+           (K3_EDGES: each serving-instance kernel at B=1, odd M at both,
+           a ragged tile at 30², the general kernel at 3->16 and 16->32),
+           held the same way, times logged.
            Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
            problems of P = T = 64 points in [0, 1]², a quarter of the
            weights zero) against its plain version: each of the four
@@ -42,7 +44,9 @@ Phases:
            flat stem (K2 twice per request), then 2 on the stacked stem (K3
            twice per request). Launch counts are zeroed just before each
            run and read just after. Outputs must be finite and the network
-           outputs must match the same weights run on the CPU (atol 1e-3).
+           outputs must match the same weights run on the CPU (atol 1e-3);
+           the same comparison under PyTorch's default precision flags
+           (cuDNN in TF32) is logged beside it, not a gate.
   pose     runs a planted ground-truth scene through the port's postprocess
            on the card: rotation error < 3 deg, translation error < 15 mm.
   train    builds the full-width darknet_tiny_h student and darknet53 teacher
@@ -62,10 +66,10 @@ Phases:
            entry.
 
 TF32 is off for matmuls and convolutions throughout, so the comparisons are
-fp32 against fp32. Prints the per-kernel JSON line, the card's name and
-power limit, and as the last line {"ok": true, "device": {...}}. Any failure
-raises before that line. Details go to the --json_out file
-(default outputs/chip_smoke.json).
+fp32 against fp32 (all but the one logged under the defaults). Prints the
+per-kernel JSON line, the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Any failure raises before that line.
+Details go to the --json_out file (default outputs/chip_smoke.json).
 """
 from __future__ import annotations
 
@@ -106,6 +110,13 @@ TRAIN_WARMUP = 2
 K2_EDGES = ((1, 3, 8, 255, 255), (1, 3, 8, 41, 61), (1, 3, 8, 33, 30),
             (3, 8, 16, 67, 61), (2, 8, 16, 30, 30), (2, 16, 64, 20, 20),
             (2, 5, 12, 9, 7))
+# K3's edge shapes (B, C, O, H, W): each serving-instance kernel at B = 1
+# (both with a ragged last tile), M = H * (W + 2) odd (the 4-byte path) at
+# each instance, a ragged last tile at B = 2, then the general kernel at the
+# eval stems of darknet ref and tiny (3 -> 16, 16 -> 32)
+K3_EDGES = ((1, 3, 8, 256, 256), (1, 8, 16, 128, 128), (1, 3, 8, 41, 61),
+            (3, 8, 16, 67, 61), (2, 8, 16, 30, 30), (2, 3, 16, 64, 64),
+            (2, 16, 32, 32, 32))
 # the (C, O) instances of K2 whose products run on the tensor cores in
 # 3xTF32 (csrc/conv3x3_bn_act.cu, dispatch_flat)
 K2_MMA = ((8, 16),)
@@ -190,6 +201,12 @@ def k2_bound(B: int, C: int, O: int, H: int, W: int):
                       mma=(C, O) in K2_MMA)
 
 
+def k3_bound(B: int, C: int, O: int, H: int, W: int):
+    """conv_bound of K3 (the stacked form) on its (B, 9, C, H(W+2)) stack."""
+    M = H * (W + 2)
+    return conv_bound(4 * B * 9 * C * M, B, C, O, M)
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -252,7 +269,7 @@ def kernel_phase(torch, F, cf, dev):
             if name == "conv3x3_bn_act_flat":
                 bound_ms, bound_by, nbytes, flops = k2_bound(BATCH, C, O, H, W)
             else:
-                bound_ms, bound_by, nbytes, flops = conv_bound(in_bytes, BATCH, C, O, M)
+                bound_ms, bound_by, nbytes, flops = k3_bound(BATCH, C, O, H, W)
             rows.append(dict(
                 name=name, shape=tag, C=C, O=O, H=H, W=W, B=BATCH,
                 route="cuda", source=CONV_SRC, replaces=REPLACES[name],
@@ -265,7 +282,8 @@ def kernel_phase(torch, F, cf, dev):
                 f"plain {plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us; "
                 f"eager call incl. host {eager_ms * 1e3:.1f} us)")
 
-    k2_edges(torch, cf, dev, g)
+    conv_edges(torch, cf, dev, g, stacked=False)
+    conv_edges(torch, cf, dev, g, stacked=True)
 
     # the whole stem segment, both forms, against the plain segment and the
     # NHWC library chain
@@ -302,30 +320,35 @@ def kernel_phase(torch, F, cf, dev):
     return rows, segment
 
 
-def k2_edges(torch, cf, dev, g):
-    """K2 at the edges of its thread mappings (K2_EDGES): odd M that no
-    tile divides (scalar stores), each row-shift remainder of the stem
-    kernel, and shapes outside the two serving instances (the general
-    kernel). All columns against the plain version, the valid ones against
-    the library conv; each time is logged, not a row of the kernels line."""
-    for B, C, O, H, W in K2_EDGES:
+def conv_edges(torch, cf, dev, g, stacked: bool):
+    """K2 at K2_EDGES, or K3 at K3_EDGES (stacked): the edges of their thread
+    mappings and shapes of the general kernel. All columns against the plain
+    version, the valid ones against the library conv; each time is logged,
+    not a row of the kernels line."""
+    name = "conv3x3_bn_act_stacked" if stacked else "conv3x3_bn_act_flat"
+    for B, C, O, H, W in K3_EDGES if stacked else K2_EDGES:
         k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
         w = cf.pack_weights(k)
         sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
         bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
         x_nhwc = torch.randn((B, H, W, C), generator=g, device=dev)
         xf = cf.nhwc_to_flat(x_nhwc)
-        kern = lambda a: cf.conv3x3_bn_act_flat(a, w, sc, bi, H=H, W=W)
-        got = kern(xf)
+        if stacked:
+            inp = cf.stack_taps(xf, H, W)
+            kern = lambda a: cf.conv3x3_bn_act_stacked(a, w, sc, bi)
+        else:
+            inp = xf
+            kern = lambda a: cf.conv3x3_bn_act_flat(a, w, sc, bi, H=H, W=W)
+        got = kern(inp)
         torch.cuda.synchronize()
         err = (got - cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=H, W=W)).abs().max().item()
         lib_err = (cf.flat_to_nhwc(got, H, W)
                    - cf.conv3x3_bn_act_ref(x_nhwc, k, sc, bi)).abs().max().item()
-        ms = time_cuda(torch, kern, [(xf.clone(),) for _ in range(n_copies(4 * xf.numel()))])
-        log(f"[kernel] conv3x3_bn_act_flat edge B={B} {C}->{O} @{H}x{W}: max|kernel-plain| "
+        ms = time_cuda(torch, kern, [(inp.clone(),) for _ in range(n_copies(4 * inp.numel()))])
+        log(f"[kernel] {name} edge B={B} {C}->{O} @{H}x{W}: max|kernel-plain| "
             f"{err:.3e}, max|kernel-library| (valid cols) {lib_err:.3e}; {ms * 1e3:.2f} us")
         if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
-            raise AssertionError(f"conv3x3_bn_act_flat disagrees at B={B} {C}->{O} @{H}x{W}")
+            raise AssertionError(f"{name} disagrees at B={B} {C}->{O} @{H}x{W}")
 
 
 def potential_errors(got, want, a, b) -> dict:
@@ -510,7 +533,9 @@ def profile_request(torch, fn) -> dict:
                 wall_ms=wall_ms, top=[dict(name=n[:80], count=c, ms=t / 1e3) for n, (c, t) in top])
 
 
-def serving_phase(torch, cf, dev, n_flat: int = 4, n_stacked: int = 2):
+def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int = 2):
+    """tf32_defaults: PyTorch's (matmul, cuDNN) allow_tf32 flags as they were
+    before main turned TF32 off."""
     from kd6d_pose_adlp_tpu_torch.config import Config
     from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
     from kd6d_pose_adlp_tpu_torch.engine.serving import SINGLE_KEYS, build_infer_fn
@@ -592,6 +617,18 @@ def serving_phase(torch, cf, dev, n_flat: int = 4, n_stacked: int = 2):
     log(f"[serving] network cls/reg, card vs CPU: max abs diff {net_err:.3e}")
     if not net_err <= ATOL_NETWORK:
         raise AssertionError("card and CPU network outputs disagree")
+    # the same comparison under PyTorch's default precision flags, as a
+    # caller of build_infer_fn runs it (cuDNN convolutions in TF32): logged
+    # against ATOL_NETWORK, not a gate
+    fp32_flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    with torch.inference_mode():
+        dc, dr = infer.model(torch.as_tensor(req["images"]).to(dev))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = fp32_flags
+    net_err_default = max((dc.cpu() - cc).abs().max().item(), (dr.cpu() - cr).abs().max().item())
+    log(f"[serving] network cls/reg, card under PyTorch's default flags (matmul TF32 "
+        f"{tf32_defaults[0]}, cuDNN TF32 {tf32_defaults[1]}) vs CPU: max abs diff "
+        f"{net_err_default:.3e} against ATOL_NETWORK {ATOL_NETWORK:g} (logged, not a gate)")
 
     # the stacked stem (K3) on the same weights
     net_st = PoseNet(cfg.model, n_fg=cfg.data.n_fg, stem_stacked=True)
@@ -622,6 +659,7 @@ def serving_phase(torch, cf, dev, n_flat: int = 4, n_stacked: int = 2):
         stacked_request_ms=[1e3 * t["total_s"] for t in lat_st],
         launches_flat_run=counts_flat, launches_flat_run_by_shape=shapes_flat,
         launches_stacked_run=counts_st, network_card_vs_cpu=net_err,
+        network_card_vs_cpu_default_flags=net_err_default, default_tf32_flags=tf32_defaults,
         stacked_vs_flat=st_err, profile=prof)
     # busy and wall time of the same (profiled) request
     summary["device_idle_share"] = (
@@ -907,7 +945,9 @@ def main(argv=None) -> int:
     from kd6d_pose_adlp_tpu_torch.ops import sinkhorn_fused as sf
     from kd6d_pose_adlp_tpu_torch.utils import cuda_build
 
-    # fp32 comparisons: no TF32 in matmuls or cuDNN convolutions
+    # fp32 comparisons: no TF32 in matmuls or cuDNN convolutions (the
+    # serving phase also runs one comparison under the defaults kept here)
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -930,7 +970,7 @@ def main(argv=None) -> int:
         rows, result["segment"] = kernel_phase(torch, F, cf, dev)
         k1_row = sinkhorn_kernel(torch, sf, dev)
     if "serving" in phases:
-        result["serving"], launches = serving_phase(torch, cf, dev)
+        result["serving"], launches = serving_phase(torch, cf, dev, tf32_defaults)
     if "pose" in phases:
         result["pose"] = pose_phase(torch, dev)
     if "train" in phases:

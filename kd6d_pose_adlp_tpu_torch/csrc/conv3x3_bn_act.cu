@@ -43,14 +43,27 @@
 // (tap, 8 columns) that together miss the fp32 product by ~2^-20. Plain
 // TF32 (one product) would miss it by ~1e-3 of each term.
 //
-// Every other flat shape, and the stacked form (K3), run conv3x3_bn_act_kernel,
-// the first design: one block per (b, strip of P * 256 columns) with the
-// strip staged synchronously, runtime C, O tiled by OT, weights in shared
-// memory transposed to [tap][c][o] for 16-byte broadcast loads. The stacked
-// form reads its taps straight from global memory (every element is used by
-// exactly one output column, so staging buys nothing); its bound is bytes.
-// P (columns per thread) is picked per shape to keep at least two blocks per
-// SM in flight.
+// The stacked form (K3) reads 9 * C pre-shifted rows for every output
+// column: 38.3 MB in and 8.5 MB out at s2 (14.0 us at 3.35 TB/s) against
+// 0.31 GFLOP (4.6 us of fp32 FMA), 57.1 + 16.9 MB at the stem (22.1 us), so
+// it is bound by bytes, and every element is used by exactly one output
+// column, so nothing is staged. What held the first design at 1 TB/s at s2
+// was memory-level parallelism: one 4-byte load a thread in flight. At its
+// two serving instances (conv3x3_stacked_stream) a thread owns 4 columns
+// for all O outputs, loads each tap row as one 16-byte streaming load, and
+// runs its rows fully unrolled through a ring of registers, D rows ahead of
+// its FFMAs (64-96 KB in flight a SM); weights come from shared memory as
+// 16-byte broadcasts. At s2 a lone warp's pass over 72 rows took ~11 us,
+// longer than the bytes, so the rows are split between two halves of the
+// block, which fold their sums through shared memory: 16 warps a SM, each
+// with half the chain.
+//
+// Every other flat and stacked shape runs conv3x3_bn_act_kernel, the first
+// design: one block per (b, strip of P * 256 columns) with the strip staged
+// synchronously (flat form) or read straight from global memory (stacked
+// form), runtime C, O tiled by OT, weights in shared memory transposed to
+// [tap][c][o] for 16-byte broadcast loads. P (columns per thread) is picked
+// per shape to keep at least two blocks per SM in flight.
 
 #include <cuda_runtime.h>
 
@@ -564,6 +577,194 @@ cudaError_t dispatch_flat(const float* x, const float* w, const float* scale,
   return dispatch<false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
 }
 
+// ---------------------------------------------------------------------------
+// the stacked form (K3) at its serving instances: streaming FFMA
+// ---------------------------------------------------------------------------
+
+constexpr int kStackCols = 4;       // output columns a thread
+constexpr int kStackThreads = 256;  // a block
+
+// One (C, O) instance of the stacked form. The block's NT = kStackThreads
+// threads form S parts of NTC = NT / S threads; thread ctid of every part
+// owns the same kStackCols output columns, and part p sums the tap rows
+// [p * R / S, (p + 1) * R / S) of them for all O outputs, reading each of
+// its rows once. VEC (rows 16-byte aligned): one 16-byte streaming load a
+// row, columns kStackCols * ctid + j of the block's tile; otherwise four
+// 4-byte loads a row, columns ctid + j * NTC, each coalesced across the
+// warp. The row loop is unrolled through a ring of D + 1 register sets:
+// row r + D is loaded before row r is multiplied, so D rows a thread stay
+// in flight, and the first D are issued before the weights are staged. The
+// weights are read from shared memory as 16-byte broadcasts, laid out
+// [tap][c][o]. With S = 2 each part hands the other, through shared
+// memory, its sums of the O / 2 outputs that the other finishes.
+template <int C, int O, int MINB, int D, int S, bool VEC>
+__global__ void __launch_bounds__(kStackThreads, MINB)
+conv3x3_stacked_stream(const float* __restrict__ xs,
+                       const float* __restrict__ w,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       int M, float alpha) {
+  static_assert(S == 1 || S == 2, "one part, or two that fold their sums");
+  constexpr int R = 9 * C;   // tap rows, r = tap * C + c
+  constexpr int RS = R / S;  // rows a part
+  constexpr int OS = O / S;  // outputs a part finishes
+  static_assert(RS * S == R && OS % 4 == 0, "rows and float4 output groups split evenly");
+  constexpr int NR = D + 1;
+  constexpr int NT = kStackThreads;
+  constexpr int NTC = NT / S;
+  constexpr int kTile = NTC * kStackCols;
+  __shared__ __align__(16) float ws[R * O];
+  __shared__ float ss[O], bs[O];
+  __shared__ float red[S == 1 ? 1 : NT * OS * kStackCols];
+  const int tid = threadIdx.x;
+  const int part = S == 1 ? 0 : tid / NTC;
+  const int ctid = S == 1 ? tid : tid % NTC;
+  const int b = blockIdx.y;
+  const int m = blockIdx.x * kTile + (VEC ? kStackCols * ctid : ctid);
+  const int r0 = part * RS;
+  const float* xb = xs + ((size_t)b * R + r0) * M + m;
+
+  float x[NR][kStackCols];
+  auto load_row = [&](int r, float (&v)[kStackCols]) {
+    const float* p = xb + (size_t)r * M;
+    if (VEC) {
+      const float4 t = m < M ? __ldcs(reinterpret_cast<const float4*>(p))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kStackCols; ++j)
+        v[j] = m + j * NTC < M ? __ldcs(p + j * NTC) : 0.f;
+    }
+  };
+#pragma unroll
+  for (int r = 0; r < D && r < RS; ++r) load_row(r, x[r]);
+
+  for (int i = tid; i < R * O; i += NT) {
+    const int o = i % O;
+    const int r = i / O;
+    ws[i] = w[((r / C) * O + o) * C + r % C];
+  }
+  if (tid < O) {
+    ss[tid] = scale[tid];
+    bs[tid] = bias[tid];
+  }
+  __syncthreads();
+
+  float acc[kStackCols][O];
+#pragma unroll
+  for (int j = 0; j < kStackCols; ++j)
+#pragma unroll
+    for (int q = 0; q < O; ++q) acc[j][q] = 0.f;
+
+  const float* wp = ws + r0 * O;
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    if (r + D < RS) load_row(r + D, x[(r + D) % NR]);
+    const float(&xv)[kStackCols] = x[r % NR];
+    const float4* w4 = reinterpret_cast<const float4*>(wp + r * O);
+#pragma unroll
+    for (int q = 0; q < O / 4; ++q) {
+      const float4 wv = w4[q];
+#pragma unroll
+      for (int j = 0; j < kStackCols; ++j) {
+        acc[j][4 * q + 0] = fmaf(wv.x, xv[j], acc[j][4 * q + 0]);
+        acc[j][4 * q + 1] = fmaf(wv.y, xv[j], acc[j][4 * q + 1]);
+        acc[j][4 * q + 2] = fmaf(wv.z, xv[j], acc[j][4 * q + 2]);
+        acc[j][4 * q + 3] = fmaf(wv.w, xv[j], acc[j][4 * q + 3]);
+      }
+    }
+  }
+
+  // part p finishes outputs [p * OS, (p + 1) * OS): its own sums of them,
+  // plus (S = 2) the other part's, handed over in red[part][q][j][ctid]
+  float fin[kStackCols][OS];
+#pragma unroll
+  for (int j = 0; j < kStackCols; ++j)
+#pragma unroll
+    for (int q = 0; q < OS; ++q)
+      fin[j][q] = part == 0 ? acc[j][q] : acc[j][O - OS + q];
+  if (S == 2) {
+    float* mine = red + part * (OS * kStackCols * NTC) + ctid;
+    const float* theirs = red + (1 - part) * (OS * kStackCols * NTC) + ctid;
+#pragma unroll
+    for (int q = 0; q < OS; ++q)
+#pragma unroll
+      for (int j = 0; j < kStackCols; ++j)
+        mine[(q * kStackCols + j) * NTC] = part == 0 ? acc[j][OS + q] : acc[j][q];
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < OS; ++q)
+#pragma unroll
+      for (int j = 0; j < kStackCols; ++j)
+        fin[j][q] += theirs[(q * kStackCols + j) * NTC];
+  }
+
+#pragma unroll
+  for (int q = 0; q < OS; ++q) {
+    const int o = part * OS + q;
+    const float sc = ss[o];
+    const float bi = bs[o];
+    float v[kStackCols];
+#pragma unroll
+    for (int j = 0; j < kStackCols; ++j) {
+      const float t = fin[j][q] * sc + bi;
+      v[j] = t >= 0.f ? t : alpha * t;
+    }
+    float* ob = out + ((size_t)b * O + o) * M + m;
+    if (VEC) {
+      if (m < M)
+        __stcs(reinterpret_cast<float4*>(ob), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kStackCols; ++j)
+        if (m + j * NTC < M) __stcs(ob + j * NTC, v[j]);
+    }
+  }
+}
+
+template <int C, int O, int MINB, int D, int S>
+cudaError_t launch_stacked(const float* xs, const float* w, const float* scale,
+                           const float* bias, float* out, int B, int M,
+                           float alpha, cudaStream_t stream) {
+  const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  constexpr int kTile = kStackThreads / S * kStackCols;
+  const dim3 grid((M + kTile - 1) / kTile, B);
+  if (vec) {
+    conv3x3_stacked_stream<C, O, MINB, D, S, true>
+        <<<grid, kStackThreads, 0, stream>>>(xs, w, scale, bias, out, M, alpha);
+  } else {
+    conv3x3_stacked_stream<C, O, MINB, D, S, false>
+        <<<grid, kStackThreads, 0, stream>>>(xs, w, scale, bias, out, M, alpha);
+  }
+  return cudaGetLastError();
+}
+
+// The stacked form: the serving stem's two (C, O) instances on their own
+// kernels, every other shape on the general one.
+cudaError_t dispatch_stacked(const float* xs, const float* w,
+                             const float* scale, const float* bias, float* out,
+                             int B, int C, int O, int M, float alpha,
+                             cudaStream_t s) {
+  if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
+  if (C == 3 && O == 8) {
+    // stem: 1,024 columns a block, 4 blocks (64 registers a thread) a SM
+    return launch_stacked<3, 8, 4, 3, 1>(xs, w, scale, bias, out, B, M, alpha,
+                                         s);
+  }
+  if (C == 8 && O == 16) {
+    // s2: two parts of 128 threads, 512 columns a block (264 blocks at
+    // B = 8, 128^2), 8 rows ahead
+    return launch_stacked<8, 16, 2, 8, 2>(xs, w, scale, bias, out, B, M,
+                                          alpha, s);
+  }
+  return dispatch<true>(xs, w, scale, bias, out, B, C, O, 0, 0, M, alpha, s);
+}
+
 }  // namespace
 
 // x (B, C, (H+2)*(W+2)+2), w (9, O, C), scale/bias (O,), out (B, O, H*(W+2)).
@@ -583,6 +784,6 @@ extern "C" int conv3x3_bn_act_stacked(const float* xs, const float* w,
                                       const float* scale, const float* bias,
                                       float* out, int B, int C, int O, int M,
                                       float alpha, void* stream) {
-  return (int)dispatch<true>(xs, w, scale, bias, out, B, C, O, 0, 0, M,
-                             alpha, (cudaStream_t)stream);
+  return (int)dispatch_stacked(xs, w, scale, bias, out, B, C, O, M, alpha,
+                               (cudaStream_t)stream);
 }

@@ -7,11 +7,12 @@ import os
 import subprocess
 
 
-def build(sources, symbol, argtypes):
+def build(sources, symbols):
     """Compile each source into its own library with the port's nvcc flags,
     all nvcc processes at once, and print ptxas's register, spill and entry
-    lines. Returns {name: ctypes handle} with `symbol`'s argtypes set and an
-    int result; a name is the source's index and base name."""
+    lines. `symbols` maps each C entry point to its argtypes. Returns {name:
+    ctypes handle} with those argtypes set and an int result on each entry
+    point; a name is the source's index and base name."""
     from kd6d_pose_adlp_tpu_torch.utils import cuda_build as cb
 
     cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -31,8 +32,9 @@ def build(sources, symbol, argtypes):
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
         handle = ctypes.CDLL(str(lib))
-        fn = getattr(handle, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in symbols.items():
+            fn = getattr(handle, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         libs[name] = handle
     return libs

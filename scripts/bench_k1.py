@@ -54,7 +54,7 @@ def main(argv=None) -> int:
               debias=True)
     eps_list, lams = sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs = build(args.sources, "sinkhorn_potentials", [vp] * 8 + [i, i, i, vp, vp, i, f, i, vp])
+    libs = build(args.sources, {"sinkhorn_potentials": [vp] * 8 + [i, i, i, vp, vp, i, f, i, vp]})
 
     def solver(lib, steps=len(eps_list)):
         eps = (list(eps_list) * 3)[:steps]

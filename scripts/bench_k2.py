@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Time K2, the port's flat fused 3x3 conv + BN affine + LeakyReLU, on one
-NVIDIA card, and compare versions of its source.
+"""Time K2 and K3, the port's fused 3x3 conv + BN affine + LeakyReLU in its
+flat and its stacked-tap form, on one NVIDIA card, and compare versions of
+their source.
 
     python3 scripts/bench_k2.py                       # the committed source
     python3 scripts/bench_k2.py --sources a.cu b.cu   # versions side by side
 
 Each source (default: kd6d_pose_adlp_tpu_torch/csrc/conv3x3_bn_act.cu) is
-built with the port's nvcc flags and called through the same C interface as
-`ops/conv_fused.conv3x3_bn_act_flat`. Each is first held against the plain
-version (chip_smoke's ATOL_KERNEL, all columns) at the serving shapes
-(B = 8: stem 3->8 @256², s2 8->16 @128²) and at chip_smoke's K2 edge
-shapes, then timed by CUDA-graph replay, inputs cycled past the L2 as in
-chip_smoke.time_cuda, the sources in turn and back (a, b, b, a): K2 at the
-stem and s2 shapes, and the serving-stem segment (`stem_s2_segment_flat`:
-conv, pool, conv, pool) built on that source's K2, whose device kernels
-are then listed (torch.profiler). `--sweep` also times K2 at B = 1, 2, 4, 8
-and one tiny graph node (a block's latency against throughput); `--sass`
-prints the opcode counts of the serving-instance kernels (cuobjdump).
-Prints one JSON line, then the card's name and power limit; runs only on
-the card.
+built with the port's nvcc flags and called through the same C interfaces
+as `ops/conv_fused.conv3x3_bn_act_flat` (K2) and `conv3x3_bn_act_stacked`
+(K3). Each is first held against the plain versions (chip_smoke's
+ATOL_KERNEL, all columns) at the serving shapes (B = 8: stem 3->8 @256²,
+s2 8->16 @128²) and at chip_smoke's K2 and K3 edge shapes, then timed by
+CUDA-graph replay, inputs cycled past the L2 as in chip_smoke.time_cuda,
+the sources in turn and back (a, b, b, a): K2 and K3 at the stem and s2
+shapes and at their edge shapes, and the serving-stem segment
+(`stem_s2_segment_flat`: conv, pool, conv, pool) in both forms built on
+that source's kernels; the flat segment's device kernels are then listed
+(torch.profiler). `--sweep` also
+times K2 and K3 at B = 1, 2, 4, 8 and one tiny graph node (a block's
+latency against throughput); `--sass` prints the opcode counts of the
+serving-instance kernels of both forms (cuobjdump). Prints one JSON line,
+then the card's name and power limit; runs only on the card.
 """
 from __future__ import annotations
 
@@ -39,9 +42,11 @@ from _bench import build  # noqa: E402
 ITERS = 100
 
 
-def sass_histogram(lib_path, needle="conv3x3_flat_"):
-    """Opcode counts of each kernel in the library whose name holds
-    `needle`, from cuobjdump -sass: {kernel: {opcode: count}}."""
+def sass_histogram(lib_path):
+    """Opcode counts of K2's and K3's serving-instance kernels in the
+    library (conv3x3_flat_*, conv3x3_stacked_*, and the general kernel's
+    stacked instances, mangled ...Lb1E, which K3 ran before it had its own),
+    from cuobjdump -sass: {kernel: {opcode: count}}."""
     from kd6d_pose_adlp_tpu_torch.utils import cuda_build as cb
 
     cuobjdump = os.path.join(os.path.dirname(cb.nvcc_path()), "cuobjdump")
@@ -52,7 +57,9 @@ def sass_histogram(lib_path, needle="conv3x3_flat_"):
         s = line.strip()
         if s.startswith("Function :"):
             name = s.split(":", 1)[1].strip()
-            cur = hist.setdefault(name, {}) if needle in name else None
+            keep = ("conv3x3_flat_" in name or "conv3x3_stacked" in name
+                    or ("conv3x3_bn_act_kernel" in name and "Lb1E" in name))
+            cur = hist.setdefault(name, {}) if keep else None
         elif cur is not None and s.startswith("/*") and "*/" in s:
             body = s.split("*/", 1)[1].strip()
             if not body or body.startswith("/*"):
@@ -78,7 +85,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="store_true",
                     help="print each source's opcode counts of its serving-instance kernels")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time K2 at B = 1, 2, 4, 8 (per-block latency "
+                    help="also time K2 and K3 at B = 1, 2, 4, 8 (per-block latency "
                          "against throughput)")
     args = ap.parse_args(argv)
 
@@ -92,7 +99,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs = build(args.sources, "conv3x3_bn_act_flat", [p, p, p, p, p, i, i, i, i, i, f, p])
+    libs = build(args.sources, {"conv3x3_bn_act_flat": [p, p, p, p, p, i, i, i, i, i, f, p],
+                                "conv3x3_bn_act_stacked": [p, p, p, p, p, i, i, i, i, f, p]})
 
     def flat_fn(lib):
         def run(xf, w, sc, bi, *, H, W, alpha=0.1):
@@ -102,6 +110,19 @@ def main(argv=None) -> int:
             err = lib.conv3x3_bn_act_flat(
                 xf.data_ptr(), w.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(),
                 B, C, O, H, W, alpha, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return out
+        return run
+
+    def stacked_fn(lib):
+        def run(xs, w, sc, bi, *, alpha=0.1):
+            B, _, C, M = xs.shape
+            O = w.shape[1]
+            out = torch.empty((B, O, M), device=dev)
+            err = lib.conv3x3_bn_act_stacked(
+                xs.data_ptr(), w.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(),
+                B, C, O, M, alpha, torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
             return out
@@ -120,28 +141,43 @@ def main(argv=None) -> int:
     B, R = cs.BATCH, cs.RES
     shapes = {"stem": (B, 3, 8, R, R), "s2": (B, 8, 16, R // 2, R // 2)}
     inputs = {k: conv_inputs(*v) for k, v in shapes.items()}
-    edges = {f"B={s[0]} {s[1]}->{s[2]} @{s[3]}x{s[4]}": (s, conv_inputs(*s)) for s in cs.K2_EDGES}
+    # (key, shape, flat input, weights, scale, bias, kernel input) of K2 and
+    # K3 at the serving shapes, then at their edge shapes
+    cases = []
+    for form, edges in (("K2", cs.K2_EDGES), ("K3", cs.K3_EDGES)):
+        for tag, s, (xf, w, sc, bi) in ([(t, shapes[t], inputs[t]) for t in shapes]
+                                        + [(f"B={e[0]} {e[1]}->{e[2]} @{e[3]}x{e[4]}", e,
+                                            conv_inputs(*e)) for e in edges]):
+            inp = xf if form == "K2" else cf.stack_taps(xf, s[3], s[4])
+            cases.append((f"{form} {tag}", s, xf, w, sc, bi, inp))
     seg_x = torch.randn((B, R, R, 3), generator=g, device=dev)
     seg_p = inputs["stem"][1:] + inputs["s2"][1:]
 
-    bounds = {tag: dict(zip(("bound_ms", "bound_by"), cs.k2_bound(*s)))
+    bounds = {f"{form} {tag}": dict(zip(("bound_ms", "bound_by"), bound(*s)))
+              for form, bound in (("K2", cs.k2_bound), ("K3", cs.k3_bound))
               for tag, s in shapes.items()}
     result = {"card": cs.gpu_name_and_power(), "shapes": shapes, "bounds": bounds,
               "sources": {}}
 
+    def kernel_call(lib, key, s, w, sc, bi):
+        """The call of K2 or K3 (by key) from `lib` at shape s, on its input."""
+        if key.startswith("K2"):
+            fn, H, W = flat_fn(lib), s[3], s[4]
+            return lambda a: fn(a, w, sc, bi, H=H, W=W)
+        st = stacked_fn(lib)
+        return lambda a: st(a, w, sc, bi)
+
     for name, lib in libs.items():
-        fn = flat_fn(lib)
         gate = {}
-        for tag, (s, (xf, w, sc, bi)) in [(k, (shapes[k], v)) for k, v in inputs.items()] + list(
-                edges.items()):
-            H, W = s[3], s[4]
-            got = fn(xf, w, sc, bi, H=H, W=W)
+        for key, s, xf, w, sc, bi, inp in cases:
+            got = kernel_call(lib, key, s, w, sc, bi)(inp)
             torch.cuda.synchronize()
-            gate[tag] = (got - cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=H, W=W)
-                         ).abs().max().item()
+            want = cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=s[3], W=s[4])
+            gate[key] = (got - want).abs().max().item()
         agrees = all(e <= cs.ATOL_KERNEL for e in gate.values())
-        result["sources"][name] = dict(agrees=agrees, max_abs_err=gate,
-                                       ms={k: [] for k in (*shapes, "segment")})
+        result["sources"][name] = dict(
+            agrees=agrees, max_abs_err=gate,
+            ms={k: [] for k in [c[0] for c in cases] + ["segment", "segment stacked"]})
         print(f"[gate] {name}: agrees {agrees}; {gate}", flush=True)
 
     if args.sass:
@@ -160,19 +196,21 @@ def main(argv=None) -> int:
 
     order = list(libs) + list(libs)[::-1]
     for name in order:
-        fn = flat_fn(libs[name])
-        for tag, (xf, w, sc, bi) in inputs.items():
-            H, W = shapes[tag][3], shapes[tag][4]
-            ms = cs.time_cuda(torch, lambda a: fn(a, w, sc, bi, H=H, W=W), copies(xf),
+        lib = libs[name]
+        for key, s, _, w, sc, bi, inp in cases:
+            ms = cs.time_cuda(torch, kernel_call(lib, key, s, w, sc, bi), copies(inp),
                               iters=ITERS)
-            result["sources"][name]["ms"][tag].append(ms)
-            print(f"[time] {name} {tag}: {ms * 1e3:.2f} us (bound "
-                  f"{bounds[tag]['bound_ms'] * 1e3:.2f} us by {bounds[tag]['bound_by']})",
-                  flush=True)
-        seg = lambda a: cf._segment(a, *seg_p, 0.1, False, fn, None)
-        ms = cs.time_cuda(torch, seg, copies(seg_x), iters=20)
-        result["sources"][name]["ms"]["segment"].append(ms)
-        print(f"[time] {name} segment: {ms * 1e3:.2f} us", flush=True)
+            result["sources"][name]["ms"][key].append(ms)
+            bd = bounds.get(key)
+            print(f"[time] {name} {key}: {ms * 1e3:.2f} us" + (
+                f" (bound {bd['bound_ms'] * 1e3:.2f} us by {bd['bound_by']})" if bd else ""),
+                flush=True)
+        fn, st = flat_fn(lib), stacked_fn(lib)
+        for key, stacked in (("segment", False), ("segment stacked", True)):
+            seg = lambda a: cf._segment(a, *seg_p, 0.1, stacked, fn, st)
+            ms = cs.time_cuda(torch, seg, copies(seg_x), iters=20)
+            result["sources"][name]["ms"][key].append(ms)
+            print(f"[time] {name} {key}: {ms * 1e3:.2f} us", flush=True)
     print(f"[clock] after timing: {sm_clock()}", flush=True)
     if args.sweep:
         # the floor: one tiny PyTorch kernel per graph node
@@ -181,18 +219,17 @@ def main(argv=None) -> int:
         result["graph_node_floor_ms"] = floor
         print(f"[sweep] a 4-element torch.neg per graph node: {floor * 1e3:.2f} us", flush=True)
         for name, lib in libs.items():
-            fn = flat_fn(lib)
             sweep = result["sources"][name]["sweep"] = {}
-            for tag, (xf, w, sc, bi) in inputs.items():
-                H, W = shapes[tag][3], shapes[tag][4]
-                for b_ in (1, 2, 4, 8):
-                    ms = cs.time_cuda(torch, lambda a: fn(a, w, sc, bi, H=H, W=W),
-                                      copies(xf[:b_].contiguous()), iters=ITERS)
-                    sweep[f"{tag} B={b_}"] = ms
+            for key, s, _, w, sc, bi, inp in cases:
+                if key in bounds:
+                    for b_ in (1, 2, 4, 8):
+                        sweep[f"{key} B={b_}"] = cs.time_cuda(
+                            torch, kernel_call(lib, key, s, w, sc, bi),
+                            copies(inp[:b_].contiguous()), iters=ITERS)
             print(f"[sweep] {name}: " + ", ".join(f"{k} {v * 1e3:.2f} us"
                                                   for k, v in sweep.items()), flush=True)
     for name, lib in libs.items():
-        # the segment's device kernels, eager, under torch.profiler
+        # the flat segment's device kernels, eager, under torch.profiler
         fn = flat_fn(lib)
         prof = cs.profile_request(torch, lambda: cf._segment(seg_x, *seg_p, 0.1, False, fn, None))
         result["sources"][name]["segment_profile"] = prof

@@ -7,7 +7,8 @@ kernels build and run only on the card; `chip_smoke.py` holds them against
 these plain versions there). Tolerances, with the largest difference
 measured on this CPU beside them:
   layout helpers                exact            (0)
-  K2 / K3 vs Pallas interpret   atol=rtol=1e-5   (max abs 3.3e-6)
+  K2 / K3 vs Pallas interpret   atol=rtol=1e-5   (max abs 3.3e-6; 9.5e-7 at
+                                                   the K3 edge shapes)
   stem segment vs Pallas        atol=1e-5        (max 2.4e-6)
   pooled stage-1 vs library     atol=1e-5        (max 1.4e-6)
   odd-sized segment vs library  atol=1e-5        (max 1.9e-6)
@@ -23,9 +24,15 @@ from kd6d_pose_adlp_tpu_torch.ops import conv_fused as T
 
 # (B, H, W, C, O): the serving stem's (3, 8) and (8, 16) instances, a shape
 # outside them, then the edges of the card kernel's mapping: M = H * (W + 2)
-# odd with (W + 2) % 4 = 3 and 1, and a (C, O) outside the tiled instances
+# odd with (W + 2) % 4 = 3 and 1, and a (C, O) outside the tiled instances;
+# then chip_smoke's K3_EDGES: each serving instance at B = 1 and full size,
+# odd M at both, a ragged tile at 30², and the eval stems of darknet ref and
+# tiny (3 -> 16, 16 -> 32)
 SHAPES = [(2, 16, 16, 3, 8), (2, 12, 20, 8, 16), (1, 8, 8, 16, 64),
-          (1, 15, 17, 3, 8), (3, 9, 7, 8, 16), (2, 9, 7, 5, 12)]
+          (1, 15, 17, 3, 8), (3, 9, 7, 8, 16), (2, 9, 7, 5, 12),
+          (1, 256, 256, 3, 8), (1, 128, 128, 8, 16), (1, 41, 61, 3, 8),
+          (3, 67, 61, 8, 16), (2, 30, 30, 8, 16), (2, 64, 64, 3, 16),
+          (2, 32, 32, 16, 32)]
 
 
 def _inputs(seed, B, H, W, C, O):
