@@ -44,9 +44,9 @@ Phases:
            flat stem (K2 twice per request), then 2 on the stacked stem (K3
            twice per request). Launch counts are zeroed just before each
            run and read just after. Outputs must be finite and the network
-           outputs must match the same weights run on the CPU (atol 1e-3);
-           the same comparison under PyTorch's default precision flags
-           (cuDNN in TF32) is logged beside it, not a gate.
+           outputs (`infer.network`) must match the same weights run on the
+           CPU (atol 1e-3), also under PyTorch's default precision flags
+           (cuDNN TF32 on), which the endpoint overrides.
   pose     runs a planted ground-truth scene through the port's postprocess
            on the card: rotation error < 3 deg, translation error < 15 mm.
   train    builds the full-width darknet_tiny_h student and darknet53 teacher
@@ -63,10 +63,28 @@ Phases:
            card and on the CPU: metrics within rtol 1e-3, every parameter's
            gradient within ||g_card - g_cpu|| <= 1e-2 ||g_cpu|| (the worst
            parameter tensor), BN statistics within 1e-4 of their largest
-           entry.
+           entry; the card's step again under PyTorch's default precision
+           flags (cuDNN TF32 on), which the step overrides: metrics and
+           gradients within the same limits.
+  eval     240 synthetic images (10 chunks of 24 at 256², mixed classes)
+           through the evaluators on the card. A planted scene (fabricated
+           network outputs that decode to the ground truth, every fourth
+           image with its own K, so the batched EPnP re-fit runs; injected
+           draws) through ScanEvaluator on the card and on the CPU and
+           through valid on the card: ADI.10d >= 99 for every class, the
+           card's poses within 1e-3 (R) and 1e-3 relative (T) of the CPU's
+           and their tables equal (AUC within AUC_ATOL), scan equal to
+           streaming. Then the full-width darknet_tiny_h (seeded random
+           weights, head prior 0.5) through ScanEvaluator.run, valid and
+           detection_stats, each launching K2 once per chunk at each of its
+           two shapes (counts zeroed just before each, read just after);
+           scan equal to streaming; images/s (median of 3), a split of a
+           scan run and one profiled chunk; then evaluate.main on 64 images
+           from a state_dict file (table printed, preds.json written).
 
 TF32 is off for matmuls and convolutions throughout, so the comparisons are
-fp32 against fp32 (all but the one logged under the defaults). Prints the
+fp32 against fp32 (the serving network and one KD step are also run under
+PyTorch's defaults). Prints the
 per-kernel JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
 Details go to the --json_out file (default outputs/chip_smoke.json).
@@ -90,6 +108,12 @@ TF32_FLOPS = 495e12            # H100 SXM TF32, tensor cores, dense (data sheet)
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 ATOL_KERNEL = 1e-4
 ATOL_NETWORK = 1e-3
+# the eval tables of one set of predictions from two devices: ADI and REP
+# equal, AUC per class within this many points. AUC averages 1000 error
+# thresholds 0.1 mm apart, finer than the fp32 spread of a pose between the
+# card and the CPU (~1e-4 of the depth, ~0.1 mm); one image crossing one
+# threshold moves its class's AUC by 0.1 / (images of the class) points
+AUC_ATOL = 0.05
 # K1 vs its plain version: max|kernel - plain| over max|plain|, per
 # potential and per point group (real, padded); read at up to 2.5e-7 on an
 # H100 at N=128, P=T=64
@@ -101,6 +125,10 @@ RTOL_POTENTIALS = 1e-5
 RTOL_GRADIENTS = 1e-2
 BATCH = 8
 RES = 256
+# the evaluators' chunk (reference test.py:114) and the eval set: 10 chunks
+EVAL_BATCH = 24
+EVAL_CHUNKS = 10
+EVAL_RUNS = 3
 TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
 # K2's edge shapes (B, C, O, H, W): the stem kernel at each row-shift
@@ -216,14 +244,18 @@ def kernel_phase(torch, F, cf, dev):
     g.manual_seed(0)
     shapes = {"stem": (3, 8, RES, RES), "s2": (8, 16, RES // 2, RES // 2)}
     rows, params = [], {}
-    for tag, (C, O, H, W) in shapes.items():
+    # K2 and K3 at the serving batch; K2 also at the eval batch, where the
+    # evaluators run the eval-mode stem once per chunk (K3 is off that path)
+    for B, tag, (C, O, H, W) in [(BATCH, t, s) for t, s in shapes.items()] + \
+            [(EVAL_BATCH, t, s) for t, s in shapes.items()]:
         M = H * (W + 2)
         k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
         w = cf.pack_weights(k)
         sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
         bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
-        params[tag] = (k, w, sc, bi)
-        x_nhwc = torch.randn((BATCH, H, W, C), generator=g, device=dev)
+        if B == BATCH:
+            params[tag] = (k, w, sc, bi)
+        x_nhwc = torch.randn((B, H, W, C), generator=g, device=dev)
         x_nchw = x_nhwc.permute(0, 3, 1, 2).contiguous()
         xf = cf.nhwc_to_flat(x_nhwc)
         xs = cf.stack_taps(xf, H, W)
@@ -235,7 +267,7 @@ def kernel_phase(torch, F, cf, dev):
             return F.leaky_relu(y * sc.reshape(1, O, 1, 1) + bi.reshape(1, O, 1, 1), 0.1)
 
         def library_stacked(xsn):
-            y = torch.matmul(w_mat, xsn.reshape(BATCH, 9 * C, M))
+            y = torch.matmul(w_mat, xsn.reshape(B, 9 * C, M))
             return F.leaky_relu(y * sc + bi, 0.1)
 
         for name, inp, kern, plain, lib_fn, lib_inp in (
@@ -246,7 +278,7 @@ def kernel_phase(torch, F, cf, dev):
                 ("conv3x3_bn_act_stacked", xs,
                  lambda a: cf.conv3x3_bn_act_stacked(a, w, sc, bi),
                  lambda a: cf.conv3x3_bn_act_stacked_plain(a, w, sc, bi),
-                 library_stacked, xs)):
+                 library_stacked, xs))[:2 if B == BATCH else 1]:
             got = kern(inp)
             torch.cuda.synchronize()
             want = plain(inp)
@@ -254,7 +286,7 @@ def kernel_phase(torch, F, cf, dev):
             # the valid columns also against the library conv
             lib_err = (cf.flat_to_nhwc(got, H, W)
                        - library_flat(x_nchw).permute(0, 2, 3, 1)).abs().max().item()
-            log(f"[kernel] {name} {tag}: max|kernel-plain| {err:.3e}, "
+            log(f"[kernel] {name} {tag} B={B}: max|kernel-plain| {err:.3e}, "
                 f"max|kernel-library| (valid cols) {lib_err:.3e}")
             if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
                 raise AssertionError(f"{name} {tag} disagrees with its plain version")
@@ -267,17 +299,17 @@ def kernel_phase(torch, F, cf, dev):
             library_ms = time_cuda(torch, lib_fn, lib_copies)
             del copies, lib_copies
             if name == "conv3x3_bn_act_flat":
-                bound_ms, bound_by, nbytes, flops = k2_bound(BATCH, C, O, H, W)
+                bound_ms, bound_by, nbytes, flops = k2_bound(B, C, O, H, W)
             else:
-                bound_ms, bound_by, nbytes, flops = k3_bound(BATCH, C, O, H, W)
+                bound_ms, bound_by, nbytes, flops = k3_bound(B, C, O, H, W)
             rows.append(dict(
-                name=name, shape=tag, C=C, O=O, H=H, W=W, B=BATCH,
+                name=name, shape=tag, C=C, O=O, H=H, W=W, B=B,
                 route="cuda", source=CONV_SRC, replaces=REPLACES[name],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, eager_ms=eager_ms,
                 bytes=nbytes, flops=flops))
-            log(f"[kernel] {name} {tag}: {ms * 1e3:.1f} us  (bound "
+            log(f"[kernel] {name} {tag} B={B}: {ms * 1e3:.1f} us  (bound "
                 f"{rows[-1]['bound_ms'] * 1e3:.1f} us by {rows[-1]['bound_by']}, "
                 f"plain {plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us; "
                 f"eager call incl. host {eager_ms * 1e3:.1f} us)")
@@ -608,27 +640,28 @@ def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int
         f"device busy {prof['device_busy_ms']:.1f} ms of its "
         f"{prof['wall_ms']:.1f} ms wall time; top: {prof['top']}")
 
-    # the same weights on the CPU: the network outputs must agree
+    # the same weights on the CPU: the endpoint's network calls must agree
     cpu = build_infer_fn(cfg, ds.consts(device="cpu"), state, device="cpu")
-    with torch.inference_mode():
-        gc, gr = infer.model(torch.as_tensor(req["images"]).to(dev))
-        cc, cr = cpu.model(torch.as_tensor(req["images"]))
+    gc, gr = infer.network(req["images"])
+    cc, cr = cpu.network(req["images"])
     net_err = max((gc.cpu() - cc).abs().max().item(), (gr.cpu() - cr).abs().max().item())
     log(f"[serving] network cls/reg, card vs CPU: max abs diff {net_err:.3e}")
     if not net_err <= ATOL_NETWORK:
         raise AssertionError("card and CPU network outputs disagree")
     # the same comparison under PyTorch's default precision flags, as a
-    # caller of build_infer_fn runs it (cuDNN convolutions in TF32): logged
-    # against ATOL_NETWORK, not a gate
+    # caller of build_infer_fn runs it: the endpoint pins fp32 itself
     fp32_flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
-    with torch.inference_mode():
-        dc, dr = infer.model(torch.as_tensor(req["images"]).to(dev))
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = fp32_flags
+    try:
+        dc, dr = infer.network(req["images"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = fp32_flags
     net_err_default = max((dc.cpu() - cc).abs().max().item(), (dr.cpu() - cr).abs().max().item())
     log(f"[serving] network cls/reg, card under PyTorch's default flags (matmul TF32 "
         f"{tf32_defaults[0]}, cuDNN TF32 {tf32_defaults[1]}) vs CPU: max abs diff "
-        f"{net_err_default:.3e} against ATOL_NETWORK {ATOL_NETWORK:g} (logged, not a gate)")
+        f"{net_err_default:.3e} (gate ATOL_NETWORK {ATOL_NETWORK:g})")
+    if not net_err_default <= ATOL_NETWORK:
+        raise AssertionError("under PyTorch's default flags the card's network misses the CPU")
 
     # the stacked stem (K3) on the same weights
     net_st = PoseNet(cfg.model, n_fg=cfg.data.n_fg, stem_stacked=True)
@@ -640,8 +673,7 @@ def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int
     by_shape_st = check_launches("conv3x3_bn_act_stacked", n_stacked)
     counts_st = per_kernel(by_shape_st)
     log(f"[serving] stacked stem, {n_stacked} requests: launches {counts_st}")
-    with torch.inference_mode():
-        sc_, sr_ = infer_st.model(torch.as_tensor(req["images"]).to(dev))
+    sc_, sr_ = infer_st.network(req["images"])
     st_err = max((sc_ - gc).abs().max().item(), (sr_ - gr).abs().max().item())
     log(f"[serving] stacked vs flat stem network outputs: max abs diff {st_err:.3e}")
     if not st_err <= ATOL_NETWORK:
@@ -801,7 +833,7 @@ def one_step(torch, cfg, cfg_t, consts, student_sd, teacher_sd, batch, uniform, 
              if p.grad is not None})
 
 
-def train_phase(torch, sf, dev):
+def train_phase(torch, sf, dev, tf32_defaults):
     import statistics
 
     from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
@@ -914,6 +946,27 @@ def train_phase(torch, sf, dev):
             and max(met_rel.values()) <= 1e-3 and g_rel[worst] <= RTOL_GRADIENTS
             and st_rel <= 1e-4):
         raise AssertionError("the KD step on the card and on the CPU disagree")
+    # the same step on the card under PyTorch's default precision flags, as
+    # a caller of engine/loop.train runs it
+    fp32_flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    try:
+        md, _, gd = one_step(torch, cfg, cfg_t, consts, student_sd, teacher_sd, small,
+                             uniform, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = fp32_flags
+    gd_rel = {k: float(torch.linalg.vector_norm(gd[k] - gh[k])
+                       / torch.linalg.vector_norm(gh[k]).clamp_min(1e-30)) for k in gh}
+    worst_d = max(gd_rel, key=gd_rel.get)
+    md_rel = max(abs(md[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh)
+    log(f"[train] one step B=2 under PyTorch's default flags (matmul TF32 "
+        f"{tf32_defaults[0]}, cuDNN TF32 {tf32_defaults[1]}) vs CPU: worst ||g_card - "
+        f"g_cpu|| / ||g_cpu|| {gd_rel[worst_d]:.2e} ({worst_d}), median "
+        f"{sorted(gd_rel.values())[len(gd_rel) // 2]:.2e}; metrics {md_rel:.2e} "
+        f"(gates RTOL_GRADIENTS {RTOL_GRADIENTS:g}, 1e-3)")
+    if not (gd_rel[worst_d] <= RTOL_GRADIENTS and md_rel <= 1e-3):
+        raise AssertionError("under PyTorch's default flags the KD step on the card "
+                             "misses the CPU")
 
     return dict(
         batch=B, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, render_s=render_s,
@@ -924,12 +977,293 @@ def train_phase(torch, sf, dev):
         profile=prof, device_idle_share=idle,
         card_vs_cpu=dict(card=mc, cpu=mh, metric_rel=met_rel, grad_rel=g_rel,
                          grad_rel_worst=g_rel[worst], grad_rel_all=g_all,
-                         bn_stat_rel=st_rel)), k1
+                         bn_stat_rel=st_rel),
+        default_flags_vs_cpu=dict(card=md, metric_rel_max=md_rel,
+                                  grad_rel_worst=gd_rel[worst_d], grad_rel_worst_tensor=worst_d,
+                                  grad_rel=gd_rel)), k1
+
+
+# ---------------------------------------------------------------------------
+# eval phase
+# ---------------------------------------------------------------------------
+
+def fabricated_outputs(torch, cfg, consts, batch):
+    """(cls_logits, pred_reg) of a batch that decode exactly to its
+    ground-truth corners: the GT class's logit 4 at cells inside the object's
+    mask (-12 elsewhere), its regression the exact corner encoding at every
+    cell (the JAX eval tests' fabricated outputs)."""
+    from kd6d_pose_adlp_tpu_torch.models import anchors as anchor_lib
+    from kd6d_pose_adlp_tpu_torch.models import coder
+
+    m, n_fg = cfg.model, cfg.data.n_fg
+    dev = consts.K.device
+    batch = batch.to(dev)
+    anchors = torch.as_tensor(anchor_lib.make_anchors(m.input_res, m.level_strides,
+                                                      m.level_sizes), device=dev)
+    A, B = anchors.shape[0], batch.images.shape[0]
+    cls0 = batch.class_ids[:, 0].long().clamp_min(0)
+    kp2d = coder.project_corners(consts.K, batch.rotations[:, 0], batch.translations[:, 0],
+                                 consts.kp3d[cls0], batch.bbox_trans)
+    enc = coder.encode(kp2d[:, None].expand(B, A, 8, 2), anchors[None])
+    bi, ai = torch.arange(B, device=dev)[:, None], torch.arange(A, device=dev)[None, :]
+    reg = torch.zeros((B, A, n_fg, 16), device=dev)
+    reg[bi, ai, cls0[:, None]] = enc
+    cx = anchors[:, 0].clamp(0, m.input_res - 1).long()
+    cy = anchors[:, 1].clamp(0, m.input_res - 1).long()
+    logits = torch.full((B, A, n_fg), -12.0, device=dev)
+    logits[bi, ai, cls0[:, None]] = torch.where(batch.mask[:, cy, cx] > 0,
+                                                torch.tensor(4.0, device=dev),
+                                                torch.tensor(-12.0, device=dev))
+    return logits, reg.reshape(B, A, n_fg * 16)
+
+
+def compare_predictions(a: dict, b: dict, r_atol: float, t_rtol: float, t_atol: float = 0.0,
+                        only=None):
+    """Two preds.json dicts: the same images, metas and classes; returns
+    (max |R_a - R_b|, max |T_a - T_b| / |T_b|, predictions compared) and
+    raises if a pose is outside (r_atol, t_rtol |T_b| + t_atol)."""
+    import numpy as np
+    if set(a) != set(b):
+        raise AssertionError("the two evaluations scored different images")
+    r_err = t_err = 0.0
+    n = 0
+    for fn, wa in a.items():
+        wb = b[fn]
+        if wa["meta"] != wb["meta"] or len(wa["pred"]) != len(wb["pred"]):
+            raise AssertionError(f"{fn}: metas or prediction counts differ")
+        if only is not None and fn not in only:
+            continue
+        for pa, pb in zip(wa["pred"], wb["pred"]):
+            if pa[1] != pb[1]:
+                raise AssertionError(f"{fn}: classes differ")
+            Ra, Rb = np.asarray(pa[2]), np.asarray(pb[2])
+            Ta, Tb = np.asarray(pa[3]).reshape(3), np.asarray(pb[3]).reshape(3)
+            dr, dt = float(np.abs(Ra - Rb).max()), float(np.abs(Ta - Tb).max())
+            r_err = max(r_err, dr)
+            t_err = max(t_err, dt / float(np.abs(Tb).max()))
+            if not (dr <= r_atol and dt <= t_rtol * float(np.abs(Tb).max()) + t_atol):
+                raise AssertionError(f"{fn}: poses differ (R {dr:.3e}, T {dt:.3e})")
+            n += 1
+    return r_err, t_err, n
+
+
+def tables_agree(a: dict, b: dict, what: str) -> float:
+    """Two evaluations' results: the ADI and REP numbers (per class and per
+    depth bin) equal, each class's AUC within AUC_ATOL; returns the largest
+    AUC difference."""
+    for g in ("adi_per_class", "rep_per_class", "adi_per_depth", "rep_per_depth"):
+        if a[g] != b[g]:
+            raise AssertionError(f"{what}: {g} differ:\n{a['table']}\n{b['table']}")
+    auc = max((abs(x[k] - y[k]) for x, y in zip(a["auc_per_class"], b["auc_per_class"])
+               for k in x), default=0.0)
+    if not auc <= AUC_ATOL:
+        raise AssertionError(f"{what}: AUC differs by {auc:.3f} points:\n{a['table']}\n"
+                             f"{b['table']}")
+    return auc
+
+
+def eval_phase(torch, cf, dev):
+    """The evaluators on the card: a planted scene (fabricated outputs that
+    decode to the ground truth, every fourth image with its own K) through
+    ScanEvaluator and valid, held against the CPU; then the full-width
+    random-weight network through ScanEvaluator.run, valid and
+    detection_stats (K2 once per chunk at each shape), images/s, the split
+    and one profiled chunk; then the evaluation CLI."""
+    import contextlib
+    import dataclasses
+    import io
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch import evaluate
+    from kd6d_pose_adlp_tpu_torch.config import Config
+    from kd6d_pose_adlp_tpu_torch.data import loaders
+    from kd6d_pose_adlp_tpu_torch.engine import evaluator
+    from kd6d_pose_adlp_tpu_torch.engine.eval_scan import ScanEvaluator
+    from kd6d_pose_adlp_tpu_torch.engine.postprocess import build_postprocess
+    from kd6d_pose_adlp_tpu_torch.engine.serving import network_fn
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.ops.epnp import sample_gumbel
+
+    cfg = Config()
+    cfg = cfg.replace(test=dataclasses.replace(cfg.test, ims_per_batch=EVAL_BATCH))
+    assert cfg.model.backbone == "darknet_tiny_h" and cfg.model.input_res == RES
+    n_img, t = EVAL_BATCH * EVAL_CHUNKS, cfg.test
+    t0 = time.perf_counter()
+    data = loaders.build(cfg, kind="synthetic", eval_limit=n_img, device=dev)
+    cfg = data.cfg
+    batches = list(data.eval_batches())
+    render_s = time.perf_counter() - t0
+    data_cpu = loaders.build(cfg, kind="synthetic", eval_limit=n_img, device="cpu")
+    consts, consts_cpu, meshes = data.consts, data_cpu.consts, data.meshes
+    K_int = consts_cpu.K.numpy().astype(np.float64)
+    K_own = K_int.copy()
+    K_own[0, 0] *= 1.07
+    K_own[1, 1] *= 0.93
+    K_own[0, 2] += 11.0
+    planted = [(b, [dict(m, K=K_own) if (bi * EVAL_BATCH + i) % 4 == 0 else m
+                    for i, m in enumerate(ms)]) for bi, (b, ms) in enumerate(batches)]
+    remapped = {m["filename"] for _, ms in planted for m in ms if m["K"] is K_own}
+    classes = sorted({int(m["class_ids"][0]) for _, ms in batches for m in ms})
+    log(f"[eval] {n_img} synthetic images in {EVAL_CHUNKS} chunks of {EVAL_BATCH} at "
+        f"{RES}² ({len(classes)} classes; rendered in {render_s:.1f} s); "
+        f"{len(remapped)} with their own K")
+
+    # the draws of both runs of the planted scene, chunk by chunk
+    gen_cpu = torch.Generator().manual_seed(11)
+    draws = [sample_gumbel((EVAL_BATCH, t.ransac_iters, t.max_votes * 8), gen_cpu, "cpu")
+             for _ in range(EVAL_CHUNKS)]
+    gumbel_fn = lambda i: draws[i]  # noqa: E731
+
+    def planted_scan(consts_, device):
+        outs = [fabricated_outputs(torch, cfg, consts_, b) for b, _ in batches]
+        sev = ScanEvaluator(cfg, consts_, None, meshes, forward=lambda im, i: outs[i])
+        sev.prepare(planted)
+        t1 = time.perf_counter()
+        r = sev.run(gumbel_fn=gumbel_fn, verbose=False)
+        return r, time.perf_counter() - t1, outs
+
+    card, card_s, outs = planted_scan(consts, dev)
+    host, host_s, _ = planted_scan(consts_cpu, "cpu")
+    log(f"[eval] planted scene, ScanEvaluator on the card ({card_s:.2f} s) and on the "
+        f"CPU ({host_s:.2f} s), the same injected draws:\n{card['table']}")
+    for c in classes:
+        adi = card["adi_per_class"][c].get("ADI.10d", 0.0)
+        if not adi >= 99.0:
+            raise AssertionError(f"planted scene: ADI.10d {adi} < 99 for class {c}")
+    r_err, t_err, n_cmp = compare_predictions(card["predictions"], host["predictions"],
+                                              1e-3, 1e-3)
+    auc_cpu = tables_agree(card, host, "planted scene, card vs CPU")
+    log(f"[eval] planted scene, card vs CPU: {n_cmp} poses, max |R| diff {r_err:.2e}, max "
+        f"relative T diff {t_err:.2e} (gates 1e-3, 1e-3); ADI and REP equal, AUC within "
+        f"{auc_cpu:.4f} points (tables identical {card['table'] == host['table']})")
+    it = iter(outs)
+    t1 = time.perf_counter()
+    stream = evaluator.valid(cfg, consts, lambda im: next(it), build_postprocess(cfg, consts),
+                             iter(planted), meshes, gumbel_fn=gumbel_fn, verbose=False)
+    stream_s = time.perf_counter() - t1
+    kept = set(card["predictions"]) - remapped
+    r1, t1_, n1 = compare_predictions(card["predictions"], stream["predictions"], 1e-4, 1e-4,
+                                      only=kept)
+    r2, t2, n2 = compare_predictions(card["predictions"], stream["predictions"], 5e-3, 2e-3,
+                                     0.5, only=remapped)
+    auc_stream = tables_agree(card, stream, "planted scene, scan vs streaming")
+    log(f"[eval] planted scene, scan vs streaming on the card ({stream_s:.2f} s): {n1} "
+        f"poses at the internal K, max |R| diff {r1:.2e}, relative T {t1_:.2e} (gates "
+        f"1e-4, 1e-4); {n2} re-fit to their own K (device EPnP vs host), R {r2:.2e}, T "
+        f"{t2:.2e} (gates 5e-3, 2e-3 + 0.5 mm); ADI and REP equal, AUC within "
+        f"{auc_stream:.4f} points (tables identical {card['table'] == stream['table']})")
+
+    # the full-width network, random weights, head prior 0.5 so that every
+    # image votes; the images at the internal K
+    net = init_pose_net(PoseNet(cfg.model, n_fg=cfg.data.n_fg),
+                        torch.Generator().manual_seed(0), prior=0.5).to(dev).eval()
+    sev = ScanEvaluator(cfg, consts, net, meshes)
+    sev.prepare(batches)
+    torch.cuda.synchronize()
+    shapes = ((3, 8), (8, 16))
+
+    def k2_launches(what):
+        got = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o), 0)
+               for c, o in shapes}
+        if set(got.values()) != {EVAL_CHUNKS} or sum(cf.launches.values()) != 2 * EVAL_CHUNKS:
+            raise AssertionError(f"{what}: K2 not launched once per chunk at each shape: "
+                                 f"{dict(cf.launches)}")
+        return got
+
+    cf.reset_launch_counts()
+    scan = sev.run(seed=0, verbose=False)
+    launches = dict(cf.launches)
+    scan_launches = k2_launches("ScanEvaluator.run")
+    cf.reset_launch_counts()
+    network, post = network_fn(net), build_postprocess(cfg, consts)
+    stream = evaluator.valid(cfg, consts, network, post, iter(batches), meshes, seed=0,
+                             verbose=False)
+    stream_launches = k2_launches("valid")
+    cf.reset_launch_counts()
+    det = evaluator.detection_stats(cfg, consts, network, iter(batches), cfg.data.n_fg,
+                                    seed=0, verbose=False)
+    det_launches = k2_launches("detection_stats")
+    r_err, t_err, n_cmp = compare_predictions(scan["predictions"], stream["predictions"],
+                                              1e-4, 1e-4)
+    log(f"[eval] full-width network (random weights: its table means nothing): K2 launches "
+        f"scan {scan_launches}, valid {stream_launches}, detection_stats {det_launches} in "
+        f"{EVAL_CHUNKS} chunks; scan vs streaming: tables equal "
+        f"{scan['table'] == stream['table']}, {n_cmp} poses, max |R| diff {r_err:.2e}, "
+        f"relative T {t_err:.2e}; detection_stats {det}")
+    if scan["table"] != stream["table"]:
+        raise AssertionError("full-width network: scan and streaming tables differ")
+
+    # images/s: host clock, each run ends in a synchronizing copy, median of 3
+    def per_s(fn):
+        times = []
+        for _ in range(EVAL_RUNS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        return n_img / statistics.median(times), times
+
+    scan_ips, scan_times = per_s(lambda: sev.run(seed=0, verbose=False))
+    stream_ips, stream_times = per_s(lambda: evaluator.valid(
+        cfg, consts, network, post, iter(batches), meshes, seed=0, verbose=False))
+    split = {}
+    sev.run(seed=0, verbose=False, timings=split)
+    log(f"[eval] images/s at B={EVAL_BATCH}, {RES}², {n_img} images on {gpu_name_and_power()}: "
+        f"scan {scan_ips:.1f} "
+        f"({', '.join(f'{x:.3f}' for x in scan_times)} s), streaming {stream_ips:.1f} "
+        f"({', '.join(f'{x:.3f}' for x in stream_times)} s); a scan run split (synchronized "
+        f"per stage): {', '.join(f'{k} {v:.3f}' for k, v in split.items())}")
+    one = ScanEvaluator(cfg, consts, net, meshes).prepare(batches[:1])
+    one.run(seed=0, verbose=False)
+    prof = profile_request(torch, lambda: one.run(seed=0, verbose=False))
+    idle = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+    log(f"[eval] one profiled chunk (ScanEvaluator.run on {EVAL_BATCH} images): "
+        f"{prof['device_kernels']} device kernels, device busy {prof['device_busy_ms']:.1f} "
+        f"ms of its {prof['wall_ms']:.1f} ms wall time (idle share {idle:.3f}); "
+        f"top: {prof['top']}")
+
+    # the evaluation CLI on a state_dict file, 64 images
+    with tempfile.TemporaryDirectory() as tmp:
+        wf = os.path.join(tmp, "w.pt")
+        torch.save(net.state_dict(), wf)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli = evaluate.main(["--config_file", "", "--weight_file", wf, "--data",
+                                 "synthetic", "--working_dir",
+                                 os.path.join(tmp, "eval")])
+        cli_s = time.perf_counter() - t1
+        printed = buf.getvalue()
+        with open(os.path.join(tmp, "eval", "preds.json")) as f:
+            n_preds = len(json.load(f))
+    log(f"[eval] evaluate.main on 64 images ({cli_s:.1f} s) printed:\n{printed.rstrip()}")
+    if not (printed.startswith(f"loaded {len(net.state_dict())} tensors from")
+            and cli["table"] in printed and n_preds == 64):
+        raise AssertionError("the evaluation CLI did not load, print its table and write "
+                             "preds.json")
+
+    return dict(
+        images=n_img, chunk=EVAL_BATCH, chunks=EVAL_CHUNKS, render_s=render_s,
+        planted=dict(card_s=card_s, cpu_s=host_s, stream_s=stream_s, table=card["table"],
+                     cpu_table=host["table"],
+                     card_vs_cpu=dict(R=r_err, T_rel=t_err, auc=auc_cpu),
+                     scan_vs_stream=dict(R=r1, T_rel=t1_, R_refit=r2, T_rel_refit=t2,
+                                         auc=auc_stream)),
+        network=dict(scan_images_per_s=scan_ips, scan_s=scan_times,
+                     stream_images_per_s=stream_ips, stream_s=stream_times, split_s=split,
+                     launches_scan=scan_launches, launches_stream=stream_launches,
+                     launches_detection=det_launches, detection=det, profile=prof,
+                     device_idle_share=idle),
+        cli_s=cli_s), launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernel,serving,pose,train")
+    ap.add_argument("--phases", default="kernel,serving,pose,train,eval")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -965,22 +1299,25 @@ def main(argv=None) -> int:
                     log(f"[set-up] ptxas {name}: {line.strip()}")
 
     result = {"card": card}
-    rows, launches, k1_row, k1_launches = [], {}, None, None
+    # launches of each main path's run, by batch: serving at B=8, eval at 24
+    rows, launches, k1_row, k1_launches = [], {BATCH: {}, EVAL_BATCH: {}}, None, None
     if "kernel" in phases:
         rows, result["segment"] = kernel_phase(torch, F, cf, dev)
         k1_row = sinkhorn_kernel(torch, sf, dev)
     if "serving" in phases:
-        result["serving"], launches = serving_phase(torch, cf, dev, tf32_defaults)
+        result["serving"], launches[BATCH] = serving_phase(torch, cf, dev, tf32_defaults)
     if "pose" in phases:
         result["pose"] = pose_phase(torch, dev)
     if "train" in phases:
-        result["train"], k1_launches = train_phase(torch, sf, dev)
+        result["train"], k1_launches = train_phase(torch, sf, dev, tf32_defaults)
+    if "eval" in phases:
+        result["eval"], launches[EVAL_BATCH] = eval_phase(torch, cf, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for r in rows:
-        r["launches"] = launches.get((r["name"], r["C"], r["O"]))
+        r["launches"] = launches[r["B"]].get((r["name"], r["C"], r["O"]))
         r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{r['H']}^2 B={r['B']}]")
         kernels.append({k: r[k] for k in keys})
     if k1_row is not None:

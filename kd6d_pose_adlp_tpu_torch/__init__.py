@@ -8,9 +8,13 @@ per-cell outputs in NHWC cell order), so the tests can hold every module
 against its JAX counterpart on the same inputs.
 
 Ported so far: the serving path — `PoseNet` (darknet_tiny_h + FPN + head)
--> class-selected voting -> RANSAC-EPnP + LHM (`engine/serving.py`), with the
-fused 3x3 conv + BN-affine + LeakyReLU Pallas kernels of the stem / s2
-stages as hand-written CUDA (`csrc/conv3x3_bn_act.cu`, `ops/conv_fused.py`).
+-> class-selected voting -> RANSAC-EPnP + LHM (`engine/serving.py`, modes
+single and multi), with the fused 3x3 conv + BN-affine + LeakyReLU Pallas
+kernels of the stem / s2 stages as hand-written CUDA
+(`csrc/conv3x3_bn_act.cu`, `ops/conv_fused.py`); the KD training step and
+loop (`engine/steps.py`, `engine/loop.py`, the Sinkhorn kernel in
+`csrc/sinkhorn_potentials.cu`); evaluation (`engine/evaluator.py`,
+`engine/eval_scan.py`, `utils/metrics.py`, the `evaluate` CLI).
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU; on CPU tensors each kernel wrapper runs its plain PyTorch version.

@@ -1,6 +1,6 @@
 """Procedural BOP-style scenes (port of `kd6d_pose_adlp_tpu/data/
-synthetic.py:68-231`, the same numpy RNG stream sample for sample; its
-class-restriction options, used only by JAX pretraining, are not ported).
+synthetic.py:68-231`, the same numpy RNG stream sample for sample,
+`single_class` and `classes` included).
 
 No LINEMOD data ships with the repo, so training batches, serving requests
 and task constants for smoke runs come from here: a painted cuboid per
@@ -9,7 +9,7 @@ class under a random pose, cropped by a DZI affine.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -70,6 +70,9 @@ class SyntheticPoseDataset:
     input_res: int = 256
     internal_wh: Tuple[int, int] = (640, 480)
     max_objs: int = 8
+    single_class: Optional[int] = None  # LINEMOD-style one-object scenes
+    # restrict sampled classes to a subset; None = all
+    classes: Optional[Tuple[int, ...]] = None
     seed: int = 0
 
     def __post_init__(self):
@@ -86,7 +89,12 @@ class SyntheticPoseDataset:
         """One scene: the crop in [0, 1] RGB plus its annotations."""
         rng = np.random.default_rng((self.seed * 1_000_003 + index) & 0x7FFFFFFF)
         W, H = self.internal_wh
-        cls = int(rng.integers(0, self.n_fg))
+        if self.single_class is not None:
+            cls = self.single_class
+        elif self.classes is not None:
+            cls = int(self.classes[int(rng.integers(0, len(self.classes)))])
+        else:
+            cls = int(rng.integers(0, self.n_fg))
         R = geo.quaternion2rotation(rng.normal(size=4)).astype(np.float32)
         z = rng.uniform(650, 1100)
         x = rng.uniform(-0.25, 0.25) * z * W / self.K[0, 0] / 2

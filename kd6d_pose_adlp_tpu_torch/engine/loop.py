@@ -2,13 +2,14 @@
 `kd6d_pose_adlp_tpu/engine/loop.py:31-76,213-253`): build the student and
 (optionally) the frozen teacher, then one eagerly dispatched step per
 batch, with SSC's random draws from one seeded generator that advances
-every step, and metrics plus images/s every `log_every` steps.
+every step, metrics plus images/s every `log_every` steps, and
+`eval_fn(state, step)` every `cfg.solver.val_freq` steps and after the last.
 
 Not ported yet, and raising `NotImplementedError` when asked for: the
 device-resident pool scan (`pool`), the data mesh (`mesh`), the cached
-teacher (`cache_teacher`), cloud visualization (`vis_every`), periodic
-evaluation (`eval_fn`) and `resume`; checkpoints (`latest.ckpt`,
-`final.ckpt`) wait for a later slice, so nothing is written to disk.
+teacher (`cache_teacher`), cloud visualization (`vis_every`) and `resume`;
+checkpoints (`latest.ckpt`, `final.ckpt`) wait for a later slice, so
+nothing is written to disk.
 """
 from __future__ import annotations
 
@@ -48,8 +49,11 @@ def train(cfg: Config,
       `cfg.solver.seed`.
     - Distillation is on iff `teacher_state_dict` is given and
       kd.weight > 0; the teacher is a PoseNet of `cfg_t.model`.
+    - `eval_fn(state, step)` (e.g. a `ScanEvaluator` over `state.net`) is
+      called when step % cfg.solver.val_freq == 0 and at the last step
+      (JAX `engine/loop.py:241-243`); its time is not in `step_ms`.
     """
-    for name, asked in (("eval_fn", eval_fn is not None), ("mesh", mesh is not None),
+    for name, asked in (("mesh", mesh is not None),
                         ("resume", resume), ("vis_every", vis_every > 0),
                         ("pool", pool is not None), ("cache_teacher", cache_teacher)):
         if asked:
@@ -97,4 +101,8 @@ def train(cfg: Config,
                       f"cls {m['loss_cls']:.4f} reg {m['loss_reg']:.4f} "
                       f"kd {m['loss_kd']:.4f} ips {m['images_per_sec']:.1f}",
                       flush=True)
+        if eval_fn is not None and (state.step % cfg.solver.val_freq == 0
+                                    or state.step == cfg.solver.max_iter):
+            eval_fn(state, state.step)
+            t_last, n_img = time.perf_counter(), 0
     return state, history

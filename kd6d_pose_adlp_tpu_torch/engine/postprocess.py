@@ -1,9 +1,12 @@
 """Inference postprocess: dense predictions -> 6D poses on device (port of
-`kd6d_pose_adlp_tpu/engine/postprocess.py`, the single-class path).
+`kd6d_pose_adlp_tpu/engine/postprocess.py`).
 
 threshold -> per-level quota voting -> inverse crop affine -> RANSAC-EPnP ->
-LHM refinement on the RANSAC inliers. `mode="multi"` and the host-side
-symmetry canonicalization wait for later slices.
+LHM refinement on the RANSAC inliers. `_make_class_solver` solves one class
+id per image and is shared by the single-class postprocess, the
+detection-style `build_postprocess_multi` and the scan evaluator
+(`engine/eval_scan.py`). Symmetry canonicalization of a predicted R stays on
+the host (`apply_symmetry_host`).
 """
 from __future__ import annotations
 
@@ -13,10 +16,14 @@ import torch
 
 from ..config import Config
 from ..data.batch import TaskConsts
-from ..ops.epnp import full_fp32, lhm_refine, ransac_epnp, reprojection_errors
+from ..ops.epnp import lhm_refine, ransac_epnp, reprojection_errors, sample_gumbel
 from ..ops.object_space import select_class_pred
 from ..ops.smallalg import inv3
 from ..ops.voting import vote_cells, votes_to_internal_frame
+from ..utils.precision import full_fp32
+
+# the per-class outputs of build_postprocess_multi, in a fixed order
+MULTI_KEYS = ("R", "T", "score", "cls", "n_inliers", "valid")
 
 
 def build_postprocess(cfg: Config, consts: TaskConsts):
@@ -27,15 +34,71 @@ def build_postprocess(cfg: Config, consts: TaskConsts):
     class_ids (B,) is the class to solve per image (negative = invalid);
     RANSAC draws come from `generator`, or are injected as `gumbel`
     (B, ransac_iters, max_votes * 8)."""
-    m, t = cfg.model, cfg.test
+    solve = _make_class_solver(cfg, consts)
 
     def predict(cls_logits: torch.Tensor, pred_reg: torch.Tensor,
                 class_ids: torch.Tensor, bbox_trans: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 gumbel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        class_ids = class_ids.to(torch.int64)
+        out = solve(class_ids.clamp_min(0), cls_logits, pred_reg, bbox_trans,
+                    generator=generator, gumbel=gumbel)
+        out["valid"] = out["valid"] & (class_ids >= 0)
+        return out
+
+    return predict
+
+
+def build_postprocess_multi(cfg: Config, consts: TaskConsts, n_fg: int):
+    """Detection-style postprocess: votes and solves PnP for EVERY foreground
+    class. Returns predict(cls_logits, pred_reg, bbox_trans, generator=None,
+    gumbel=None) -> dict of MULTI_KEYS, each (B, n_fg, ...), `valid`
+    marking a class with any vote above threshold.
+
+    The n_fg classes are solved as one batch of n_fg * B rows. The draws
+    are one (n_fg, B, ransac_iters, max_votes * 8) Gumbel tensor, from
+    `generator` or injected as `gumbel`."""
+    t = cfg.test
+    solve = _make_class_solver(cfg, consts)
+
+    def predict(cls_logits: torch.Tensor, pred_reg: torch.Tensor,
+                bbox_trans: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        B = cls_logits.shape[0]
+        dev = cls_logits.device
+        shape = (n_fg, B, t.ransac_iters, t.max_votes * 8)
+        if gumbel is None:
+            gumbel = sample_gumbel(shape, generator, dev)
+        if tuple(gumbel.shape) != shape:
+            raise ValueError(f"gumbel {tuple(gumbel.shape)} != {shape}")
+        rows = lambda x: x[None].expand((n_fg,) + x.shape).reshape((n_fg * B,) + x.shape[1:])
+        cls = torch.arange(n_fg, device=dev).repeat_interleave(B)
+        out = solve(cls, rows(cls_logits), rows(pred_reg), rows(bbox_trans),
+                    gumbel=gumbel.reshape((n_fg * B,) + shape[2:]))
+        # (C * B, ...) -> (B, C, ...)
+        return {k: out[k].reshape((n_fg, B) + out[k].shape[1:]).transpose(0, 1)
+                for k in MULTI_KEYS}
+
+    return predict
+
+
+def _make_class_solver(cfg: Config, consts: TaskConsts):
+    """Shared vote -> RANSAC-EPnP (-> LHM) pipeline for one class id per
+    image, in full fp32. Takes the (B, 2, 3) crop affines directly (not a
+    Batch), so the scan evaluator reuses it on its staged chunks.
+
+    solve(gt_cls (B,) int, cls_logits, pred_reg, bbox_trans, generator=None,
+    gumbel=None) -> dict with R, T, score, cls, n_inliers, valid (the image
+    cast a vote), kp2d, vote_valid."""
+    m, t = cfg.model, cfg.test
+
+    def solve(gt_cls: torch.Tensor, cls_logits: torch.Tensor,
+              pred_reg: torch.Tensor, bbox_trans: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              gumbel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         with full_fp32():
-            class_ids = class_ids.to(torch.int64)
-            gt_cls = class_ids.clamp_min(0)
+            gt_cls = gt_cls.to(torch.int64)
             B, A, _ = cls_logits.shape
             scores = torch.sigmoid(cls_logits)
             s = torch.gather(scores, 2, gt_cls[:, None, None].expand(B, A, 1))[..., 0]
@@ -74,8 +137,15 @@ def build_postprocess(cfg: Config, consts: TaskConsts):
             conf = torch.sqrt(torch.where(votes.valid, votes.score,
                                           torch.zeros_like(votes.score)).amax(dim=1))
             return dict(R=R, T=T, score=conf, cls=gt_cls.to(torch.int32),
-                        n_inliers=n_in,
-                        valid=votes.valid.any(-1) & (class_ids >= 0),
+                        n_inliers=n_in, valid=votes.valid.any(-1),
                         kp2d=kp_internal, vote_valid=votes.valid)
 
-    return predict
+    return solve
+
+
+def apply_symmetry_host(R, cls_id: int, symmetry: Dict[int, tuple]):
+    """Host-side symmetry canonicalization of a predicted rotation."""
+    from ..utils.geometry import pose_symmetry_handling
+    if cls_id in symmetry:
+        return pose_symmetry_handling(R, symmetry[cls_id])
+    return R

@@ -7,6 +7,8 @@ optax-form global-norm clip -> AdamW with the OneCycle LR.
 
 JAX keeps the state as an immutable pytree; here the student module holds
 the parameters and BN statistics and the optimizer updates them in place.
+The step runs in full fp32 (`utils/precision.full_fp32`) whatever the
+caller's TF32 flags, as the JAX step is fp32.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..data.batch import Batch, TaskConsts
 from ..models.pose_net import PoseNet, init_pose_net
 from ..ops.object_space import select_class_pred
 from ..ops.voting import Votes, vote_cells, votes_to_internal_frame
+from ..utils.precision import full_fp32
 from .losses import pose_losses
 from .schedule import onecycle_linear_lr
 
@@ -155,13 +158,18 @@ def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
 
     `uniform` (B, A, G) is SSC's draw for this step; without it the draw
     comes from `generator`. With distill=False (or no teacher) the teacher
-    is skipped and loss_kd is 0."""
+    is skipped and loss_kd is 0. The whole step, backward included, runs
+    with TF32 off."""
     w_img, h_img = float(cfg.data.internal_width), float(cfg.data.internal_height)
     params = list(net.parameters())
 
     def step_fn(state: TrainState, batch: Batch,
                 uniform: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
+        with full_fp32():
+            return _step(state, batch, uniform, generator)
+
+    def _step(state, batch, uniform, generator):
         teacher = None
         if distill and teacher_net is not None:
             teacher = (teacher_votes(cfg, cfg_t, teacher_net, batch), w_img, h_img)

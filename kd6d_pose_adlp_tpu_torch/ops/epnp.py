@@ -10,31 +10,20 @@ beta cases N=1 and N=2 + 8 Gauss-Newton steps, Horn-quaternion Umeyama, a
 12-iteration LHM polish, and the >=6-inlier refit fallback.
 
 All of it runs in full fp32 (the JAX `_hp` rule): wrap calls on the card in
-`full_fp32()`, which turns TF32 matmuls off for the duration.
+`full_fp32()` (`utils/precision.py`), which turns TF32 off for the duration.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import torch
 
+from ..utils.precision import full_fp32  # noqa: F401 (the pose math's context)
 from .smallalg import eigh3, inv3, inv4, rotation_horn, smallest_eigvecs, solve_spd
 
 _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 _I0 = [p[0] for p in _PAIRS]
 _I1 = [p[1] for p in _PAIRS]
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """fp32 matmuls at full precision (TF32 off), restored on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _T(x: torch.Tensor) -> torch.Tensor:
@@ -156,8 +145,9 @@ def _wsum(wn, e):
 
 def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
          w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Weighted EPnP. pts3d (..., N, 3), pts2d (..., N, 2), K (3, 3),
-    w (..., N) >= 0 -> (R (..., 3, 3), T (..., 3)). Leading dims broadcast.
+    """Weighted EPnP. pts3d (..., N, 3), pts2d (..., N, 2), K (3, 3) or one
+    per problem (..., 3, 3), w (..., N) >= 0 -> (R (..., 3, 3), T (..., 3)).
+    Leading dims broadcast.
 
     Image coords are normalized by K and world coords by their RMS spread
     so every stage works on O(1) numbers in fp32."""
@@ -211,7 +201,8 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
     x_cam = x_cam * sgn[..., None, None]
     Rs, Ts = umeyama(pts3s[..., None, :, :], x_cam, w[..., None, :])
     Ts = Ts * scale[..., None, None]
-    es = reprojection_errors(pts3d[..., None, :, :], pts2d[..., None, :, :], K,
+    Kc = K if K.dim() == 2 else K[..., None, :, :]          # per beta case
+    es = reprojection_errors(pts3d[..., None, :, :], pts2d[..., None, :, :], Kc,
                              Rs, Ts)                        # (..., 2, N)
     e1 = _wsum(wn, es[..., 0, :])
     e2 = _wsum(wn, es[..., 1, :])

@@ -7,7 +7,7 @@ inverse subspace iteration from a fixed init, Horn's quaternion by power
 iteration — rather than `torch.linalg`, so that null spaces, eigenvector
 signs and iteration counts are the reference's. Every function takes
 (..., n, n) / (..., n) and treats the leading dims as a batch. fp32; the
-matmuls must not run in TF32 (see `ops/epnp.full_fp32`).
+matmuls must not run in TF32 (see `utils/precision.full_fp32`).
 """
 from __future__ import annotations
 

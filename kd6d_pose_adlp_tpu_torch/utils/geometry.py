@@ -1,10 +1,12 @@
 """Host-side NumPy geometry helpers (copy of the parts of
-`kd6d_pose_adlp_tpu/utils/geometry.py` that synthetic scenes and the tests
-need): projection, 2x3 affines, quaternions, the DZI crop affine and
-corner boxes."""
+`kd6d_pose_adlp_tpu/utils/geometry.py` that synthetic scenes, the evaluators
+and the tests need): projection, 2x3 affines, quaternions, general Euler
+angles and symmetry canonicalization, the DZI crop affine and corner
+boxes."""
 from __future__ import annotations
 
 import math
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -34,6 +36,132 @@ def quaternion2rotation(quat: np.ndarray) -> np.ndarray:
         [2 * (b * c + a * d), a * a - b * b + c * c - d * d, 2 * (c * d - a * b)],
         [2 * (b * d - a * c), 2 * (c * d + a * b), a * a - b * b - c * c + d * d],
     ])
+
+
+def rotation2quaternion(M: np.ndarray) -> np.ndarray:
+    m = np.asarray(M, dtype=np.float64).reshape(-1)
+    tr = m[0] + m[4] + m[8]
+    if tr > 0:
+        s = math.sqrt(tr + 1.0) * 2
+        w, x, y, z = 0.25 * s, (m[7] - m[5]) / s, (m[2] - m[6]) / s, (m[3] - m[1]) / s
+    elif m[0] > m[4] and m[0] > m[8]:
+        s = math.sqrt(1.0 + m[0] - m[4] - m[8]) * 2
+        w, x, y, z = (m[7] - m[5]) / s, 0.25 * s, (m[1] + m[3]) / s, (m[2] + m[6]) / s
+    elif m[4] > m[8]:
+        s = math.sqrt(1.0 + m[4] - m[0] - m[8]) * 2
+        w, x, y, z = (m[2] - m[6]) / s, (m[1] + m[3]) / s, 0.25 * s, (m[5] + m[7]) / s
+    else:
+        s = math.sqrt(1.0 + m[8] - m[0] - m[4]) * 2
+        w, x, y, z = (m[3] - m[1]) / s, (m[2] + m[6]) / s, (m[5] + m[7]) / s, 0.25 * s
+    return np.array([w, x, y, z])
+
+
+# =========================================================================
+# General Euler angles (replaces the reference's transforms3d dependency,
+# used by pose_symmetry_handling — reference libs/utils.py:528-553).
+# Standard axis-sequence algebra (Shoemake convention).
+# =========================================================================
+
+_NEXT_AXIS = [1, 2, 0, 1]
+_AXES2TUPLE = {
+    "sxyz": (0, 0, 0, 0), "sxyx": (0, 0, 1, 0), "sxzy": (0, 1, 0, 0),
+    "sxzx": (0, 1, 1, 0), "syzx": (1, 0, 0, 0), "syzy": (1, 0, 1, 0),
+    "syxz": (1, 1, 0, 0), "syxy": (1, 1, 1, 0), "szxy": (2, 0, 0, 0),
+    "szxz": (2, 0, 1, 0), "szyx": (2, 1, 0, 0), "szyz": (2, 1, 1, 0),
+}
+_EPS4 = np.finfo(float).eps * 4.0
+
+
+def euler2mat(ai: float, aj: float, ak: float, axes: str = "sxyz") -> np.ndarray:
+    firstaxis, parity, repetition, frame = _AXES2TUPLE[axes]
+    i = firstaxis
+    j = _NEXT_AXIS[i + parity]
+    k = _NEXT_AXIS[i - parity + 1]
+    if frame:
+        ai, ak = ak, ai
+    if parity:
+        ai, aj, ak = -ai, -aj, -ak
+    si, sj, sk = math.sin(ai), math.sin(aj), math.sin(ak)
+    ci, cj, ck = math.cos(ai), math.cos(aj), math.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    M = np.eye(3)
+    if repetition:
+        M[i, i] = cj
+        M[i, j] = sj * si
+        M[i, k] = sj * ci
+        M[j, i] = sj * sk
+        M[j, j] = -cj * ss + cc
+        M[j, k] = -cj * cs - sc
+        M[k, i] = -sj * ck
+        M[k, j] = cj * sc + cs
+        M[k, k] = cj * cc - ss
+    else:
+        M[i, i] = cj * ck
+        M[i, j] = sj * sc - cs
+        M[i, k] = sj * cc + ss
+        M[j, i] = cj * sk
+        M[j, j] = sj * ss + cc
+        M[j, k] = sj * cs - sc
+        M[k, i] = -sj
+        M[k, j] = cj * si
+        M[k, k] = cj * ci
+    return M
+
+
+def mat2euler(M: np.ndarray, axes: str = "sxyz") -> Tuple[float, float, float]:
+    firstaxis, parity, repetition, frame = _AXES2TUPLE[axes]
+    i = firstaxis
+    j = _NEXT_AXIS[i + parity]
+    k = _NEXT_AXIS[i - parity + 1]
+    M = np.asarray(M, dtype=np.float64)
+    if repetition:
+        sy = math.sqrt(M[i, j] * M[i, j] + M[i, k] * M[i, k])
+        if sy > _EPS4:
+            ax = math.atan2(M[i, j], M[i, k])
+            ay = math.atan2(sy, M[i, i])
+            az = math.atan2(M[j, i], -M[k, i])
+        else:
+            ax = math.atan2(-M[j, k], M[j, j])
+            ay = math.atan2(sy, M[i, i])
+            az = 0.0
+    else:
+        cy = math.sqrt(M[i, i] * M[i, i] + M[j, i] * M[j, i])
+        if cy > _EPS4:
+            ax = math.atan2(M[k, j], M[k, k])
+            ay = math.atan2(-M[k, i], cy)
+            az = math.atan2(M[j, i], M[i, i])
+        else:
+            ax = math.atan2(-M[j, k], M[j, j])
+            ay = math.atan2(-M[k, i], cy)
+            az = 0.0
+    if parity:
+        ax, ay, az = -ax, -ay, -az
+    if frame:
+        ax, az = az, ax
+    return ax, ay, az
+
+
+def pose_symmetry_handling(R: np.ndarray, sym_spec: Sequence) -> np.ndarray:
+    """Canonicalize a rotation w.r.t. discrete object symmetries.
+
+    `sym_spec` is a flat list of (axis, mod-degrees) pairs, e.g.
+    ['X',180,'Y',180,'Z',180]. For each pair, the Euler angle about the given
+    axis (in the axis-specific sequence) is reduced modulo `mod`
+    (reference libs/utils.py:528-553).
+    """
+    if len(sym_spec) == 0:
+        return np.asarray(R, dtype=np.float32)
+    assert len(sym_spec) % 2 == 0
+    R = np.asarray(R, dtype=np.float64)
+    for idx in range(len(sym_spec) // 2):
+        axis = sym_spec[2 * idx]
+        mod = float(sym_spec[2 * idx + 1]) * np.pi / 180.0
+        seq = {"X": "sxyz", "Y": "syzx", "Z": "szyx"}[axis]
+        ai, aj, ak = mat2euler(R, axes=seq)
+        ai = 0.0 if mod == 0 else math.fmod(ai, mod)
+        R = euler2mat(ai, aj, ak, axes=seq)
+    return R.astype(np.float32)
 
 
 def dzi_affine(center: np.ndarray, scale: float, output_size: int,

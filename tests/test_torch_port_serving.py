@@ -17,6 +17,8 @@ Tolerances, with the largest difference measured on this CPU beside them:
   R orthonormality                      atol 1e-4   (max 2.4e-7)
   centered_bbox_trans                   equal
   uint8 request crops vs JAX renderings within half a grey level
+The network runs in full fp32 whatever the caller's TF32 flags: a stub
+network records the flags it is called under.
 """
 import os
 import subprocess
@@ -37,6 +39,7 @@ from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
 from kd6d_pose_adlp_tpu_torch.engine.serving import SINGLE_KEYS, build_infer_fn
 from kd6d_pose_adlp_tpu_torch.ops import conv_fused
 from kd6d_pose_adlp_tpu_torch.utils.convert import from_jax_variables
+from kd6d_pose_adlp_tpu_torch.utils.precision import full_fp32
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES, B, SEED = 64, 3, 7
@@ -189,3 +192,44 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) > 20
+
+
+class _FlagRecorder(torch.nn.Module):
+    """A stand-in network that records (matmul, cuDNN) allow_tf32 as it is
+    called and returns outputs that cast no vote."""
+
+    def __init__(self, cells: int, n_fg: int = 15):
+        super().__init__()
+        self.cells, self.n_fg, self.seen = cells, n_fg, []
+
+    def forward(self, images):
+        self.seen.append((torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32))
+        B = images.shape[0]
+        return (torch.full((B, self.cells, self.n_fg), -20.0),
+                torch.zeros((B, self.cells, self.n_fg * 16)))
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+def test_network_runs_in_full_fp32_under_tf32_defaults(monkeypatch, mode):
+    """With both TF32 flags on (cuDNN's is on by PyTorch's default), the
+    endpoint's network call, inside infer and as infer.network, sees both
+    off, and both are on again afterwards."""
+    cfg = tcfg.Config(model=tcfg.ModelConfig(input_res=RES), test=tcfg.TestConfig(**TEST))
+    ds = SyntheticPoseDataset(n_fg=15, input_res=RES, seed=0)
+    stub = _FlagRecorder(cfg.model.num_cells)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    infer = build_infer_fn(cfg, ds.consts(device="cpu"), stub, mode=mode, device="cpu")
+    req = ds.requests(range(2))
+    out = infer(req["images"], req["bbox_trans"], req["class_ids"])
+    assert not out["valid"].any()
+    assert stub.seen == [(False, False)]
+    cls, reg = infer.network(req["images"])
+    assert cls.shape == (2, cfg.model.num_cells, 15)
+    assert stub.seen == [(False, False), (False, False)]
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    with pytest.raises(ValueError):
+        with full_fp32():
+            raise ValueError("restored on an exception too")
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32

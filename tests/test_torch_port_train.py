@@ -215,6 +215,13 @@ def test_loop_raises_on_unported_options(option):
     _, _, tcf, _ = _cfgs()
     value = {"pool": object(), "mesh": object(), "cache_teacher": True, "vis_every": 5,
              "eval_fn": lambda *a: None, "resume": True}[option]
+    if option == "eval_fn":
+        # ported: accepted (test_torch_port_eval.py holds when it is called)
+        tcf = tcf.replace(solver=dataclasses.replace(tcf.solver, max_iter=0))
+        state, hist = train(tcf, SyntheticPoseDataset(input_res=RES).consts(device="cpu"),
+                            iter(()), device="cpu", eval_fn=value)
+        assert state.step == 0 and hist == []
+        return
     with pytest.raises(NotImplementedError):
         train(tcf, None, iter(()), device="cpu", **{option: value})
 
@@ -230,3 +237,30 @@ def test_distill_off_skips_the_teacher():
     state, m = step(state, tds.batch(range(B)), generator=torch.Generator().manual_seed(0))
     assert float(m["loss_kd"]) == 0.0 and np.isfinite(float(m["loss_total"]))
     assert isinstance(tds.batch(range(1)), Batch)
+
+
+def test_train_step_runs_in_full_fp32_under_tf32_defaults(monkeypatch):
+    """With both TF32 flags on (cuDNN's is on by PyTorch's default), the
+    teacher's and the student's forward and the student's backward see
+    both off, and both are on again after the step."""
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import init_pose_net
+    _, _, tcf, tcf_t = _cfgs()
+    tds = SyntheticPoseDataset(input_res=RES, seed=6)
+    net = init_pose_net(PoseNet(tcf.model), torch.Generator().manual_seed(0))
+    teacher = init_pose_net(PoseNet(tcf_t.model), torch.Generator().manual_seed(1))
+    seen = []
+    flags = lambda: (torch.backends.cuda.matmul.allow_tf32,  # noqa: E731
+                     torch.backends.cudnn.allow_tf32)
+    for name, m in (("teacher", teacher), ("student", net)):
+        m.register_forward_pre_hook(lambda mod, args, name=name: seen.append((name, flags())))
+    next(net.parameters()).register_hook(lambda g: seen.append(("backward", flags())))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    opt = tsteps.make_optimizer(tcf)
+    state = tsteps.create_train_state(tcf, net, opt)
+    step = tsteps.build_train_step(tcf, tcf_t, tds.consts(device="cpu"), net, teacher, opt)
+    _, m = step(state, tds.batch(range(B)), generator=torch.Generator().manual_seed(0))
+    assert float(m["loss_kd"]) > 0
+    assert seen == [("teacher", (False, False)), ("student", (False, False)),
+                    ("backward", (False, False))]
+    assert flags() == (True, True)
