@@ -5,6 +5,7 @@ card: the quickest proof that the port builds, starts and answers on the GPU.
     python3 chip_smoke.py                  # all phases, one card
     python3 chip_smoke.py --phases kernel  # kernel checks and timings only
     python3 chip_smoke.py --phases train   # the KD steps only
+    python3 chip_smoke.py --phases cli     # the training entry point's path only
 
 Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
@@ -81,10 +82,29 @@ Phases:
            scan equal to streaming; images/s (median of 3), a split of a
            scan run and one profiled chunk; then evaluate.main on 64 images
            from a state_dict file (table printed, preds.json written).
+  cli      the training entry point's path at full width: the same student
+           and teacher, a device pool of 4 synthetic batches of 16 at 256²
+           on the card. (a) precompute_pool_votes (under PyTorch's default
+           flags; it pins fp32 itself) against the live step's votes batch
+           by batch, rtol 1e-5 / atol 1e-5, timed. (b) engine/loop.train
+           with the pool and the cached teacher, 10 steps in 2 calls: K1
+           once per step (counts zeroed just before, read just after); then
+           4 timed calls of 5 cached steps (median step ms, images/s), peak
+           memory, one profiled step (kernels, busy ms, idle share). (c) the
+           live and the cached multi-step from the same weights and draws, 4
+           steps over a 3-batch pool: metrics rtol 1e-4, parameters
+           max|diff| < 5e-3, BN statistics rtol 1e-3 / atol 1e-4 (JAX's
+           tests/test_cache_teacher.py). (d) train_kd.main (--config_file '',
+           --device_pool 4 --steps_per_dispatch 5 --cache_teacher, the
+           teacher from a temporary teacher.pt) to 6 steps: K1 once per
+           step, the five files, the teacher's sanity evaluation and one
+           student evaluation at step 6 with K2 once per chunk at each
+           shape; then again to 8: "resumed from ... @ step 6", K1 twice.
+           (e) evaluate.main on the run's final.ckpt, every tensor loaded.
 
 TF32 is off for matmuls and convolutions throughout, so the comparisons are
-fp32 against fp32 (the serving network and one KD step are also run under
-PyTorch's defaults). Prints the
+fp32 against fp32 (the serving network, one KD step and the pool's cached
+votes are also run under PyTorch's defaults). Prints the
 per-kernel JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
 Details go to the --json_out file (default outputs/chip_smoke.json).
@@ -97,6 +117,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -131,6 +152,12 @@ EVAL_CHUNKS = 10
 EVAL_RUNS = 3
 TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
+# the cli phase: its pool, the timed calls of the cached step, and the
+# config file train_kd.main and evaluate.main read ('' = the defaults)
+CLI_POOL = 4
+CLI_TIMED_CALLS = 4
+CLI_CONFIG_FILE = ""
+CLI_EVAL_IMAGES = 64        # the synthetic eval split
 # K2's edge shapes (B, C, O, H, W): the stem kernel at each row-shift
 # remainder (W + 2) % 4 = 1, 3, 0 (M odd in the first two), the s2 kernel
 # with M odd and with a ragged last tile, then two shapes of the general
@@ -860,9 +887,11 @@ def train_phase(torch, sf, dev, tf32_defaults):
 
     torch.cuda.reset_peak_memory_stats()
     sf.reset_launch_counts()
-    state, hist = train(cfg, consts, iter(batches), cfg_t=cfg_t,
-                        teacher_state_dict=teacher_sd, device=dev, log_every=1,
-                        verbose=False)
+    # a fresh working_dir: train resumes from its latest.ckpt by default
+    with tempfile.TemporaryDirectory() as wd:
+        state, hist = train(cfg, consts, iter(batches), cfg_t=cfg_t,
+                            teacher_state_dict=teacher_sd, device=dev, log_every=1,
+                            working_dir=wd, verbose=False)
     launches = dict(sf.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     k1 = launches.get(("sinkhorn_potentials", cfg.solver.max_pos,
@@ -984,6 +1013,242 @@ def train_phase(torch, sf, dev, tf32_defaults):
 
 
 # ---------------------------------------------------------------------------
+# cli phase
+# ---------------------------------------------------------------------------
+
+def votes_agree(torch, got, want) -> float:
+    """Largest |got - want| over the Votes fields; raises unless every field
+    is within rtol 1e-5 / atol 1e-5 (JAX's tests/test_cache_teacher.py:52)."""
+    worst = 0.0
+    for name, a, b in zip(want._fields, got, want):
+        if a.shape != b.shape or not torch.allclose(a.float(), b.float(), rtol=1e-5,
+                                                    atol=1e-5):
+            raise AssertionError(f"votes field {name}: the cache misses the live votes")
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return worst
+
+
+def cli_phase(torch, sf, cf, dev, tf32_defaults):
+    """The training entry point's path on the card: the device pool, the
+    cached teacher, K steps per call, K1 in every step, checkpoints and
+    resume, and the student's evaluation (K2) at the end. (a) the pool's
+    cached votes against live votes; (b) engine/loop.train with the pool
+    and the cache, 10 steps in 2 calls, then timed and profiled cached
+    steps; (c) live against cached multi-steps from the same weights and
+    draws; (d) train_kd.main to 6 steps, then resumed to 8; (e)
+    evaluate.main on the run's final.ckpt."""
+    import contextlib
+    import dataclasses
+    import io
+    import statistics
+
+    from kd6d_pose_adlp_tpu_torch import evaluate, train_kd
+    from kd6d_pose_adlp_tpu_torch.data import loaders
+    from kd6d_pose_adlp_tpu_torch.data.batch import Batch
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.engine.loop import train
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.utils.precision import full_fp32
+
+    cfg, cfg_t = train_configs()
+    n_fg, B = cfg.data.n_fg, cfg.solver.ims_per_batch
+    k1_key = ("sinkhorn_potentials", cfg.solver.max_pos, cfg.kd.max_teacher_cells)
+    data = loaders.build(cfg, kind="synthetic", device=dev)
+    it = data.train_iter()
+    t0 = time.perf_counter()
+    pool = Batch.stack([next(it) for _ in range(CLI_POOL)]).to(dev)
+    consts = data.consts
+    teacher = init_pose_net(PoseNet(cfg_t.model, n_fg=n_fg),
+                            torch.Generator().manual_seed(1)).to(dev).eval()
+    torch.cuda.synchronize()
+    log(f"[cli] pool of {CLI_POOL} batches of {B} at {cfg.model.input_res}² on the card "
+        f"({time.perf_counter() - t0:.1f} s); teacher {cfg_t.model.backbone}, head prior "
+        f"{cfg_t.model.prior}")
+
+    # (a) the cache under PyTorch's default flags (precompute_pool_votes
+    # pins fp32 itself) against the live step's votes, in full fp32
+    fp32_flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    pre_s = []
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            votes = steps.precompute_pool_votes(cfg, cfg_t, teacher, pool)
+            torch.cuda.synchronize()
+            pre_s.append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = fp32_flags
+    with full_fp32():
+        diffs = [votes_agree(torch, votes.take(i),
+                             steps.teacher_votes(cfg, cfg_t, teacher, pool.take(i)))
+                 for i in range(CLI_POOL)]
+    n_valid = int(votes.valid.sum())
+    log(f"[cli] (a) precompute_pool_votes, {CLI_POOL} batches: {pre_s[0]:.3f} s, again "
+        f"{pre_s[1]:.3f} s; against live votes batch by batch: max |diff| "
+        f"{max(diffs):.2e} (gate rtol 1e-5, atol 1e-5); {n_valid} valid votes")
+    if n_valid == 0:
+        raise AssertionError("the random teacher cast no vote: the KD term is off")
+
+    # (b) engine/loop.train with the pool and the cached teacher
+    cfg_b = cfg.replace(solver=dataclasses.replace(cfg.solver, max_iter=TRAIN_STEPS,
+                                                   val_freq=TRAIN_STEPS))
+    teacher_sd = teacher.state_dict()
+    torch.cuda.reset_peak_memory_stats()
+    sf.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as wd:
+        state, hist = train(cfg_b, consts, None, cfg_t=cfg_t, teacher_state_dict=teacher_sd,
+                            device=dev, pool=pool, steps_per_dispatch=TRAIN_STEPS // 2,
+                            cache_teacher=True, working_dir=wd, verbose=False)
+    k1_b = sf.launches.get(k1_key, 0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for h in hist:
+        log(f"[cli] (b) call to step {h['step']}: {h['step_ms']:.2f} ms a step, loss_total "
+            f"{h['loss_total']:.4f} (kd {h['loss_kd']:.5f}), num_pos {h['num_pos']:.0f}")
+    if state.step != TRAIN_STEPS or [h["step"] for h in hist] != [TRAIN_STEPS // 2,
+                                                                  TRAIN_STEPS]:
+        raise AssertionError(f"pooled train ran {state.step} steps in {len(hist)} calls")
+    for h in hist:
+        if not (all(math.isfinite(v) for v in h.values()) and h["loss_kd"] > 0):
+            raise AssertionError(f"pooled train metrics {h}")
+    if k1_b != TRAIN_STEPS or sum(sf.launches.values()) != TRAIN_STEPS:
+        raise AssertionError(f"K1 launched {dict(sf.launches)} in {TRAIN_STEPS} pooled "
+                             "steps, not once per step")
+    # the same cached step, timed call by call (host clock, synchronized)
+    # and one step profiled
+    multi = steps.build_multi_step(cfg_b, cfg_t, consts, state.net, None,
+                                   steps.make_optimizer(cfg_b), distill=True,
+                                   pool_size=CLI_POOL, cached_votes=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    k = TRAIN_STEPS // 2
+    step_ms = []
+    for c in range(CLI_TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = multi(state, votes, pool, (c * k) % CLI_POOL, k, generator=gen)
+        float(m["loss_total"])
+        step_ms.append(1e3 * (time.perf_counter() - t0) / k)
+    med = statistics.median(step_ms)
+    holder = {}
+
+    def one():
+        holder["state"], holder["m"] = multi(state, votes, pool, 0, 1, generator=gen)
+
+    prof = profile_request(torch, one)
+    idle = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+    log(f"[cli] (b) cached pooled step, B={B}, {CLI_TIMED_CALLS} calls of {k} on "
+        f"{gpu_name_and_power()}: median {med:.2f} ms ({', '.join(f'{x:.2f}' for x in step_ms)}"
+        f") -> {1e3 * B / med:.1f} images/s; peak device memory {peak_gb:.2f} GiB; K1 "
+        f"{k1_b} launches in {TRAIN_STEPS} steps")
+    log(f"[cli] (b) profiled cached step: {prof['device_kernels']} device kernels, device "
+        f"busy {prof['device_busy_ms']:.1f} ms of its {prof['wall_ms']:.1f} ms wall time "
+        f"(idle share {idle:.3f}); top: {prof['top']}")
+
+    # (c) live against cached multi-steps, same weights and draws
+    sub = pool.take(slice(0, 3))
+    student = init_pose_net(PoseNet(cfg.model, n_fg=n_fg), torch.Generator().manual_seed(2))
+    uniforms = torch.rand((4, B, cfg.model.num_cells, cfg.solver.max_objs),
+                          generator=torch.Generator().manual_seed(3)).to(dev)
+
+    def run(cached):
+        net = PoseNet(cfg.model, n_fg=n_fg)
+        net.load_state_dict(student.state_dict())
+        opt = steps.make_optimizer(cfg)
+        st = steps.create_train_state(cfg, net.to(dev), opt)
+        fn = steps.build_multi_step(cfg, cfg_t, consts, net, None if cached else teacher, opt,
+                                    distill=True, pool_size=3, cached_votes=cached)
+        arg = steps.precompute_pool_votes(cfg, cfg_t, teacher, sub) if cached else None
+        st, mm = fn(st, arg, sub, 0, 4, uniforms=uniforms)
+        return ({kk: float(v) for kk, v in mm.items()},
+                {kk: v.detach().cpu() for kk, v in net.state_dict().items()})
+
+    (m_live, sd_live), (m_cache, sd_cache) = run(False), run(True)
+    met_rel = max(abs(m_cache[kk] - m_live[kk]) / max(abs(m_live[kk]), 1e-12)
+                  for kk in ("loss_total", "loss_cls", "loss_reg", "loss_kd"))
+    stat = lambda kk: kk.endswith(("running_mean", "running_var"))  # noqa: E731
+    p_err = max(float((sd_cache[kk] - v).abs().max()) for kk, v in sd_live.items()
+                if v.is_floating_point() and not stat(kk))
+    st_ok = all(torch.allclose(sd_cache[kk], v, rtol=1e-3, atol=1e-4)
+                for kk, v in sd_live.items() if stat(kk))
+    log(f"[cli] (c) 4 steps over a 3-batch pool, live vs cached teacher: metrics "
+        f"{m_live} vs {m_cache} (largest relative difference {met_rel:.2e}, gate 1e-4); "
+        f"parameters max |diff| {p_err:.2e} (gate 5e-3); BN statistics within rtol 1e-3 / "
+        f"atol 1e-4: {st_ok}")
+    if not (m_live["loss_kd"] > 0 and met_rel <= 1e-4 and p_err < 5e-3 and st_ok
+            and m_live["num_pos"] == m_cache["num_pos"]):
+        raise AssertionError("the cached-teacher multi-step misses the live one")
+
+    # (d) the entry point, then its resume; (e) the evaluation CLI
+    tmp = tempfile.TemporaryDirectory()
+    wd = tmp.name
+    wf = os.path.join(wd, "teacher.pt")
+    torch.save(teacher_sd, wf)
+    n_chunks = -(-CLI_EVAL_IMAGES // cfg.test.ims_per_batch)
+    shapes = ((3, 8), (8, 16))
+    args = ["--config_file", CLI_CONFIG_FILE, "--data", "synthetic", "--device_pool",
+            str(CLI_POOL), "--steps_per_dispatch", "5", "--cache_teacher",
+            "--weight_file_t", wf, "--fold_teacher_bn", "false", "--working_dir", wd]
+    runs = {}
+    for max_iters in (6, 8):
+        sf.reset_launch_counts()
+        cf.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            st, h = train_kd.main(args + ["--max_iters", str(max_iters)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        printed = buf.getvalue()
+        k1 = sf.launches.get(k1_key, 0)
+        k2 = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o), 0)
+              for c, o in shapes}
+        first = max_iters == 6
+        log(f"[cli] (d) train_kd.main --max_iters {max_iters} ({secs:.1f} s): step "
+            f"{st.step}, K1 {k1} launches, K2 {k2}; printed:\n"
+            + "\n".join(line for line in printed.splitlines()
+                        if not line.startswith(("ADI", "REP", "AUC", "metric"))))
+        n_steps = 6 if first else 2
+        want_resume = f"resumed from {os.path.join(wd, 'latest.ckpt')} @ step 6"
+        if not (st.step == max_iters and k1 == n_steps and sum(sf.launches.values()) == n_steps
+                and set(k2.values()) == {n_chunks}
+                and sum(cf.launches.values()) == 2 * n_chunks
+                and printed.count("[valid @ step") == 2      # teacher at 0, student at the end
+                and f"[valid @ step {max_iters}]" in printed
+                and "teacher knowledge cached for" in printed
+                and (first or want_resume in printed)):
+            raise AssertionError(f"train_kd.main --max_iters {max_iters}: steps, launches, "
+                                 "evaluations or resume not as expected")
+        missing = [f for f in ("latest.ckpt", "final.ckpt", "cfg.json", "info.txt",
+                               "scalars.jsonl") if not os.path.exists(os.path.join(wd, f))]
+        if missing:
+            raise AssertionError(f"train_kd.main did not write {missing}")
+        runs[max_iters] = dict(seconds=secs, k1=k1, k2=k2, history=h)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev = evaluate.main(["--config_file", CLI_CONFIG_FILE, "--weight_file",
+                            os.path.join(wd, "final.ckpt"), "--data", "synthetic",
+                            "--working_dir", os.path.join(wd, "eval")])
+    printed = buf.getvalue()
+    tmp.cleanup()
+    n_tensors = len(PoseNet(cfg.model, n_fg=n_fg).state_dict())
+    log(f"[cli] (e) evaluate.main on the run's final.ckpt: {printed.splitlines()[0]}")
+    if not (printed.startswith(f"loaded {n_tensors} tensors from") and ev["table"] in printed):
+        raise AssertionError("evaluate.main did not load every tensor of the run's "
+                             "final.ckpt and print its table")
+
+    return dict(
+        pool=CLI_POOL, batch=B, precompute_s=pre_s, votes_max_abs_diff=max(diffs),
+        loop_history=hist, k1_launches_loop=k1_b, peak_memory_gib=peak_gb,
+        cached_step_ms=step_ms, median_step_ms=med, images_per_sec=1e3 * B / med,
+        profile=prof, device_idle_share=idle,
+        live_vs_cached=dict(live=m_live, cached=m_cache, metric_rel=met_rel,
+                            param_max_abs=p_err, bn_stats_ok=st_ok),
+        train_kd=runs), k1_b + runs[6]["k1"] + runs[8]["k1"]
+
+
+# ---------------------------------------------------------------------------
 # eval phase
 # ---------------------------------------------------------------------------
 
@@ -1073,7 +1338,6 @@ def eval_phase(torch, cf, dev):
     import dataclasses
     import io
     import statistics
-    import tempfile
 
     import numpy as np
 
@@ -1263,7 +1527,7 @@ def eval_phase(torch, cf, dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernel,serving,pose,train,eval")
+    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,cli")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1312,6 +1576,9 @@ def main(argv=None) -> int:
         result["train"], k1_launches = train_phase(torch, sf, dev, tf32_defaults)
     if "eval" in phases:
         result["eval"], launches[EVAL_BATCH] = eval_phase(torch, cf, dev)
+    if "cli" in phases:
+        result["cli"], k1_cli = cli_phase(torch, sf, cf, dev, tf32_defaults)
+        k1_launches = (k1_launches or 0) + k1_cli
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1321,7 +1588,8 @@ def main(argv=None) -> int:
         r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{r['H']}^2 B={r['B']}]")
         kernels.append({k: r[k] for k in keys})
     if k1_row is not None:
-        # K1's launches are those of the train run
+        # K1's launches are those of the train phase's run and the cli
+        # phase's pooled runs (loop.train, train_kd.main and its resume)
         k1_row["launches"] = k1_launches
         kernels.append({k: k1_row[k] for k in keys}
                        | {"name": f"sinkhorn_potentials[{k1_row['shape']}]"})

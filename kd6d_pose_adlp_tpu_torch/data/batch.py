@@ -1,9 +1,11 @@
 """Fixed-shape batch and per-dataset constants as torch tensors (port of
 `kd6d_pose_adlp_tpu/data/batch.py:16-67`). Serving takes images, crop
-affines and class ids directly; training takes a `Batch`."""
+affines and class ids directly; training takes a `Batch`, or a pool of them
+(`Batch.stack`: every field with a leading pool axis; `pool.take(i)` is
+batch i, as the JAX package's tree_map(lambda x: x[i], pool))."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +35,16 @@ class Batch(NamedTuple):
 
     def to(self, device) -> "Batch":
         return Batch(*(t.to(device, non_blocking=True) for t in self))
+
+    @staticmethod
+    def stack(batches: Sequence["Batch"]) -> "Batch":
+        """A pool: each field stacked along a new leading axis."""
+        return Batch(*(torch.stack(ts) for ts in zip(*batches)))
+
+    def take(self, i) -> "Batch":
+        """Entry `i` (an int, slice or index tensor) of every field's leading
+        axis: `pool.take(i)` is the pool's batch i."""
+        return Batch(*(t[i] for t in self))
 
 
 class TaskConsts(NamedTuple):

@@ -304,7 +304,8 @@ class ScanEvaluator:
     `prepare()` the eval set once (stacks and uploads every chunk; they stay
     resident for every later `run`, so evaluation every VAL_FREQ steps pays
     the host pipeline and the upload once), then `run()` per evaluation:
-    it evaluates `net`'s current weights. `forward(images, chunk_idx)`
+    it evaluates the current weights of `net`, or of the `net` given to
+    `run` (a training run's student). `forward(images, chunk_idx)`
     overrides the network (tests inject fabricated outputs). Results match
     `evaluator.valid` with the same draws."""
 
@@ -314,9 +315,9 @@ class ScanEvaluator:
         self.device = consts.K.device
         self.meshes = meshes
         self.sym = cfg.data.symmetry_dict()
+        self.net = net
         if forward is None:
-            network = network_fn(net)
-            forward = lambda images, idx: network(images)  # noqa: E731
+            forward = lambda images, idx: network_fn(self.net)(images)  # noqa: E731
         self._run_fn = build_eval_scan(cfg, consts, forward)
         self._scorer = build_pose_diff_scorer(meshes, list(self.sym.keys()),
                                               device=self.device)
@@ -361,13 +362,17 @@ class ScanEvaluator:
     def run(self, step: int = 0, working_dir: Optional[str] = None,
             logger: Optional[ScalarLogger] = None, seed: int = 0,
             gumbel_fn: Optional[Callable[[int], torch.Tensor]] = None,
-            verbose: bool = True, timings: Optional[dict] = None) -> Dict:
-        """Evaluate; `timings` (a dict) receives the host-clock seconds of
+            verbose: bool = True, timings: Optional[dict] = None,
+            net=None) -> Dict:
+        """Evaluate (`net`, when given, from now on); `timings` (a dict)
+        receives the host-clock seconds of
         "network_s", "postprocess_s" (both synchronized per chunk),
         "host_s" (the copy and the per-image pass) and "scoring_s" (the
         device scorer, the table and preds.json)."""
         if self._staged is None:
             raise RuntimeError("call prepare(eval_batches) first")
+        if net is not None:
+            self.net = net
         check_single_process()
         st = self._staged
         cfg = self.cfg

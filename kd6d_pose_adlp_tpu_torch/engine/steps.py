@@ -1,9 +1,11 @@
-"""The KD train step (port of `kd6d_pose_adlp_tpu/engine/steps.py:30-171`).
+"""The KD train step and K steps per call over a device pool (port of
+`kd6d_pose_adlp_tpu/engine/steps.py:30-230`).
 
 One step: teacher forward (eval mode, no gradient) -> teacher-knowledge
 voting -> student forward in train mode (its BN statistics update) ->
 SSC targets, focal, object-space and Sinkhorn-OT losses -> backward ->
-optax-form global-norm clip -> AdamW with the OneCycle LR.
+optax-form global-norm clip -> AdamW with the OneCycle LR. With cached
+votes (`precompute_pool_votes`) the first two stages leave the step.
 
 JAX keeps the state as an immutable pytree; here the student module holds
 the parameters and BN statistics and the optimizer updates them in place.
@@ -152,26 +154,35 @@ def teacher_votes(cfg: Config, cfg_t: Config, teacher_net: PoseNet,
 
 def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
                      net: PoseNet, teacher_net: Optional[PoseNet],
-                     optimizer: AdamW, distill: bool = True):
-    """Returns step_fn(state, batch, uniform=None, generator=None)
-    -> (state, metrics), metrics a dict of 0-dim tensors on the device.
+                     optimizer: AdamW, distill: bool = True,
+                     cached_votes: bool = False):
+    """Returns step_fn(state, batch, uniform=None, generator=None,
+    votes=None) -> (state, metrics), metrics a dict of 0-dim tensors on the
+    device.
 
     `uniform` (B, A, G) is SSC's draw for this step; without it the draw
     comes from `generator`. With distill=False (or no teacher) the teacher
-    is skipped and loss_kd is 0. The whole step, backward included, runs
-    with TF32 off."""
+    is skipped and loss_kd is 0. With cached_votes=True the step takes the
+    batch's precomputed teacher `votes` (`precompute_pool_votes`) in place
+    of running the teacher. The whole step, backward included, runs with
+    TF32 off."""
     w_img, h_img = float(cfg.data.internal_width), float(cfg.data.internal_height)
     params = list(net.parameters())
 
     def step_fn(state: TrainState, batch: Batch,
                 uniform: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                votes: Optional[Votes] = None):
         with full_fp32():
-            return _step(state, batch, uniform, generator)
+            return _step(state, batch, uniform, generator, votes)
 
-    def _step(state, batch, uniform, generator):
+    def _step(state, batch, uniform, generator, votes):
         teacher = None
-        if distill and teacher_net is not None:
+        if distill and cached_votes:
+            if votes is None:
+                raise ValueError("a cached-votes step needs the batch's votes")
+            teacher = (votes, w_img, h_img)
+        elif distill and teacher_net is not None:
             teacher = (teacher_votes(cfg, cfg_t, teacher_net, batch), w_img, h_img)
 
         net.train()
@@ -201,3 +212,55 @@ def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
         return TrainState(step=state.step + 1, net=net, opt_state=opt_state), metrics
 
     return step_fn
+
+
+def precompute_pool_votes(cfg: Config, cfg_t: Config, teacher_net: PoseNet,
+                          pool: Batch) -> Votes:
+    """The frozen teacher's voted knowledge for every batch of a device
+    pool, once: one teacher forward and vote per pool batch, in sequence
+    (peak memory is one batch's teacher activations), stacked along the
+    pool axis. The teacher and a static pool do not change, so this equals
+    what the live step computes each time it meets the batch. It runs in
+    full fp32, as the step does: TF32 teacher maps would move the votes."""
+    with full_fp32():
+        return Votes.stack([teacher_votes(cfg, cfg_t, teacher_net, pool.take(i))
+                            for i in range(int(pool.images.shape[0]))])
+
+
+def build_multi_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
+                     net: PoseNet, teacher_net: Optional[PoseNet],
+                     optimizer: AdamW, distill: bool, pool_size: int,
+                     cached_votes: bool = False):
+    """K train steps per call over a device pool (a `Batch.stack`, leading
+    axis pool_size): step i takes pool.take((start + i) % pool_size), the order
+    `itertools.cycle` gives. Returns multi_fn(state, teacher_arg, pool,
+    start, k, generator=None, uniforms=None) -> (state, metrics).
+
+    - `teacher_arg` is the pool's `Votes` (`precompute_pool_votes`) when
+      cached_votes, else unused (the live teacher is `teacher_net`).
+    - SSC's draws come from `generator`, or step i takes `uniforms[i]`
+      (uniforms (k, B, A, G)).
+    - `start` and `k` are host ints; the call enqueues its k steps without
+      a host sync.
+    - metrics are the per-step means, except num_pos, the last step's, all
+      device tensors (JAX `steps.py:224-228`)."""
+    step_fn = build_train_step(cfg, cfg_t, consts, net, teacher_net, optimizer,
+                               distill=distill, cached_votes=cached_votes)
+
+    def multi_fn(state: TrainState, teacher_arg: Optional[Votes], pool: Batch,
+                 start: int, k: int, generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[torch.Tensor] = None):
+        per_step: List[Dict[str, torch.Tensor]] = []
+        for i in range(k):
+            idx = (start + i) % pool_size
+            state, m = step_fn(state, pool.take(idx),
+                               uniform=None if uniforms is None else uniforms[i],
+                               generator=generator,
+                               votes=teacher_arg.take(idx) if cached_votes else None)
+            per_step.append(m)
+        metrics = {key: per_step[-1][key] if key == "num_pos" else
+                   torch.stack([m[key] for m in per_step]).mean()
+                   for key in per_step[0]}
+        return state, metrics
+
+    return multi_fn

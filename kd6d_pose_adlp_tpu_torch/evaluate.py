@@ -4,8 +4,10 @@
     python -m kd6d_pose_adlp_tpu_torch.evaluate --data synthetic --weight_file W.pt
     python -m kd6d_pose_adlp_tpu_torch.evaluate --data synthetic --weight_file W.pt --cpu
 
-Loads a `torch.save`d PoseNet state_dict loosely (`utils/checkpoint.
-load_params_loose`), evaluates it on the configured split, prints
+Loads a PoseNet weight file loosely (`utils/checkpoint.load_params_loose`):
+a `torch.save`d state_dict, such as the port's `final.ckpt`, or a JAX
+package checkpoint (flax msgpack, such as its `final.ckpt`). It evaluates
+the weights on the configured split, prints
 `loaded N tensors from ...` and the per-class ADD/ADI/AUC/REP table, and
 writes preds.json into --working_dir. Runs on the card unless --cpu is
 given. Only --data synthetic (its 64-image eval split) and --compute_dtype

@@ -11,7 +11,7 @@ stable sort (`torch.sort(stable=True)`) and a slice.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -23,10 +23,19 @@ NEG = -1e9
 
 
 class Votes(NamedTuple):
+    """One batch's votes; a pool's (`Votes.stack`) has a leading pool axis
+    on every field, and `pool_votes.take(i)` is batch i's."""
     kp2d: torch.Tensor      # (B, V, 8, 2) decoded keypoints (crop frame)
     score: torch.Tensor     # (B, V) sigmoid scores (0 for padding)
     valid: torch.Tensor     # (B, V) bool
     box_size: torch.Tensor  # (B,) reprojected box size used for quotas
+
+    @staticmethod
+    def stack(votes: Sequence["Votes"]) -> "Votes":
+        return Votes(*(torch.stack(ts) for ts in zip(*votes)))
+
+    def take(self, i) -> "Votes":
+        return Votes(*(t[i] for t in self))
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

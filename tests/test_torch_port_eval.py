@@ -648,7 +648,7 @@ def test_load_params_loose_and_the_cli(tmp_path, capsys, monkeypatch):
     assert evaluate.parse_args(["--weight_file", "w"]).device == "cuda"
 
 
-def test_train_calls_eval_fn_at_val_freq_and_the_last_step():
+def test_train_calls_eval_fn_at_val_freq_and_the_last_step(tmp_path):
     from kd6d_pose_adlp_tpu_torch.engine.loop import train
     cfg = tcfg.Config(model=tcfg.ModelConfig(input_res=RES, use_higher_levels=False),
                       data=tcfg.DataConfig(n_class=N_FG + 1),
@@ -662,6 +662,7 @@ def test_train_calls_eval_fn_at_val_freq_and_the_last_step():
 
     state, hist = train(cfg, ds.consts(device="cpu"),
                         (ds.batch(range(2 * i, 2 * i + 2)) for i in range(3)),
-                        device="cpu", log_every=1, eval_fn=eval_fn, verbose=False)
+                        device="cpu", log_every=1, eval_fn=eval_fn, verbose=False,
+                        working_dir=str(tmp_path))
     assert calls == [(2, 2), (3, 3)]
     assert [h["step"] for h in hist] == [1, 2, 3]

@@ -183,9 +183,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import kd6d_pose_adlp_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import kd6d_pose_adlp_tpu_torch.train_kd\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'optax', 'kd6d_pose_adlp_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'kd6d_pose_adlp_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith(p.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

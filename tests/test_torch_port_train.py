@@ -189,7 +189,7 @@ def _stream(ds, bs):
         i += bs
 
 
-def test_loop_trains_three_steps_on_cpu():
+def test_loop_trains_three_steps_on_cpu(tmp_path):
     _, _, tcf, tcf_t = _cfgs()
     tcf = tcf.replace(solver=dataclasses.replace(tcf.solver, max_iter=3))
     ds = SyntheticPoseDataset(input_res=RES, seed=4)
@@ -197,7 +197,7 @@ def test_loop_trains_three_steps_on_cpu():
     teacher = init_pose_net(PoseNet(tcf_t.model), torch.Generator().manual_seed(1))
     state, hist = train(tcf, ds.consts(device="cpu"), _stream(ds, B), cfg_t=tcf_t,
                         teacher_state_dict=teacher.state_dict(), device="cpu",
-                        log_every=1, verbose=False)
+                        log_every=1, verbose=False, working_dir=str(tmp_path / "a"))
     assert state.step == 3 and [h["step"] for h in hist] == [1, 2, 3]
     for h in hist:
         assert all(np.isfinite(v) for v in h.values()), h
@@ -205,25 +205,29 @@ def test_loop_trains_three_steps_on_cpu():
     # the same seed gives the same run
     state2, hist2 = train(tcf, ds.consts(device="cpu"), _stream(ds, B), cfg_t=tcf_t,
                           teacher_state_dict=teacher.state_dict(), device="cpu",
-                          log_every=3, verbose=False)
+                          log_every=3, verbose=False, working_dir=str(tmp_path / "b"))
     assert hist2[0]["loss_total"] == hist[-1]["loss_total"]
 
 
 @pytest.mark.parametrize("option", ["pool", "mesh", "cache_teacher", "vis_every",
                                     "eval_fn", "resume"])
-def test_loop_raises_on_unported_options(option):
+def test_loop_raises_on_unported_options(option, tmp_path):
+    """mesh and vis_every still raise; pool, cache_teacher, resume and
+    eval_fn are ported and accepted (test_torch_port_pool.py and
+    test_torch_port_cli.py hold what they do)."""
     _, _, tcf, _ = _cfgs()
-    value = {"pool": object(), "mesh": object(), "cache_teacher": True, "vis_every": 5,
-             "eval_fn": lambda *a: None, "resume": True}[option]
-    if option == "eval_fn":
-        # ported: accepted (test_torch_port_eval.py holds when it is called)
-        tcf = tcf.replace(solver=dataclasses.replace(tcf.solver, max_iter=0))
-        state, hist = train(tcf, SyntheticPoseDataset(input_res=RES).consts(device="cpu"),
-                            iter(()), device="cpu", eval_fn=value)
-        assert state.step == 0 and hist == []
+    if option in ("mesh", "vis_every"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            train(tcf, None, iter(()), device="cpu", working_dir=str(tmp_path),
+                  **{option: {"mesh": object(), "vis_every": 5}[option]})
         return
-    with pytest.raises(NotImplementedError):
-        train(tcf, None, iter(()), device="cpu", **{option: value})
+    ds = SyntheticPoseDataset(input_res=RES)
+    value = {"pool": Batch.stack([ds.batch(range(B)), ds.batch(range(B, 2 * B))]),
+             "cache_teacher": True, "eval_fn": lambda *a: None, "resume": True}[option]
+    tcf = tcf.replace(solver=dataclasses.replace(tcf.solver, max_iter=0))
+    state, hist = train(tcf, ds.consts(device="cpu"), iter(()), device="cpu",
+                        working_dir=str(tmp_path), **{option: value})
+    assert state.step == 0 and hist == []
 
 
 def test_distill_off_skips_the_teacher():
