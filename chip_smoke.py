@@ -11,20 +11,27 @@ Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
            nvcc (one process per source, all started together) and prints
            ptxas's register and spill lines.
-  kernel   at the serving shapes (B=8: stem 3->8 @256², s2 8->16 @128²)
-           holds K2 (conv3x3_bn_act_flat) and K3 (conv3x3_bn_act_stacked),
-           and the stem segment in both forms, against their plain PyTorch
-           versions on the card (atol 1e-4) and times each with CUDA events
-           beside its bound, the plain version and one library call
-           (F.conv2d / matmul + affine + leaky_relu, a yardstick only). The
-           bound's operation term counts an instance that runs on the
-           tensor cores (K2_MMA) as three TF32 products per product.
-           K2 also at the edges of its mappings (K2_EDGES: the stem at
-           255², 41x61 and 33x30, s2 at 67x61 and 30², and outside the two
-           serving instances 16->64 @20², 5->12 @9x7), and K3 at its
-           (K3_EDGES: each serving-instance kernel at B=1, odd M at both,
-           a ragged tile at 30², the general kernel at 3->16 and 16->32),
-           held the same way, times logged.
+  kernel   in fp32 and in bf16, at the serving shapes (B=8: stem 3->8
+           @256², s2 8->16 @128²) holds K2 (conv3x3_bn_act_flat) and K3
+           (conv3x3_bn_act_stacked), K2 also at the eval batch (B=24) and
+           at the other DarkNet plans' stem shapes (VARIANT_SHAPES, B=8:
+           3->16 @256², 16->32 @128², 3->32 @256², 32->32 @128², 12->8
+           @128², 32->64 @128²; K3 there too in bf16), against their plain
+           PyTorch versions on the card: fp32 atol 1e-4, bf16 within one
+           bf16 rounding of the plain output (|k - p| <= 2^-7 |p| + 1e-3).
+           Each is timed with CUDA events beside its bound, the plain
+           version and one library call in the same dtype (F.conv2d /
+           matmul + affine + leaky_relu, a yardstick only). The bound's
+           operation term counts an fp32 instance that runs on the tensor
+           cores (K2_MMA) as three TF32 products per product, and bf16
+           products at the bf16 tensor-core rate. K2 also at the edges of
+           its mappings (K2_EDGES: the stem at 255², 41x61 and 33x30, s2 at
+           67x61 and 30², and outside the two serving instances 16->64
+           @20², 5->12 @9x7), and K3 at its (K3_EDGES: each serving-instance
+           kernel at B=1, odd M at both, a ragged tile at 30², the general
+           kernel at 3->16 and 16->32), in both dtypes, held the same way,
+           times logged. The fp32 stem segment in both forms against its
+           plain version (atol 1e-4).
            Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
            problems of P = T = 64 points in [0, 1]², a quarter of the
            weights zero) against its plain version: each of the four
@@ -47,7 +54,14 @@ Phases:
            run and read just after. Outputs must be finite and the network
            outputs (`infer.network`) must match the same weights run on the
            CPU (atol 1e-3), also under PyTorch's default precision flags
-           (cuDNN TF32 on), which the endpoint overrides.
+           (cuDNN TF32 on), which the endpoint overrides. Then the same
+           weights in bf16: 4 requests on the flat stem (bf16 K2 twice per
+           request) and 2 on the stacked one (bf16 K3 twice per request);
+           then the other students, each in fp32 and in bf16 with the same
+           weights, 2 requests each: darknet_tiny (K2 at 3->16, 16->32),
+           darknet_tiny_h_wide (3->32, 32->32) and darknet_tiny_h_s2d (12->8,
+           8->16 at 128²). Each bf16 network's logits within 0.25 of its
+           fp32 network's (JAX's own bf16 bound, tests/test_models.py:79).
   pose     runs a planted ground-truth scene through the port's postprocess
            on the card: rotation error < 3 deg, translation error < 15 mm.
   train    builds the full-width darknet_tiny_h student and darknet53 teacher
@@ -66,7 +80,14 @@ Phases:
            parameter tensor), BN statistics within 1e-4 of their largest
            entry; the card's step again under PyTorch's default precision
            flags (cuDNN TF32 on), which the step overrides: metrics and
-           gradients within the same limits.
+           gradients within the same limits. Then train_kd's defaults: the
+           bf16 student against the bf16 BN-folded teacher, 10 steps plain
+           and 10 with remat (K1 once per step, finite metrics, median step
+           ms, images/s and peak memory beside the fp32 run's); one remat
+           step against the plain step from the same weights and draws
+           (metrics 1e-3, gradients 1e-2, BN statistics 1e-4); the folded
+           teacher's outputs and votes against the unfolded one's in fp32
+           (each field within 1e-4 of its largest magnitude, masks equal).
   eval     240 synthetic images (10 chunks of 24 at 256², mixed classes)
            through the evaluators on the card. A planted scene (fabricated
            network outputs that decode to the ground truth, every fourth
@@ -94,17 +115,20 @@ Phases:
            live and the cached multi-step from the same weights and draws, 4
            steps over a 3-batch pool: metrics rtol 1e-4, parameters
            max|diff| < 5e-3, BN statistics rtol 1e-3 / atol 1e-4 (JAX's
-           tests/test_cache_teacher.py). (d) train_kd.main (--config_file '',
-           --device_pool 4 --steps_per_dispatch 5 --cache_teacher, the
-           teacher from a temporary teacher.pt) to 6 steps: K1 once per
+           tests/test_cache_teacher.py). (a)-(c) run in fp32. (d)
+           train_kd.main at its defaults (bf16, the teacher from a temporary
+           teacher.pt with its BN folded; --config_file '', --device_pool 4
+           --steps_per_dispatch 5 --cache_teacher) to 6 steps: K1 once per
            step, the five files, the teacher's sanity evaluation and one
-           student evaluation at step 6 with K2 once per chunk at each
-           shape; then again to 8: "resumed from ... @ step 6", K1 twice.
-           (e) evaluate.main on the run's final.ckpt, every tensor loaded.
+           student evaluation at step 6 with the bf16 K2 once per chunk at
+           each shape; then again to 8: "resumed from ... @ step 6", K1
+           twice. (e) evaluate.main at its default bf16 on the run's
+           final.ckpt, every tensor loaded, the bf16 K2 once per chunk.
 
-TF32 is off for matmuls and convolutions throughout, so the comparisons are
-fp32 against fp32 (the serving network, one KD step and the pool's cached
-votes are also run under PyTorch's defaults). Prints the
+TF32 is off for matmuls and convolutions throughout, so the fp32
+comparisons are fp32 against fp32 (the serving network, one KD step and
+the pool's cached votes are also run under PyTorch's defaults); the fp32
+networks and configs say so explicitly, as the CLIs default to bf16. Prints the
 per-kernel JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
 Details go to the --json_out file (default outputs/chip_smoke.json).
@@ -123,12 +147,20 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, CUDA cores
 TF32_FLOPS = 495e12            # H100 SXM TF32, tensor cores, dense (data sheet)
+BF16_FLOPS = 989e12            # H100 SXM bf16, tensor cores, dense (data sheet)
 # special-function unit (expf/logf) results: 16 per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), 132 SMs at the 1.98 GHz boost clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 ATOL_KERNEL = 1e-4
+# K2 / K3 in bf16 against their plain versions: within one bf16 rounding of
+# the plain output, |kernel - plain| <= BF16_RTOL |plain| + BF16_ATOL
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = 1e-3
 ATOL_NETWORK = 1e-3
+# a bf16 network against the fp32 network of the same weights: max |logit
+# difference|, the JAX package's own bound (tests/test_models.py:79-103)
+BF16_VS_FP32_LOGITS = 0.25
 # the eval tables of one set of predictions from two devices: ADI and REP
 # equal, AUC per class within this many points. AUC averages 1000 error
 # thresholds 0.1 mm apart, finer than the fp32 spread of a pose between the
@@ -172,7 +204,14 @@ K2_EDGES = ((1, 3, 8, 255, 255), (1, 3, 8, 41, 61), (1, 3, 8, 33, 30),
 K3_EDGES = ((1, 3, 8, 256, 256), (1, 8, 16, 128, 128), (1, 3, 8, 41, 61),
             (3, 8, 16, 67, 61), (2, 8, 16, 30, 30), (2, 3, 16, 64, 64),
             (2, 16, 32, 32, 32))
-# the (C, O) instances of K2 whose products run on the tensor cores in
+# the eval stems of the other DarkNet plans (tag, C, O, H = W), B = 8: tiny
+# and ref (3 -> 16 @256², 16 -> 32 @128²), tiny-h-wide (3 -> 32, 32 -> 32),
+# the space-to-depth stem's first conv (12 -> 8 @128²; its second is s2's
+# 8 -> 16) and 19's second (32 -> 64)
+VARIANT_SHAPES = (("tiny_stem", 3, 16, RES), ("tiny_s2", 16, 32, RES // 2),
+                  ("wide_stem", 3, 32, RES), ("wide_s2", 32, 32, RES // 2),
+                  ("s2d_stem", 12, 8, RES // 2), ("19_s2", 32, 64, RES // 2))
+# the (C, O) instances of K2 whose fp32 products run on the tensor cores in
 # 3xTF32 (csrc/conv3x3_bn_act.cu, dispatch_flat)
 K2_MMA = ((8, 16),)
 CONV_SRC = "kd6d_pose_adlp_tpu_torch/csrc/conv3x3_bn_act.cu"
@@ -234,32 +273,129 @@ def n_copies(nbytes: int) -> int:
     return max(2, math.ceil(100e6 / nbytes))
 
 
-def conv_bound(in_bytes: int, B: int, C: int, O: int, M: int, mma: bool = False):
+def conv_bound(in_bytes: int, B: int, C: int, O: int, M: int, mma: bool = False,
+               elem: int = 4):
     """(bound_ms, bound_by, bytes, flops) of a fused 3x3 conv + affine +
-    LeakyReLU (K2, K3) writing (B, O, M): bytes = the input once, the
-    parameters, the output once, over HBM; operations = the products over
-    fp32 on the CUDA cores, or with mma three TF32 products each (3xTF32)
-    over the tensor cores' TF32 rate, plus the affine over fp32."""
-    nbytes = in_bytes + 4 * (9 * O * C + 2 * O) + 4 * B * O * M
+    LeakyReLU (K2, K3) writing (B, O, M) of `elem`-byte elements (4 fp32, 2
+    bf16): bytes = the input once, the weights, the fp32 scale and bias,
+    the output once, over HBM; operations = in fp32 the products over fp32
+    on the CUDA cores, or with mma three TF32 products each (3xTF32) over
+    the tensor cores' TF32 rate; in bf16 the products over the tensor
+    cores' bf16 rate; plus the affine over fp32."""
+    nbytes = in_bytes + elem * 9 * O * C + 4 * 2 * O + elem * B * O * M
     conv = B * M * O * 2 * 9 * C
     flops = conv + 2 * B * M * O
-    op_s = (3 * conv / TF32_FLOPS + (flops - conv) / FP32_FLOPS if mma
-            else flops / FP32_FLOPS)
+    if elem == 2:
+        op_s = conv / BF16_FLOPS + (flops - conv) / FP32_FLOPS
+    elif mma:
+        op_s = 3 * conv / TF32_FLOPS + (flops - conv) / FP32_FLOPS
+    else:
+        op_s = flops / FP32_FLOPS
     byte_s = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(byte_s, op_s), "bytes" if byte_s >= op_s else "operations",
             nbytes, flops)
 
 
-def k2_bound(B: int, C: int, O: int, H: int, W: int):
+def k2_bound(B: int, C: int, O: int, H: int, W: int, elem: int = 4):
     """conv_bound of K2 (the flat form) on its (B, C, (H+2)(W+2)+2) slab."""
-    return conv_bound(4 * B * C * ((H + 2) * (W + 2) + 2), B, C, O, H * (W + 2),
-                      mma=(C, O) in K2_MMA)
+    return conv_bound(elem * B * C * ((H + 2) * (W + 2) + 2), B, C, O, H * (W + 2),
+                      mma=(C, O) in K2_MMA, elem=elem)
 
 
-def k3_bound(B: int, C: int, O: int, H: int, W: int):
+def k3_bound(B: int, C: int, O: int, H: int, W: int, elem: int = 4):
     """conv_bound of K3 (the stacked form) on its (B, 9, C, H(W+2)) stack."""
     M = H * (W + 2)
-    return conv_bound(4 * B * 9 * C * M, B, C, O, M)
+    return conv_bound(elem * B * 9 * C * M, B, C, O, M, elem=elem)
+
+
+def kernel_gate(torch, got, want) -> tuple:
+    """(max |got - want|, passed): fp32 within ATOL_KERNEL; bf16 within one
+    bf16 rounding of the plain output, |k - p| <= 2^-7 |p| + 1e-3."""
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        ok = bool((d <= BF16_RTOL * want.float().abs() + BF16_ATOL).all())
+    else:
+        ok = bool(d.max() <= ATOL_KERNEL)
+    return d.max().item(), ok
+
+
+def conv_case(torch, cf, g, dev, B, C, O, H, W, dtype):
+    """Seeded inputs of K2 / K3 at one shape: HWIO kernel k (fp32), packed
+    weights w in `dtype`, fp32 scale and bias, NHWC x and its slab in
+    `dtype`."""
+    k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
+    w = cf.pack_weights(k).to(dtype)
+    sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
+    bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
+    x_nhwc = torch.randn((B, H, W, C), generator=g, device=dev).to(dtype)
+    return k, w, sc, bi, x_nhwc, cf.nhwc_to_flat(x_nhwc)
+
+
+def conv_rows(torch, F, cf, dev, g, B, tag, C, O, H, W, dtype, stacked_too: bool):
+    """Rows of the kernels line for K2 (and K3 when stacked_too) at one
+    shape and dtype: each against its plain version (kernel_gate), the
+    fp32 ones also against the library conv on the valid columns, then
+    timed (CUDA-graph replay) beside its bound, the plain version and one
+    library call: F.conv2d (K2) or one matmul (K3) in the same dtype, then
+    the affine and leaky_relu. Returns (rows, (k, w, sc, bi))."""
+    M = H * (W + 2)
+    elem = 2 if dtype == torch.bfloat16 else 4
+    dname = str(dtype).removeprefix("torch.")
+    k, w, sc, bi, x_nhwc, xf = conv_case(torch, cf, g, dev, B, C, O, H, W, dtype)
+    x_nchw = x_nhwc.permute(0, 3, 1, 2).contiguous()
+    xs = cf.stack_taps(xf, H, W)
+    k_oihw = k.permute(3, 2, 0, 1).to(dtype).contiguous()
+    w_mat = w.permute(1, 0, 2).reshape(O, 9 * C).contiguous()
+    sc_l, bi_l = sc.to(dtype), bi.to(dtype)
+
+    def library_flat(xn):
+        y = F.conv2d(xn, k_oihw, padding=1)
+        return F.leaky_relu(y * sc_l.reshape(1, O, 1, 1) + bi_l.reshape(1, O, 1, 1), 0.1)
+
+    def library_stacked(xsn):
+        y = torch.matmul(w_mat, xsn.reshape(B, 9 * C, M))
+        return F.leaky_relu(y * sc_l + bi_l, 0.1)
+
+    rows = []
+    forms = (("conv3x3_bn_act_flat", xf,
+              lambda a: cf.conv3x3_bn_act_flat(a, w, sc, bi, H=H, W=W),
+              lambda a: cf.conv3x3_bn_act_flat_plain(a, w, sc, bi, H=H, W=W),
+              library_flat, x_nchw),
+             ("conv3x3_bn_act_stacked", xs,
+              lambda a: cf.conv3x3_bn_act_stacked(a, w, sc, bi),
+              lambda a: cf.conv3x3_bn_act_stacked_plain(a, w, sc, bi),
+              library_stacked, xs))
+    for name, inp, kern, plain, lib_fn, lib_inp in forms[:2 if stacked_too else 1]:
+        got = kern(inp)
+        torch.cuda.synchronize()
+        err, ok = kernel_gate(torch, got, plain(inp))
+        # the valid columns also against the library conv
+        lib_err = (cf.flat_to_nhwc(got, H, W).float()
+                   - library_flat(x_nchw).permute(0, 2, 3, 1).float()).abs().max().item()
+        log(f"[kernel] {name} {tag} {C}->{O} @{H}x{W} B={B} {dname}: max|kernel-plain| "
+            f"{err:.3e}, max|kernel-library| (valid cols) {lib_err:.3e}")
+        if not ok or (elem == 4 and not lib_err <= ATOL_KERNEL):
+            raise AssertionError(f"{name} {tag} {dname} disagrees with its plain version")
+        copies = [(inp.clone(),) for _ in range(n_copies(elem * inp.numel()))]
+        lib_copies = [(lib_inp.clone(),) for _ in range(n_copies(elem * lib_inp.numel()))]
+        ms = time_cuda(torch, kern, copies)
+        eager_ms = time_cuda(torch, kern, copies, graph=False)
+        plain_ms = time_cuda(torch, plain, copies, iters=20)
+        library_ms = time_cuda(torch, lib_fn, lib_copies)
+        del copies, lib_copies
+        bound = k2_bound if name == "conv3x3_bn_act_flat" else k3_bound
+        bound_ms, bound_by, nbytes, flops = bound(B, C, O, H, W, elem=elem)
+        rows.append(dict(
+            name=name, shape=tag, C=C, O=O, H=H, W=W, B=B, dtype=dname,
+            route="cuda", source=CONV_SRC, replaces=REPLACES[name],
+            max_abs_err=err, library_max_abs_err=lib_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            eager_ms=eager_ms, bytes=nbytes, flops=flops))
+        log(f"[kernel] {name} {tag} {C}->{O} B={B} {dname}: {ms * 1e3:.1f} us  (bound "
+            f"{bound_ms * 1e3:.1f} us by {bound_by}, plain {plain_ms * 1e3:.1f} us, "
+            f"library {library_ms * 1e3:.1f} us; eager call incl. host "
+            f"{eager_ms * 1e3:.1f} us)")
+    return rows, (k, w, sc, bi)
 
 
 # ---------------------------------------------------------------------------
@@ -271,83 +407,28 @@ def kernel_phase(torch, F, cf, dev):
     g.manual_seed(0)
     shapes = {"stem": (3, 8, RES, RES), "s2": (8, 16, RES // 2, RES // 2)}
     rows, params = [], {}
-    # K2 and K3 at the serving batch; K2 also at the eval batch, where the
-    # evaluators run the eval-mode stem once per chunk (K3 is off that path)
-    for B, tag, (C, O, H, W) in [(BATCH, t, s) for t, s in shapes.items()] + \
-            [(EVAL_BATCH, t, s) for t, s in shapes.items()]:
-        M = H * (W + 2)
-        k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
-        w = cf.pack_weights(k)
-        sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
-        bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
-        if B == BATCH:
-            params[tag] = (k, w, sc, bi)
-        x_nhwc = torch.randn((B, H, W, C), generator=g, device=dev)
-        x_nchw = x_nhwc.permute(0, 3, 1, 2).contiguous()
-        xf = cf.nhwc_to_flat(x_nhwc)
-        xs = cf.stack_taps(xf, H, W)
-        k_oihw = k.permute(3, 2, 0, 1).contiguous()
-        w_mat = w.permute(1, 0, 2).reshape(O, 9 * C).contiguous()
-
-        def library_flat(xn):
-            y = F.conv2d(xn, k_oihw, padding=1)
-            return F.leaky_relu(y * sc.reshape(1, O, 1, 1) + bi.reshape(1, O, 1, 1), 0.1)
-
-        def library_stacked(xsn):
-            y = torch.matmul(w_mat, xsn.reshape(B, 9 * C, M))
-            return F.leaky_relu(y * sc + bi, 0.1)
-
-        for name, inp, kern, plain, lib_fn, lib_inp in (
-                ("conv3x3_bn_act_flat", xf,
-                 lambda a: cf.conv3x3_bn_act_flat(a, w, sc, bi, H=H, W=W),
-                 lambda a: cf.conv3x3_bn_act_flat_plain(a, w, sc, bi, H=H, W=W),
-                 library_flat, x_nchw),
-                ("conv3x3_bn_act_stacked", xs,
-                 lambda a: cf.conv3x3_bn_act_stacked(a, w, sc, bi),
-                 lambda a: cf.conv3x3_bn_act_stacked_plain(a, w, sc, bi),
-                 library_stacked, xs))[:2 if B == BATCH else 1]:
-            got = kern(inp)
-            torch.cuda.synchronize()
-            want = plain(inp)
-            err = (got - want).abs().max().item()
-            # the valid columns also against the library conv
-            lib_err = (cf.flat_to_nhwc(got, H, W)
-                       - library_flat(x_nchw).permute(0, 2, 3, 1)).abs().max().item()
-            log(f"[kernel] {name} {tag} B={B}: max|kernel-plain| {err:.3e}, "
-                f"max|kernel-library| (valid cols) {lib_err:.3e}")
-            if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
-                raise AssertionError(f"{name} {tag} disagrees with its plain version")
-            in_bytes = 4 * inp.numel()
-            copies = [(inp.clone(),) for _ in range(n_copies(in_bytes))]
-            lib_copies = [(lib_inp.clone(),) for _ in range(n_copies(4 * lib_inp.numel()))]
-            ms = time_cuda(torch, kern, copies)
-            eager_ms = time_cuda(torch, kern, copies, graph=False)
-            plain_ms = time_cuda(torch, plain, copies, iters=20)
-            library_ms = time_cuda(torch, lib_fn, lib_copies)
-            del copies, lib_copies
-            if name == "conv3x3_bn_act_flat":
-                bound_ms, bound_by, nbytes, flops = k2_bound(B, C, O, H, W)
-            else:
-                bound_ms, bound_by, nbytes, flops = k3_bound(B, C, O, H, W)
-            rows.append(dict(
-                name=name, shape=tag, C=C, O=O, H=H, W=W, B=B,
-                route="cuda", source=CONV_SRC, replaces=REPLACES[name],
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, eager_ms=eager_ms,
-                bytes=nbytes, flops=flops))
-            log(f"[kernel] {name} {tag} B={B}: {ms * 1e3:.1f} us  (bound "
-                f"{rows[-1]['bound_ms'] * 1e3:.1f} us by {rows[-1]['bound_by']}, "
-                f"plain {plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us; "
-                f"eager call incl. host {eager_ms * 1e3:.1f} us)")
-
-    conv_edges(torch, cf, dev, g, stacked=False)
-    conv_edges(torch, cf, dev, g, stacked=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        # K2 and K3 at the serving batch; K2 also at the eval batch, where
+        # the evaluators run the eval-mode stem once per chunk (K3 is off
+        # that path); K2 and K3 at the other DarkNet plans' stem shapes
+        for tag, (C, O, H, W) in shapes.items():
+            r, params[(tag, dtype)] = conv_rows(torch, F, cf, dev, g, BATCH, tag, C, O, H,
+                                                W, dtype, stacked_too=True)
+            rows += r
+        for tag, (C, O, H, W) in shapes.items():
+            rows += conv_rows(torch, F, cf, dev, g, EVAL_BATCH, tag, C, O, H, W, dtype,
+                              stacked_too=False)[0]
+        for tag, C, O, H in VARIANT_SHAPES:
+            rows += conv_rows(torch, F, cf, dev, g, BATCH, tag, C, O, H, H, dtype,
+                              stacked_too=dtype == torch.bfloat16)[0]
+        conv_edges(torch, cf, dev, g, stacked=False, dtype=dtype)
+        conv_edges(torch, cf, dev, g, stacked=True, dtype=dtype)
 
     # the whole stem segment, both forms, against the plain segment and the
-    # NHWC library chain
+    # NHWC library chain (fp32)
     x = torch.randn((BATCH, RES, RES, 3), generator=g, device=dev)
-    (k1, w1, s1, b1), (k2, w2, s2, b2) = params["stem"], params["s2"]
+    (k1, w1, s1, b1), (k2, w2, s2, b2) = params[("stem", torch.float32)], params[
+        ("s2", torch.float32)]
 
     def library_segment(xn):
         y = F.max_pool2d(cf.conv3x3_bn_act_ref(xn, k1, s1, b1).permute(0, 3, 1, 2), 2)
@@ -379,19 +460,16 @@ def kernel_phase(torch, F, cf, dev):
     return rows, segment
 
 
-def conv_edges(torch, cf, dev, g, stacked: bool):
-    """K2 at K2_EDGES, or K3 at K3_EDGES (stacked): the edges of their thread
-    mappings and shapes of the general kernel. All columns against the plain
-    version, the valid ones against the library conv; each time is logged,
-    not a row of the kernels line."""
+def conv_edges(torch, cf, dev, g, stacked: bool, dtype):
+    """K2 at K2_EDGES, or K3 at K3_EDGES (stacked), in `dtype`: the edges of
+    their thread mappings and shapes of the general kernel. All columns
+    against the plain version (kernel_gate), in fp32 the valid ones also
+    against the library conv; each time is logged, not a row of the
+    kernels line."""
     name = "conv3x3_bn_act_stacked" if stacked else "conv3x3_bn_act_flat"
+    elem = 2 if dtype == torch.bfloat16 else 4
     for B, C, O, H, W in K3_EDGES if stacked else K2_EDGES:
-        k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
-        w = cf.pack_weights(k)
-        sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
-        bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
-        x_nhwc = torch.randn((B, H, W, C), generator=g, device=dev)
-        xf = cf.nhwc_to_flat(x_nhwc)
+        k, w, sc, bi, x_nhwc, xf = conv_case(torch, cf, g, dev, B, C, O, H, W, dtype)
         if stacked:
             inp = cf.stack_taps(xf, H, W)
             kern = lambda a: cf.conv3x3_bn_act_stacked(a, w, sc, bi)
@@ -400,14 +478,16 @@ def conv_edges(torch, cf, dev, g, stacked: bool):
             kern = lambda a: cf.conv3x3_bn_act_flat(a, w, sc, bi, H=H, W=W)
         got = kern(inp)
         torch.cuda.synchronize()
-        err = (got - cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=H, W=W)).abs().max().item()
-        lib_err = (cf.flat_to_nhwc(got, H, W)
-                   - cf.conv3x3_bn_act_ref(x_nhwc, k, sc, bi)).abs().max().item()
-        ms = time_cuda(torch, kern, [(inp.clone(),) for _ in range(n_copies(4 * inp.numel()))])
-        log(f"[kernel] {name} edge B={B} {C}->{O} @{H}x{W}: max|kernel-plain| "
+        err, ok = kernel_gate(torch, got, cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=H,
+                                                                       W=W))
+        lib_err = (cf.flat_to_nhwc(got, H, W).float()
+                   - cf.conv3x3_bn_act_ref(x_nhwc, k, sc, bi).float()).abs().max().item()
+        ms = time_cuda(torch, kern, [(inp.clone(),)
+                                     for _ in range(n_copies(elem * inp.numel()))])
+        log(f"[kernel] {name} edge B={B} {C}->{O} @{H}x{W} {dtype}: max|kernel-plain| "
             f"{err:.3e}, max|kernel-library| (valid cols) {lib_err:.3e}; {ms * 1e3:.2f} us")
-        if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
-            raise AssertionError(f"{name} disagrees at B={B} {C}->{O} @{H}x{W}")
+        if not ok or (elem == 4 and not lib_err <= ATOL_KERNEL):
+            raise AssertionError(f"{name} disagrees at B={B} {C}->{O} @{H}x{W} {dtype}")
 
 
 def potential_errors(got, want, a, b) -> dict:
@@ -595,13 +675,16 @@ def profile_request(torch, fn) -> dict:
 def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int = 2):
     """tf32_defaults: PyTorch's (matmul, cuDNN) allow_tf32 flags as they were
     before main turned TF32 off."""
+    import dataclasses
+
     from kd6d_pose_adlp_tpu_torch.config import Config
     from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
     from kd6d_pose_adlp_tpu_torch.engine.serving import SINGLE_KEYS, build_infer_fn
     from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
 
     cfg = Config()
-    assert cfg.model.backbone == "darknet_tiny_h" and cfg.model.input_res == RES
+    assert (cfg.model.backbone, cfg.model.input_res, cfg.model.compute_dtype) == (
+        "darknet_tiny_h", RES, "float32")
     ds = SyntheticPoseDataset(n_fg=cfg.data.n_fg, input_res=RES, seed=0)
     gen = torch.Generator()
     gen.manual_seed(0)
@@ -629,20 +712,20 @@ def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int
         return out, tm
 
     # each stem form launches its kernel once per request at each of the two
-    # (C, O) shapes of the segment
+    # (C, O) shapes of the segment, and nothing else
     seg_shapes = ((3, 8), (8, 16))
 
-    def check_launches(name, n_requests):
+    def check_launches(name, n_requests, dtype="float32", shapes=seg_shapes):
         by_shape = dict(cf.launches)
-        for c, o in seg_shapes:
-            if by_shape.get((name, c, o), 0) != n_requests:
-                raise AssertionError(f"{name} {c}->{o} was not launched once per "
-                                     f"request: {by_shape}")
+        want = {(name, c, o, dtype): n_requests for c, o in shapes}
+        if by_shape != want:
+            raise AssertionError(f"{name} {dtype} was not launched once per request "
+                                 f"at each of {shapes}: {by_shape}")
         return by_shape
 
     def per_kernel(by_shape):
         totals = {}
-        for (n, _, _), v in by_shape.items():
+        for (n, _, _, _), v in by_shape.items():
             totals[n] = totals.get(n, 0) + v
         return totals
 
@@ -651,7 +734,7 @@ def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int
     lat = [serve(infer, reqs[1 + r], r)[1] for r in range(n_flat)]
     by_shape_flat = check_launches("conv3x3_bn_act_flat", n_flat)
     counts_flat = per_kernel(by_shape_flat)
-    shapes_flat = {f"{n}:{c}->{o}": v for (n, c, o), v in by_shape_flat.items()}
+    shapes_flat = {f"{n}:{c}->{o}:{d}": v for (n, c, o, d), v in by_shape_flat.items()}
     log(f"[serving] flat stem, {n_flat} requests: launches {counts_flat} {shapes_flat}")
     for i, t in enumerate(lat):
         log(f"[serving] request {i}: {t['total_s'] * 1e3:.1f} ms "
@@ -706,6 +789,70 @@ def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int
     if not st_err <= ATOL_NETWORK:
         raise AssertionError("stacked and flat stems disagree")
 
+    # the same network in bf16 (the JAX serving default's dtype), same
+    # weights: its bf16 K2 launched twice a request, its logits within
+    # BF16_VS_FP32_LOGITS of the fp32 network's
+    variants = {}
+
+    def variant(backbone, dtype, n_requests, shapes, ref=None, sd=None, stacked=False):
+        """n_requests through the `backbone` PoseNet in `dtype` (its eval stem
+        on K3 when `stacked`) on the card; returns (launches by shape, its
+        network outputs on reqs[1], its state_dict)."""
+        c = cfg.replace(model=dataclasses.replace(cfg.model, backbone=backbone,
+                                                  compute_dtype=dtype))
+        v_net = PoseNet(c.model, n_fg=cfg.data.n_fg, stem_stacked=stacked)
+        if sd is None:
+            init_pose_net(v_net, torch.Generator().manual_seed(0))
+        else:
+            v_net.load_state_dict(sd, strict=True)
+        fn = build_infer_fn(c, ds.consts(device=dev), v_net, device=dev)
+        serve(fn, reqs[0], 0)
+        cf.reset_launch_counts()
+        lat_v = [serve(fn, reqs[1 + r], r)[1] for r in range(n_requests)]
+        by = check_launches("conv3x3_bn_act_stacked" if stacked else "conv3x3_bn_act_flat",
+                            n_requests, dtype, shapes)
+        vc, vr = fn.network(reqs[1]["images"])
+        tag = f"{backbone}{' stacked' if stacked else ''}"
+        row = dict(backbone=backbone, dtype=dtype, stacked=stacked, requests=n_requests,
+                   request_ms=[1e3 * t["total_s"] for t in lat_v],
+                   network_ms=[1e3 * t["network_s"] for t in lat_v],
+                   launches={f"{n}:{c_}->{o}:{d}": v for (n, c_, o, d), v in by.items()})
+        if ref is not None:
+            row["logits_vs_fp32"] = (vc - ref[0]).abs().max().item()
+            row["reg_vs_fp32"] = (vr - ref[1]).abs().max().item()
+        log(f"[serving] {tag} {dtype}, {n_requests} requests: "
+            + ", ".join(f"{x:.1f}" for x in row["request_ms"]) + " ms (network "
+            + ", ".join(f"{x:.1f}" for x in row["network_ms"]) + f" ms); launches "
+            f"{row['launches']}" + ("" if ref is None else
+                                    f"; vs the fp32 network: max |logits diff| "
+                                    f"{row['logits_vs_fp32']:.3e} (gate "
+                                    f"{BF16_VS_FP32_LOGITS}), max |reg diff| "
+                                    f"{row['reg_vs_fp32']:.3e}"))
+        if ref is not None and not row["logits_vs_fp32"] <= BF16_VS_FP32_LOGITS:
+            raise AssertionError(f"{tag} bf16 logits miss the fp32 network's")
+        variants[f"{tag}:{dtype}"] = row
+        return by, (vc, vr), v_net.state_dict()
+
+    by_variants = {}
+
+    def add(by):
+        for key, v in by.items():
+            by_variants[key] = by_variants.get(key, 0) + v
+
+    add(variant("darknet_tiny_h", "bfloat16", n_flat, seg_shapes, ref=(gc, gr), sd=state)[0])
+    add(variant("darknet_tiny_h", "bfloat16", n_stacked, seg_shapes, ref=(gc, gr), sd=state,
+                stacked=True)[0])
+    # the paper's other student, darknet_tiny (K2 at its stem's 3 -> 16 and
+    # 16 -> 32), and the two experiment students (tiny-h-wide: 3 -> 32, 32 ->
+    # 32; the space-to-depth stem: 12 -> 8 and 8 -> 16 at 128²), each in
+    # fp32 and in bf16 with the same weights
+    for backbone, shapes in (("darknet_tiny", ((3, 16), (16, 32))),
+                             ("darknet_tiny_h_wide", ((3, 32), (32, 32))),
+                             ("darknet_tiny_h_s2d", ((12, 8), (8, 16)))):
+        by32, ref32, sd32 = variant(backbone, "float32", 2, shapes)
+        add(by32)
+        add(variant(backbone, "bfloat16", 2, shapes, ref=ref32, sd=sd32)[0])
+
     mean = lambda xs, k: sum(x[k] for x in xs) / len(xs)
     summary = dict(
         batch=BATCH, requests_flat=n_flat, requests_stacked=n_stacked,
@@ -719,13 +866,17 @@ def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int
         launches_flat_run=counts_flat, launches_flat_run_by_shape=shapes_flat,
         launches_stacked_run=counts_st, network_card_vs_cpu=net_err,
         network_card_vs_cpu_default_flags=net_err_default, default_tf32_flags=tf32_defaults,
-        stacked_vs_flat=st_err, profile=prof)
+        stacked_vs_flat=st_err, profile=prof, variants=variants)
     # busy and wall time of the same (profiled) request
     summary["device_idle_share"] = (
         1.0 - prof["device_busy_ms"] / prof["wall_ms"]
         if prof["device_busy_ms"] > 0 else None)
-    # (name, C, O) -> launches; each stem form's run launches only its kernel
-    return summary, {**by_shape_flat, **by_shape_st}
+    # (name, C, O, dtype) -> launches; each run launches only its kernels
+    launches = dict(by_shape_flat)
+    for by in (by_shape_st, by_variants):
+        for key, v in by.items():
+            launches[key] = launches.get(key, 0) + v
+    return summary, launches
 
 
 # ---------------------------------------------------------------------------
@@ -831,11 +982,22 @@ def train_configs():
     from kd6d_pose_adlp_tpu_torch.config import Config
 
     cfg = Config()
-    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, max_iter=TRAIN_STEPS))
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, max_iter=TRAIN_STEPS),
+                      model=dataclasses.replace(cfg.model, compute_dtype="float32"))
     cfg_t = cfg.replace(model=dataclasses.replace(cfg.model, backbone="darknet53",
                                                   prior=0.5))
     assert cfg.model.backbone == "darknet_tiny_h" and cfg.model.input_res == RES
     return cfg, cfg_t
+
+
+def bf16_configs(cfg, cfg_t, remat: bool = False):
+    """train_kd's default pair: the student in bf16 (rematerialized when
+    `remat`), the teacher in bf16 with its BN folded."""
+    import dataclasses
+    return (cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16",
+                                                  remat=remat)),
+            cfg_t.replace(model=dataclasses.replace(cfg_t.model, compute_dtype="bfloat16",
+                                                    bn_folded=True)))
 
 
 def one_step(torch, cfg, cfg_t, consts, student_sd, teacher_sd, batch, uniform, dev):
@@ -997,7 +1159,10 @@ def train_phase(torch, sf, dev, tf32_defaults):
         raise AssertionError("under PyTorch's default flags the KD step on the card "
                              "misses the CPU")
 
+    bf16, k1_bf16 = train_bf16(torch, sf, dev, cfg, cfg_t, batches, consts, teacher_sd,
+                               med)
     return dict(
+        bf16=bf16,
         batch=B, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, render_s=render_s,
         history=hist, step_ms=[h["step_ms"] for h in hist], median_step_ms=med,
         images_per_sec=1e3 * B / med, peak_memory_gib=peak_gb, teacher_ms=teacher_ms,
@@ -1009,7 +1174,125 @@ def train_phase(torch, sf, dev, tf32_defaults):
                          bn_stat_rel=st_rel),
         default_flags_vs_cpu=dict(card=md, metric_rel_max=md_rel,
                                   grad_rel_worst=gd_rel[worst_d], grad_rel_worst_tensor=worst_d,
-                                  grad_rel=gd_rel)), k1
+                                  grad_rel=gd_rel)), k1 + k1_bf16
+
+
+def step_diff(torch, a, b):
+    """Two one_step results (metrics, state_dict, gradients): the largest
+    relative metric difference, the worst parameter tensor's gradient
+    ||g_a - g_b|| / ||g_b||, BN statistics' max |diff| over their largest
+    entry, and the parameters' max |diff|."""
+    (ma, sa, ga), (mb, sb, gb) = a, b
+    stat = lambda k: k.endswith(("running_mean", "running_var"))  # noqa: E731
+    if set(ga) != set(gb):
+        raise AssertionError(f"gradients of {sorted(set(ga) ^ set(gb))} in one step only")
+    g_rel = {k: float(torch.linalg.vector_norm(ga[k].float() - gb[k].float())
+                      / torch.linalg.vector_norm(gb[k].float()).clamp_min(1e-30)) for k in gb}
+    return dict(
+        metric_rel=max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-12) for k in mb),
+        grad_rel_worst=max(g_rel.values()),
+        bn_stat_rel=max(float((sa[k] - sb[k]).abs().max()
+                              / sb[k].abs().max().clamp_min(1e-12)) for k in sa if stat(k)),
+        param_max_abs=max(float((sa[k].float() - sb[k].float()).abs().max())
+                          for k in sa if sa[k].is_floating_point() and not stat(k)))
+
+
+def train_bf16(torch, sf, dev, cfg, cfg_t, batches, consts, teacher_sd, fp32_median_ms):
+    """train_kd's defaults on the card: the bf16 student against the bf16
+    BN-folded darknet53 teacher, TRAIN_STEPS steps of engine/loop.train
+    plain and with remat (K1 once per step, finite metrics, median step ms,
+    images/s and peak memory beside the fp32 run's); one remat step against
+    the plain step from the same weights and draws (the train phase's
+    card-vs-CPU limits); the folded teacher's outputs and votes against
+    the unfolded teacher's, in fp32 (1e-4 of each field's largest
+    magnitude). Returns (summary, K1 launches)."""
+    import statistics
+
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.engine.loop import train
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.utils.fold_bn import fold_batchnorm
+    from kd6d_pose_adlp_tpu_torch.utils.precision import full_fp32
+
+    B = cfg.solver.ims_per_batch
+    folded_sd = fold_batchnorm(teacher_sd)
+    k1_key = ("sinkhorn_potentials", cfg.solver.max_pos, cfg.kd.max_teacher_cells)
+    runs, k1_total = {}, 0
+    for remat in (False, True):
+        c, c_t = bf16_configs(cfg, cfg_t, remat)
+        torch.cuda.reset_peak_memory_stats()
+        sf.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as wd:
+            state, hist = train(c, consts, iter(batches), cfg_t=c_t,
+                                teacher_state_dict=folded_sd, device=dev, log_every=1,
+                                working_dir=wd, verbose=False)
+        k1 = sf.launches.get(k1_key, 0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if state.step != TRAIN_STEPS or len(hist) != TRAIN_STEPS or k1 != TRAIN_STEPS:
+            raise AssertionError(f"bf16 train (remat {remat}): {state.step} steps, "
+                                 f"{len(hist)} logged, K1 {dict(sf.launches)}")
+        for h in hist:
+            if not (all(math.isfinite(v) for v in h.values()) and h["loss_kd"] > 0):
+                raise AssertionError(f"bf16 train (remat {remat}) metrics {h}")
+        step_ms = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+        med = statistics.median(step_ms)
+        tag = "bf16_remat" if remat else "bf16"
+        runs[tag] = dict(median_step_ms=med, images_per_sec=1e3 * B / med,
+                         peak_memory_gib=peak, step_ms=[h["step_ms"] for h in hist],
+                         k1_launches=k1, last=hist[-1])
+        k1_total += k1
+        log(f"[train] {tag}: student bf16, teacher darknet53 bf16 BN-folded: median step "
+            f"{med:.2f} ms over steps {TRAIN_WARMUP + 1}-{TRAIN_STEPS} -> {1e3 * B / med:.1f} "
+            f"images/s (fp32 {fp32_median_ms:.2f} ms, {1e3 * B / fp32_median_ms:.1f} "
+            f"images/s); peak device memory {peak:.2f} GiB; K1 {k1} launches; last step "
+            f"loss_total {hist[-1]['loss_total']:.4f} (kd {hist[-1]['loss_kd']:.5f})")
+
+    # one remat step against the plain step: same weights, batch and draws
+    student = init_pose_net(PoseNet(cfg.model, n_fg=cfg.data.n_fg),
+                            torch.Generator().manual_seed(2))
+    student_sd = {k: v.clone() for k, v in student.state_dict().items()}
+    uniform = torch.rand((B, cfg.model.num_cells, batches[0].class_ids.shape[1]),
+                         generator=torch.Generator().manual_seed(3))
+    one = {remat: one_step(torch, *bf16_configs(cfg, cfg_t, remat), consts, student_sd,
+                           folded_sd, batches[0], uniform, dev) for remat in (False, True)}
+    d = step_diff(torch, one[True], one[False])
+    log(f"[train] one bf16 step B={B}, remat vs plain: metrics {d['metric_rel']:.2e}, "
+        f"worst gradient tensor {d['grad_rel_worst']:.2e}, BN statistics "
+        f"{d['bn_stat_rel']:.2e}, parameters max |diff| {d['param_max_abs']:.2e} (gates "
+        f"1e-3, RTOL_GRADIENTS {RTOL_GRADIENTS:g}, 1e-4)")
+    if not (d["metric_rel"] <= 1e-3 and d["grad_rel_worst"] <= RTOL_GRADIENTS
+            and d["bn_stat_rel"] <= 1e-4):
+        raise AssertionError("the remat step misses the plain step on the card")
+
+    # the folded teacher's votes against the unfolded teacher's, fp32
+    import dataclasses
+    cfg_tf = cfg_t.replace(model=dataclasses.replace(cfg_t.model, bn_folded=True))
+    nets = []
+    for c_t, sd in ((cfg_t, teacher_sd), (cfg_tf, folded_sd)):
+        t_net = PoseNet(c_t.model, n_fg=cfg.data.n_fg)
+        t_net.load_state_dict(sd, strict=True)
+        nets.append(t_net.to(dev).eval())
+    with full_fp32(), torch.no_grad():
+        v_un = steps.teacher_votes(cfg, cfg_t, nets[0], batches[0])
+        v_f = steps.teacher_votes(cfg, cfg_tf, nets[1], batches[0])
+        outs = [n(batches[0].images) for n in nets]
+    # each float field (and the teacher's outputs) within 1e-4 of its largest
+    # magnitude, the valid masks equal. Not elementwise: a keypoint near the
+    # frame's origin carries the pixel error of its box (reg error x box size,
+    # ~1e-3 px), which is no relative error of that coordinate
+    fold_rel = {}
+    for name, a, b in list(zip(("cls", "reg"), outs[1], outs[0])) + list(
+            zip(v_un._fields, v_f, v_un)):
+        if a.shape != b.shape or (a.dtype == torch.bool and not torch.equal(a, b)):
+            raise AssertionError(f"folded teacher: {name} differs in shape or mask")
+        fold_rel[name] = ((a.float() - b.float()).abs().max()
+                          / b.float().abs().max().clamp_min(1e-30)).item()
+    log(f"[train] folded vs unfolded darknet53 teacher, fp32, B={B}: max |diff| over "
+        f"max |value|: " + ", ".join(f"{k} {v:.2e}" for k, v in fold_rel.items())
+        + f" (gate 1e-4); valid masks equal, {int(v_un.valid.sum())} valid votes")
+    if not max(fold_rel.values()) <= 1e-4:
+        raise AssertionError("the folded teacher's votes miss the unfolded teacher's")
+    return dict(runs=runs, remat_vs_plain=d, folded_vs_unfolded_rel=fold_rel), k1_total
 
 
 # ---------------------------------------------------------------------------
@@ -1186,9 +1469,13 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
     torch.save(teacher_sd, wf)
     n_chunks = -(-CLI_EVAL_IMAGES // cfg.test.ims_per_batch)
     shapes = ((3, 8), (8, 16))
+    # the CLI's defaults: bf16 student and teacher, the teacher's BN folded
     args = ["--config_file", CLI_CONFIG_FILE, "--data", "synthetic", "--device_pool",
             str(CLI_POOL), "--steps_per_dispatch", "5", "--cache_teacher",
-            "--weight_file_t", wf, "--fold_teacher_bn", "false", "--working_dir", wd]
+            "--weight_file_t", wf, "--working_dir", wd]
+    # the CLIs' K2 launches, by batch: train_kd's evaluations at TestConfig's
+    # batch, evaluate.main's at its --ims_per_batch
+    k2_launches = {cfg.test.ims_per_batch: {}, EVAL_BATCH: {}}
     runs = {}
     for max_iters in (6, 8):
         sf.reset_launch_counts()
@@ -1201,8 +1488,11 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
         secs = time.perf_counter() - t0
         printed = buf.getvalue()
         k1 = sf.launches.get(k1_key, 0)
-        k2 = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o), 0)
+        k2 = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o, "bfloat16"), 0)
               for c, o in shapes}
+        for key, v in cf.launches.items():
+            k2_launches[cfg.test.ims_per_batch][key] = (
+                k2_launches[cfg.test.ims_per_batch].get(key, 0) + v)
         first = max_iters == 6
         log(f"[cli] (d) train_kd.main --max_iters {max_iters} ({secs:.1f} s): step "
             f"{st.step}, K1 {k1} launches, K2 {k2}; printed:\n"
@@ -1216,6 +1506,7 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
                 and printed.count("[valid @ step") == 2      # teacher at 0, student at the end
                 and f"[valid @ step {max_iters}]" in printed
                 and "teacher knowledge cached for" in printed
+                and "teacher: BN folded into conv weights" in printed
                 and (first or want_resume in printed)):
             raise AssertionError(f"train_kd.main --max_iters {max_iters}: steps, launches, "
                                  "evaluations or resume not as expected")
@@ -1226,11 +1517,19 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
         runs[max_iters] = dict(seconds=secs, k1=k1, k2=k2, history=h)
 
     buf = io.StringIO()
+    cf.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
         ev = evaluate.main(["--config_file", CLI_CONFIG_FILE, "--weight_file",
                             os.path.join(wd, "final.ckpt"), "--data", "synthetic",
+                            "--ims_per_batch", str(EVAL_BATCH),
                             "--working_dir", os.path.join(wd, "eval")])
     printed = buf.getvalue()
+    k2_launches[EVAL_BATCH] = dict(cf.launches)
+    n_eval_chunks = -(-CLI_EVAL_IMAGES // EVAL_BATCH)
+    if k2_launches[EVAL_BATCH] != {("conv3x3_bn_act_flat", c, o, "bfloat16"): n_eval_chunks
+                                   for c, o in shapes}:
+        raise AssertionError(f"evaluate.main at its bf16 default: K2 launches "
+                             f"{k2_launches[EVAL_BATCH]}, not once per chunk in bf16")
     tmp.cleanup()
     n_tensors = len(PoseNet(cfg.model, n_fg=n_fg).state_dict())
     log(f"[cli] (e) evaluate.main on the run's final.ckpt: {printed.splitlines()[0]}")
@@ -1245,7 +1544,9 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
         profile=prof, device_idle_share=idle,
         live_vs_cached=dict(live=m_live, cached=m_cache, metric_rel=met_rel,
                             param_max_abs=p_err, bn_stats_ok=st_ok),
-        train_kd=runs), k1_b + runs[6]["k1"] + runs[8]["k1"]
+        train_kd=runs, k2_launches={str(b): {":".join(map(str, k)): v for k, v in by.items()}
+                                    for b, by in k2_launches.items()}), \
+        k1_b + runs[6]["k1"] + runs[8]["k1"], k2_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1353,7 +1654,8 @@ def eval_phase(torch, cf, dev):
 
     cfg = Config()
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, ims_per_batch=EVAL_BATCH))
-    assert cfg.model.backbone == "darknet_tiny_h" and cfg.model.input_res == RES
+    assert (cfg.model.backbone, cfg.model.input_res, cfg.model.compute_dtype) == (
+        "darknet_tiny_h", RES, "float32")
     n_img, t = EVAL_BATCH * EVAL_CHUNKS, cfg.test
     t0 = time.perf_counter()
     data = loaders.build(cfg, kind="synthetic", eval_limit=n_img, device=dev)
@@ -1430,7 +1732,7 @@ def eval_phase(torch, cf, dev):
     shapes = ((3, 8), (8, 16))
 
     def k2_launches(what):
-        got = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o), 0)
+        got = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o, "float32"), 0)
                for c, o in shapes}
         if set(got.values()) != {EVAL_CHUNKS} or sum(cf.launches.values()) != 2 * EVAL_CHUNKS:
             raise AssertionError(f"{what}: K2 not launched once per chunk at each shape: "
@@ -1498,8 +1800,8 @@ def eval_phase(torch, cf, dev):
         t1 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             cli = evaluate.main(["--config_file", "", "--weight_file", wf, "--data",
-                                 "synthetic", "--working_dir",
-                                 os.path.join(tmp, "eval")])
+                                 "synthetic", "--compute_dtype", "float32",
+                                 "--working_dir", os.path.join(tmp, "eval")])
         cli_s = time.perf_counter() - t1
         printed = buf.getvalue()
         with open(os.path.join(tmp, "eval", "preds.json")) as f:
@@ -1577,15 +1879,19 @@ def main(argv=None) -> int:
     if "eval" in phases:
         result["eval"], launches[EVAL_BATCH] = eval_phase(torch, cf, dev)
     if "cli" in phases:
-        result["cli"], k1_cli = cli_phase(torch, sf, cf, dev, tf32_defaults)
+        result["cli"], k1_cli, k2_cli = cli_phase(torch, sf, cf, dev, tf32_defaults)
         k1_launches = (k1_launches or 0) + k1_cli
+        for b, by in k2_cli.items():
+            for key, v in by.items():
+                launches.setdefault(b, {})[key] = launches.get(b, {}).get(key, 0) + v
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for r in rows:
-        r["launches"] = launches[r["B"]].get((r["name"], r["C"], r["O"]))
-        r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{r['H']}^2 B={r['B']}]")
+        r["launches"] = launches[r["B"]].get((r["name"], r["C"], r["O"], r["dtype"]), 0)
+        r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{r['H']}^2 "
+                         f"B={r['B']} {r['dtype']}]")
         kernels.append({k: r[k] for k in keys})
     if k1_row is not None:
         # K1's launches are those of the train phase's run and the cli

@@ -1,5 +1,5 @@
 // Fused 3x3 stride-1 SAME convolution + per-channel affine (eval-mode BN)
-// + LeakyReLU, fp32, on the flat channel-major slab layout.
+// + LeakyReLU, on the flat channel-major slab layout, in fp32 or bf16.
 //
 // Replaces the two Pallas TPU kernels of
 // kd6d_pose_adlp_tpu/ops/conv_pallas.py:
@@ -11,6 +11,17 @@
 // and the stacked form reads xs[b, t, c, m] in place of x[b, c, m + off_t].
 // The last two columns of every output row are wrap-around values of the
 // flat formula, exactly as on the TPU; callers drop them.
+//
+// Types, as on the TPU: x, w and out are all fp32 (the *_flat / *_stacked
+// entry points) or all bf16 (*_bf16), scale and bias fp32; every kernel
+// sums in fp32 and rounds its output once. Each form below takes the
+// element type T as a template parameter and converts on load; shared
+// memory holds fp32. In bf16 each load moves half the bytes, and the s2
+// instance runs native bf16 tensor-core products (conv3x3_flat_mma_bf16,
+// mma.sync m16n8k16, fp32 accumulators): one product per pair of taps and
+// 8 columns, exact products of bf16 inputs, where fp32 needs three TF32
+// products per tap. The stacked form's streaming instances are fp32 only;
+// in bf16 every stacked shape runs the general kernel.
 //
 // What bounds the flat form (K2) on an H100, at the two shapes the serving
 // stem gives it (B = 8): the stem, 3 -> 8 at 256^2, reads 6.4 MB and writes
@@ -65,20 +76,52 @@
 // [tap][c][o] for 16-byte broadcast loads. P (columns per thread) is picked
 // per shape to keep at least two blocks per SM in flight.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kNumSMs = 132;
 
-template <int OT, int P, bool STACKED>
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// four consecutive outputs, 16 bytes (fp32) or 8 (bf16) at p
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float v0, float v1, float v2,
+                                       float v3) {
+  if constexpr (std::is_same_v<T, float>) {
+    *reinterpret_cast<float4*>(p) = make_float4(v0, v1, v2, v3);
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v2, v3);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+  }
+}
+
+template <typename T, int OT, int P, bool STACKED>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_bn_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
+conv3x3_bn_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       const float* __restrict__ scale,
-                      const float* __restrict__ bias, float* __restrict__ out,
+                      const float* __restrict__ bias, T* __restrict__ out,
                       int C, int O, int OP, int Wp, int L, int M, float alpha) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kTile = kThreads * P;
@@ -97,18 +140,18 @@ conv3x3_bn_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int tc = i / OP;
     const int c = tc % C;
     const int t = tc / C;
-    ws[i] = o < O ? w[(t * O + o) * C + c] : 0.f;
+    ws[i] = o < O ? to_f(w[(t * O + o) * C + c]) : 0.f;
   }
   for (int i = tid; i < OP; i += kThreads) {
     ss[i] = i < O ? scale[i] : 0.f;
     bs[i] = i < O ? bias[i] : 0.f;
   }
   if (!STACKED) {
-    const float* xb = x + (size_t)b * C * L;
+    const T* xb = x + (size_t)b * C * L;
     for (int c = 0; c < C; ++c) {
       for (int i = tid; i < span; i += kThreads) {
         const int g = m0 + i;
-        xs[c * span + i] = g < L ? xb[(size_t)c * L + g] : 0.f;
+        xs[c * span + i] = g < L ? to_f(xb[(size_t)c * L + g]) : 0.f;
       }
     }
   }
@@ -132,7 +175,7 @@ conv3x3_bn_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int ml = p * kThreads + tid;
           if (STACKED) {
             const int m = m0 + ml;
-            xv[p] = m < M ? x[(((size_t)b * 9 + t) * C + c) * M + m] : 0.f;
+            xv[p] = m < M ? to_f(x[(((size_t)b * 9 + t) * C + c) * M + m]) : 0.f;
           } else {
             xv[p] = xs[c * span + ml + off];
           }
@@ -159,13 +202,13 @@ conv3x3_bn_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (o < O) {
         const float sc = ss[o];
         const float bi = bs[o];
-        float* ob = out + ((size_t)b * O + o) * M;
+        T* ob = out + ((size_t)b * O + o) * M;
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           const int m = m0 + p * kThreads + tid;
           if (m < M) {
             const float v = acc[p][q] * sc + bi;
-            ob[m] = v >= 0.f ? v : alpha * v;
+            ob[m] = from_f<T>(v >= 0.f ? v : alpha * v);
           }
         }
       }
@@ -173,16 +216,16 @@ conv3x3_bn_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int OT, int P, bool STACKED>
-cudaError_t launch(const float* x, const float* w, const float* scale,
-                   const float* bias, float* out, int B, int C, int O, int Wp,
+template <typename T, int OT, int P, bool STACKED>
+cudaError_t launch(const T* x, const T* w, const float* scale,
+                   const float* bias, T* out, int B, int C, int O, int Wp,
                    int L, int M, float alpha, cudaStream_t stream) {
   const int OP = (O + OT - 1) / OT * OT;
   constexpr int kTile = kThreads * P;
   size_t smem = sizeof(float) * (size_t)(9 * C * OP + 2 * OP);
   if (!STACKED) smem += sizeof(float) * (size_t)C * (kTile + 2 * Wp + 2);
   if (smem > 227 * 1024) return cudaErrorInvalidConfiguration;
-  auto kernel = conv3x3_bn_act_kernel<OT, P, STACKED>;
+  auto kernel = conv3x3_bn_act_kernel<T, OT, P, STACKED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -203,20 +246,20 @@ int pick_p(int M, int B) {
   return 1;
 }
 
-template <bool STACKED>
-cudaError_t dispatch(const float* x, const float* w, const float* scale,
-                     const float* bias, float* out, int B, int C, int O,
+template <typename T, bool STACKED>
+cudaError_t dispatch(const T* x, const T* w, const float* scale,
+                     const float* bias, T* out, int B, int C, int O,
                      int Wp, int L, int M, float alpha, cudaStream_t s) {
   if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
   const int p = pick_p(M, B);
   if (O <= 8) {
-    if (p == 4) return launch<8, 4, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-    if (p == 2) return launch<8, 2, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-    return launch<8, 1, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+    if (p == 4) return launch<T, 8, 4, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+    if (p == 2) return launch<T, 8, 2, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+    return launch<T, 8, 1, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
   }
-  if (p == 4) return launch<16, 4, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-  if (p == 2) return launch<16, 2, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-  return launch<16, 1, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  if (p == 4) return launch<T, 16, 4, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  if (p == 2) return launch<T, 16, 2, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  return launch<T, 16, 1, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -291,13 +334,14 @@ __device__ __forceinline__ void tap_row(const float* xa, const float* w,
 // for all O outputs. The strip is copied with one commit group per channel,
 // all issued at once, and the block starts on channel 0 as soon as it has
 // landed. WM = Wp % 4 makes each input row's shift remainder a constant.
-// S: floats per channel row of the strip, a multiple of 4; vec: 16-byte
-// output stores allowed (M % 4 == 0, out 16-byte aligned).
-template <int C, int O, int WM>
+// S: floats per channel row of the strip, a multiple of 4; vec: 4-output
+// stores allowed (M % 4 == 0, out aligned to 4 outputs). A bf16 strip is
+// read with plain loads and widened to fp32 on its way into shared memory.
+template <typename T, int C, int O, int WM>
 __global__ void __launch_bounds__(kStemThreads, kStemMinBlocks)
-conv3x3_flat_tiled(const float* __restrict__ x, const float* __restrict__ w,
+conv3x3_flat_tiled(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ scale,
-                   const float* __restrict__ bias, float* __restrict__ out,
+                   const float* __restrict__ bias, T* __restrict__ out,
                    int Wp, int L, int M, int S, int vec, float alpha) {
   static_assert(O % 4 == 0, "outputs go in float4 groups");
   constexpr int kTile = kStemThreads * kCols;
@@ -312,15 +356,17 @@ conv3x3_flat_tiled(const float* __restrict__ x, const float* __restrict__ w,
   const int m0 = blockIdx.x * kTile;
 
   // the strip, one commit group per channel; past the slab's end, zeros
-  const float* xb = x + (size_t)b * C * L + m0;
+  const T* xb = x + (size_t)b * C * L + m0;
   const int n_in = min(S, L - m0);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     for (int i = tid; i < S; i += kStemThreads) {
-      if (i < n_in) {
+      if (i >= n_in) {
+        xs[c * S + i] = 0.f;
+      } else if constexpr (std::is_same_v<T, float>) {
         cp_async4(xs + c * S + i, xb + (size_t)c * L + i);
       } else {
-        xs[c * S + i] = 0.f;
+        xs[c * S + i] = to_f(xb[(size_t)c * L + i]);
       }
     }
     cp_async_commit();
@@ -328,7 +374,7 @@ conv3x3_flat_tiled(const float* __restrict__ x, const float* __restrict__ w,
   for (int i = tid; i < 9 * C * O; i += kStemThreads) {
     const int o = i % O;
     const int tc = i / O;
-    ws[i] = w[((tc / C) * O + o) * C + tc % C];
+    ws[i] = to_f(w[((tc / C) * O + o) * C + tc % C]);
   }
   for (int i = tid; i < O; i += kStemThreads) {
     ss[i] = scale[i];
@@ -368,22 +414,22 @@ conv3x3_flat_tiled(const float* __restrict__ x, const float* __restrict__ w,
       const float t = acc[j][o] * sc + bi;
       v[j] = t >= 0.f ? t : alpha * t;
     }
-    float* ob = out + ((size_t)b * O + o) * M + m;
+    T* ob = out + ((size_t)b * O + o) * M + m;
     if (vec && m + kCols <= M) {
-      *reinterpret_cast<float4*>(ob) = make_float4(v[0], v[1], v[2], v[3]);
+      store4(ob, v[0], v[1], v[2], v[3]);
     } else {
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        if (m + j < M) ob[j] = v[j];
+        if (m + j < M) ob[j] = from_f<T>(v[j]);
     }
   }
 }
 
 // Launch the FFMA instance if its strip fits in shared memory; *taken =
 // false (and nothing launched) if not.
-template <int C, int O>
-cudaError_t launch_tiled(const float* x, const float* w, const float* scale,
-                         const float* bias, float* out, int B, int Wp, int L,
+template <typename T, int C, int O>
+cudaError_t launch_tiled(const T* x, const T* w, const float* scale,
+                         const float* bias, T* out, int B, int Wp, int L,
                          int M, float alpha, cudaStream_t stream,
                          bool* taken) {
   constexpr int kTile = kStemThreads * kCols;
@@ -393,20 +439,21 @@ cudaError_t launch_tiled(const float* x, const float* w, const float* scale,
   const size_t smem = sizeof(float) * ((size_t)C * S + 9 * C * O + 2 * O);
   *taken = smem <= 227 * 1024;
   if (!*taken) return cudaSuccess;
-  void (*kernel)(const float*, const float*, const float*, const float*,
-                 float*, int, int, int, int, int, float);
+  void (*kernel)(const T*, const T*, const float*, const float*, T*, int,
+                 int, int, int, int, float);
   switch (Wp & 3) {
-    case 0: kernel = conv3x3_flat_tiled<C, O, 0>; break;
-    case 1: kernel = conv3x3_flat_tiled<C, O, 1>; break;
-    case 2: kernel = conv3x3_flat_tiled<C, O, 2>; break;
-    default: kernel = conv3x3_flat_tiled<C, O, 3>; break;
+    case 0: kernel = conv3x3_flat_tiled<T, C, O, 0>; break;
+    case 1: kernel = conv3x3_flat_tiled<T, C, O, 1>; break;
+    case 2: kernel = conv3x3_flat_tiled<T, C, O, 2>; break;
+    default: kernel = conv3x3_flat_tiled<T, C, O, 3>; break;
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int vec = (M % 4 == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const int vec = (M % 4 == 0) &&
+                  (reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0);
   const dim3 grid((M + kTile - 1) / kTile, B);
   kernel<<<grid, kStemThreads, smem, stream>>>(x, w, scale, bias, out, Wp, L,
                                                M, S, vec, alpha);
@@ -557,24 +604,177 @@ cudaError_t launch_mma(const float* x, const float* w, const float* scale,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// s2 on the tensor cores in bf16: mma.sync m16n8k16, fp32 accumulators
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned pack_bf16(bf16 lo, bf16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int kTapPairs = 5;  // k = 16 takes two taps of 8 channels; tap 9 is 0
+
+// C = 8, O = 16, bf16. The block's tiling is conv3x3_flat_mma's (kMmaWarps
+// warps, kMmaTile columns, groups of 8 columns, kMmaInFlight at a time),
+// but one m16n8k16 product takes two taps: its k = 0..7 are tap 2p's 8
+// channels, k = 8..15 tap 2p + 1's, so 5 products cover the 9 taps of a
+// group (the tenth tap's weights are 0). The strip is staged column-major,
+// [S][8] bf16, 16 bytes a column: a B register is the (2 tg, 2 tg + 1)
+// channel pair at one column, one 4-byte shared load, and a warp's 32
+// loads hit 32 consecutive words. Products of bf16 values are exact in
+// fp32; the sums are fp32.
+__global__ void __launch_bounds__(kMmaWarps * 32)
+conv3x3_flat_mma_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias, bf16* __restrict__ out,
+                      int Wp, int L, int M, int S, int vec2, float alpha) {
+  constexpr int C = 8, O = 16, NI = kMmaInFlight;
+  extern __shared__ __align__(16) uint4 smem_cols[];  // [S] columns of 8 channels
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * kMmaTile;
+
+  // the strip: each thread gathers the 8 channels of a column (loads
+  // coalesced across the warp, channel by channel) into one 16-byte store;
+  // past the slab's end, zeros
+  const bf16* xb = x + (size_t)b * C * L + m0;
+  const int n_in = min(S, L - m0);
+  for (int i = tid; i < S; i += kMmaWarps * 32) {
+    uint4 col = make_uint4(0u, 0u, 0u, 0u);
+    if (i < n_in) {
+      const bf16* p = xb + i;
+      col.x = pack_bf16(p[0], p[(size_t)L]);
+      col.y = pack_bf16(p[(size_t)2 * L], p[(size_t)3 * L]);
+      col.z = pack_bf16(p[(size_t)4 * L], p[(size_t)5 * L]);
+      col.w = pack_bf16(p[(size_t)6 * L], p[(size_t)7 * L]);
+    }
+    smem_cols[i] = col;
+  }
+
+  // the A fragments of the five tap pairs: rows g, g + 8; k 2 tg, 2 tg + 1
+  // (tap 2p) and 2 tg + 8, 2 tg + 9 (tap 2p + 1)
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  unsigned a[kTapPairs][4];
+#pragma unroll
+  for (int p = 0; p < kTapPairs; ++p) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = 2 * p + h;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int o = g + 8 * r;
+        a[p][2 * h + r] =
+            t < 9 ? pack_bf16(w[(t * O + o) * C + 2 * tg], w[(t * O + o) * C + 2 * tg + 1])
+                  : pack_bf16(zero, zero);
+      }
+    }
+  }
+  const float sc0 = scale[g], sc1 = scale[g + 8];
+  const float bi0 = bias[g], bi1 = bias[g + 8];
+  __syncthreads();
+
+  // channel pair (2 tg, 2 tg + 1) of column c: word 4 c + tg of the strip
+  const unsigned* xw = reinterpret_cast<const unsigned*>(smem_cols) + tg;
+#pragma unroll 1
+  for (int n0 = warp * kMmaGroups; n0 < (warp + 1) * kMmaGroups; n0 += NI) {
+    float d[NI][4];
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[i][r] = 0.f;
+#pragma unroll
+    for (int p = 0; p < kTapPairs; ++p) {
+      const int t0 = 2 * p, t1 = 2 * p + 1;
+      const int off0 = (t0 / 3) * Wp + t0 % 3;
+      const int off1 = (t1 / 3) * Wp + t1 % 3;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int col = (n0 + i) * 8 + g;
+        const unsigned b0 = xw[4 * (col + off0)];
+        const unsigned b1 = t1 < 9 ? xw[4 * (col + off1)] : 0u;
+        mma_bf16(d[i], a[p], b0, b1);
+      }
+    }
+    // D: rows (outputs) g, g + 8; columns 2 tg, 2 tg + 1 of the group
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int m = m0 + (n0 + i) * 8 + 2 * tg;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sc = h ? sc1 : sc0, bi = h ? bi1 : bi0;
+        float v0 = d[i][2 * h] * sc + bi, v1 = d[i][2 * h + 1] * sc + bi;
+        v0 = v0 >= 0.f ? v0 : alpha * v0;
+        v1 = v1 >= 0.f ? v1 : alpha * v1;
+        bf16* ob = out + ((size_t)b * O + g + 8 * h) * M + m;
+        if (vec2 && m + 2 <= M) {
+          *reinterpret_cast<__nv_bfloat162*>(ob) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (m < M) ob[0] = __float2bfloat16_rn(v0);
+          if (m + 1 < M) ob[1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_mma_bf16(const bf16* x, const bf16* w, const float* scale,
+                            const float* bias, bf16* out, int B, int Wp, int L,
+                            int M, float alpha, cudaStream_t stream,
+                            bool* taken) {
+  // reads reach 2 * Wp + 2 + 7 past a group's first column
+  const int S = (kMmaTile + 2 * Wp + 16 + 7) / 8 * 8;
+  const size_t smem = sizeof(uint4) * (size_t)S;
+  *taken = smem <= 227 * 1024;
+  if (!*taken) return cudaSuccess;
+  auto kernel = conv3x3_flat_mma_bf16;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int vec2 = (M % 2 == 0) && (reinterpret_cast<uintptr_t>(out) % 4 == 0);
+  const dim3 grid((M + kMmaTile - 1) / kMmaTile, B);
+  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(x, w, scale, bias, out, Wp,
+                                                 L, M, S, vec2, alpha);
+  return cudaGetLastError();
+}
+
 // The flat form: the serving stem's two (C, O) instances on their own
 // kernels, every other shape on the general one. A launch error returns.
-cudaError_t dispatch_flat(const float* x, const float* w, const float* scale,
-                          const float* bias, float* out, int B, int C, int O,
+template <typename T>
+cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
+                          const float* bias, T* out, int B, int C, int O,
                           int Wp, int L, int M, float alpha, cudaStream_t s) {
   if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
   bool taken = false;
   cudaError_t e = cudaSuccess;
   if (C == 3 && O == 8) {
     // stem: 256 threads, 1024 columns a block
-    e = launch_tiled<3, 8>(x, w, scale, bias, out, B, Wp, L, M, alpha, s,
-                           &taken);
+    e = launch_tiled<T, 3, 8>(x, w, scale, bias, out, B, Wp, L, M, alpha, s,
+                              &taken);
   } else if (C == 8 && O == 16) {
     // s2: 4 warps, 256 columns a block (520 blocks at B = 8, 128^2)
-    e = launch_mma(x, w, scale, bias, out, B, Wp, L, M, alpha, s, &taken);
+    if constexpr (std::is_same_v<T, float>) {
+      e = launch_mma(x, w, scale, bias, out, B, Wp, L, M, alpha, s, &taken);
+    } else {
+      e = launch_mma_bf16(x, w, scale, bias, out, B, Wp, L, M, alpha, s,
+                          &taken);
+    }
   }
   if (taken || e != cudaSuccess) return e;
-  return dispatch<false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  return dispatch<T, false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -762,7 +962,8 @@ cudaError_t dispatch_stacked(const float* xs, const float* w,
     return launch_stacked<8, 16, 2, 8, 2>(xs, w, scale, bias, out, B, M,
                                           alpha, s);
   }
-  return dispatch<true>(xs, w, scale, bias, out, B, C, O, 0, 0, M, alpha, s);
+  return dispatch<float, true>(xs, w, scale, bias, out, B, C, O, 0, 0, M, alpha,
+                              s);
 }
 
 }  // namespace
@@ -774,9 +975,9 @@ extern "C" int conv3x3_bn_act_flat(const float* x, const float* w,
                                    float* out, int B, int C, int O, int H,
                                    int W, float alpha, void* stream) {
   const int Wp = W + 2;
-  return (int)dispatch_flat(x, w, scale, bias, out, B, C, O, Wp,
-                            (H + 2) * Wp + 2, H * Wp, alpha,
-                            (cudaStream_t)stream);
+  return (int)dispatch_flat<float>(x, w, scale, bias, out, B, C, O, Wp,
+                                   (H + 2) * Wp + 2, H * Wp, alpha,
+                                   (cudaStream_t)stream);
 }
 
 // xs (B, 9, C, M), w (9, O, C), scale/bias (O,), out (B, O, M).
@@ -786,4 +987,25 @@ extern "C" int conv3x3_bn_act_stacked(const float* xs, const float* w,
                                       float alpha, void* stream) {
   return (int)dispatch_stacked(xs, w, scale, bias, out, B, C, O, M, alpha,
                                (cudaStream_t)stream);
+}
+
+// The bf16 forms: x, w and out bf16, scale and bias fp32, the same shapes.
+extern "C" int conv3x3_bn_act_flat_bf16(const bf16* x, const bf16* w,
+                                        const float* scale, const float* bias,
+                                        bf16* out, int B, int C, int O, int H,
+                                        int W, float alpha, void* stream) {
+  const int Wp = W + 2;
+  return (int)dispatch_flat<bf16>(x, w, scale, bias, out, B, C, O, Wp,
+                                  (H + 2) * Wp + 2, H * Wp, alpha,
+                                  (cudaStream_t)stream);
+}
+
+// K3 in bf16 runs the general kernel at every (C, O)
+extern "C" int conv3x3_bn_act_stacked_bf16(const bf16* xs, const bf16* w,
+                                           const float* scale,
+                                           const float* bias, bf16* out,
+                                           int B, int C, int O, int M,
+                                           float alpha, void* stream) {
+  return (int)dispatch<bf16, true>(xs, w, scale, bias, out, B, C, O, 0, 0, M,
+                                   alpha, (cudaStream_t)stream);
 }

@@ -3,8 +3,10 @@
 poses` closing over the network, the voting + RANSAC-EPnP + LHM postprocess
 and the task constants; `mode="multi"` solves every foreground class.
 
-The network runs in full fp32 (`utils/precision.full_fp32`) whatever the
-caller's TF32 flags, as the JAX endpoint is fp32.
+The network runs in its config's compute dtype (`ModelConfig.
+compute_dtype`: float32, or bfloat16 with float32 outputs), its float32
+parts and the postprocess in full fp32 (`utils/precision.full_fp32`)
+whatever the caller's TF32 flags, as the JAX endpoint's.
 
 Export (`torch.export`) and the raw-frame endpoint wait for later slices.
 """
@@ -30,9 +32,10 @@ SINGLE_KEYS = ("R", "T", "score", "cls", "n_inliers", "valid", "kp2d",
 
 
 def network_fn(net: nn.Module):
-    """network(images) -> (cls_logits, pred_reg): `net` in eval mode, under
-    inference mode and full fp32 (TF32 off for cuDNN and matmuls). A net
-    that was in train mode (a training run's student) is put back."""
+    """network(images) -> (cls_logits, pred_reg), float32: `net` in eval
+    mode, in its compute dtype, under inference mode and full fp32 (TF32 off
+    for cuDNN and matmuls). A net that was in train mode (a training run's
+    student) is put back."""
     def network(images: torch.Tensor):
         was_training = net.training
         net.eval()
@@ -50,7 +53,8 @@ def build_infer_fn(cfg: Config, consts: TaskConsts,
                    mode: str = "single", device="cuda"):
     """Inference endpoint over a trained model, on `device`.
 
-    `model_or_state` is a `PoseNet` or its state_dict (loaded strictly).
+    `model_or_state` is a `PoseNet` or its state_dict (loaded strictly
+    into a `PoseNet(cfg.model)`, in cfg.model.compute_dtype).
     Arguments of the returned `infer(images, bbox_trans, class_ids, seed=0,
     gumbel=None, timings=None)`:
       images     (B, res, res, 3) uint8 BGR crop or pre-normalized float RGB

@@ -9,18 +9,32 @@ votes (`precompute_pool_votes`) the first two stages leave the step.
 
 JAX keeps the state as an immutable pytree; here the student module holds
 the parameters and BN statistics and the optimizer updates them in place.
-The step runs in full fp32 (`utils/precision.full_fp32`) whatever the
-caller's TF32 flags, as the JAX step is fp32.
+Student and teacher compute in their configs' `compute_dtype` (float32 or
+bfloat16; `models/blocks`), and return float32 outputs. Everything else,
+and the networks too in float32, runs in full fp32
+(`utils/precision.full_fp32`) whatever the caller's TF32 flags: the
+losses, K1 and AdamW, as the JAX step's.
+
+`cfg.model.remat` rematerializes the student forward in the backward pass,
+the counterpart of `jax.checkpoint(fwd_train)` (JAX `steps.py:115-119`):
+`torch.utils.checkpoint` stores the forward's inputs only and runs it
+again when the backward needs its activations. The re-run forward is the
+same function, but its train-mode BatchNorms would update their running
+statistics a second time (JAX's functional BN updates them once), so the
+re-run goes under `blocks.frozen_batch_stats()`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..data.batch import Batch, TaskConsts
+from ..models.blocks import frozen_batch_stats
 from ..models.pose_net import PoseNet, init_pose_net
 from ..ops.object_space import select_class_pred
 from ..ops.voting import Votes, vote_cells, votes_to_internal_frame
@@ -152,6 +166,12 @@ def teacher_votes(cfg: Config, cfg_t: Config, teacher_net: PoseNet,
                              teacher_class=cfg.kd.teacher_class)
 
 
+def _remat_contexts():
+    """checkpoint's (forward, recompute) contexts: the re-run forward leaves
+    the BN running statistics as the first run left them."""
+    return contextlib.nullcontext(), frozen_batch_stats()
+
+
 def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
                      net: PoseNet, teacher_net: Optional[PoseNet],
                      optimizer: AdamW, distill: bool = True,
@@ -165,7 +185,7 @@ def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
     is skipped and loss_kd is 0. With cached_votes=True the step takes the
     batch's precomputed teacher `votes` (`precompute_pool_votes`) in place
     of running the teacher. The whole step, backward included, runs with
-    TF32 off."""
+    TF32 off; with cfg.model.remat the student forward is rematerialized."""
     w_img, h_img = float(cfg.data.internal_width), float(cfg.data.internal_height)
     params = list(net.parameters())
 
@@ -188,7 +208,11 @@ def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
         net.train()
         for p in params:
             p.grad = None
-        cls_logits, pred_reg = net(batch.images)
+        if cfg.model.remat:
+            cls_logits, pred_reg = checkpoint(net, batch.images, use_reentrant=False,
+                                              context_fn=_remat_contexts)
+        else:
+            cls_logits, pred_reg = net(batch.images)
         out = pose_losses(cls_logits, pred_reg, batch, consts, cfg,
                           teacher=teacher, uniform=uniform, generator=generator)
         total = (cfg.solver.loss_weight_cls * out.loss_cls

@@ -9,10 +9,12 @@ a `torch.save`d state_dict, such as the port's `final.ckpt`, or a JAX
 package checkpoint (flax msgpack, such as its `final.ckpt`). It evaluates
 the weights on the configured split, prints
 `loaded N tensors from ...` and the per-class ADD/ADI/AUC/REP table, and
-writes preds.json into --working_dir. Runs on the card unless --cpu is
-given. Only --data synthetic (its 64-image eval split) and --compute_dtype
-float32 are ported; test.py's --test_file and --fast_pipeline select BOP
-inputs and wait with them.
+writes preds.json into --working_dir. The network computes in
+--compute_dtype, bfloat16 by default as in `test.py:23`, or float32. Runs
+on the card unless --cpu is given. Only --data synthetic (its 64-image
+eval split) is ported: --data bop raises, as the BOP host pipeline is
+ROADMAP Queue 1 item 6, and test.py's --test_file and --fast_pipeline,
+which select BOP inputs, wait with it.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--working_dir", type=str, default="./outputs/eval/")
     p.add_argument("--data", type=str, default="bop", choices=["bop", "synthetic"])
     p.add_argument("--ims_per_batch", type=int, default=24)  # reference test.py:114
-    p.add_argument("--compute_dtype", type=str, default="float32")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["float32", "bfloat16"])
     p.add_argument("--eval_mode", type=str, default="scan", choices=["scan", "stream"],
                    help="scan = the device-resident one-pass evaluator "
                         "(engine/eval_scan); stream = the per-batch "
@@ -48,10 +51,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Runs the evaluation; returns the results of the chosen evaluator
     (with "detection" when --eval_all_classes)."""
     args = parse_args(argv)
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: only float32 is ported "
-            "(bfloat16 evaluation is ROADMAP Queue 1 item 3)")
     import torch
 
     from .config import Config, load_yaml_config
@@ -71,7 +70,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            if args.config_file else
            Config().replace(model=dataclasses.replace(Config().model,
                                                       backbone=args.backbone)))
-    cfg = cfg.replace(test=dataclasses.replace(cfg.test, ims_per_batch=args.ims_per_batch))
+    cfg = cfg.replace(test=dataclasses.replace(cfg.test, ims_per_batch=args.ims_per_batch),
+                      model=dataclasses.replace(cfg.model, compute_dtype=args.compute_dtype))
 
     data = loaders.build(cfg, kind=args.data, device=device)
     if data.cfg is not None:

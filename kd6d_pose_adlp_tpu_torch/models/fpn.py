@@ -4,7 +4,8 @@ Lateral 1x1 + output 3x3 per non-skipped backbone level, nearest 2x
 top-down upsampling; P6 = stride-2 3x3 conv of the RAW backbone top feature
 (not the FPN output), P7 = stride-2 3x3 conv of ReLU(P6), symmetric padding
 1. Names mirror the reference (`inner_convs.{lvl}`, `out_convs.{lvl}`,
-`top_blocks.p6|p7`, keyed by backbone level index).
+`top_blocks.p6|p7`, keyed by backbone level index). Convolutions run in
+`dtype` (`models/blocks.Conv2d`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .blocks import Conv2d
+
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
@@ -21,22 +24,23 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int], out_channel: int,
-                 use_p6p7: bool = True):
+                 use_p6p7: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.used = [i for i, c in enumerate(in_channels) if c > 0]
         assert self.used
         self.inner_convs = nn.ModuleDict(
-            {str(i): nn.Conv2d(in_channels[i], out_channel, 1) for i in self.used})
+            {str(i): Conv2d(in_channels[i], out_channel, 1, dtype=dtype)
+             for i in self.used})
         self.out_convs = nn.ModuleDict(
-            {str(i): nn.Conv2d(out_channel, out_channel, 3, padding=1)
+            {str(i): Conv2d(out_channel, out_channel, 3, padding=1, dtype=dtype)
              for i in self.used})
         self.use_p6p7 = use_p6p7
         if use_p6p7:
             self.top_blocks = nn.Module()
-            self.top_blocks.p6 = nn.Conv2d(in_channels[self.used[-1]],
-                                           out_channel, 3, stride=2, padding=1)
-            self.top_blocks.p7 = nn.Conv2d(out_channel, out_channel, 3,
-                                           stride=2, padding=1)
+            self.top_blocks.p6 = Conv2d(in_channels[self.used[-1]], out_channel, 3,
+                                        stride=2, padding=1, dtype=dtype)
+            self.top_blocks.p7 = Conv2d(out_channel, out_channel, 3, stride=2,
+                                        padding=1, dtype=dtype)
 
     def forward(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
         top = self.used[-1]

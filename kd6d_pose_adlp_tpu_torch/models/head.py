@@ -4,6 +4,8 @@ Two towers of n_conv x (3x3 conv, GroupNorm(32, eps 1e-5), ReLU), shared
 across pyramid levels; cls tower -> cls_logits (n_fg channels), pose tower ->
 pose_pred (n_fg*16 channels) times a learnable per-level scalar. Names
 mirror the reference Sequential (`cls_tower.{3k}` conv, `{3k+1}` GN).
+Convolutions and GroupNorm results are in `dtype` (`models/blocks`); the
+scaled regression is float32, as JAX's bf16 map times its float32 scale.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+
+from .blocks import Conv2d, GroupNorm
 
 
 class Scale(nn.Module):
@@ -22,22 +26,22 @@ class Scale(nn.Module):
         return x * self.scale
 
 
-def _tower(width: int, n_conv: int) -> nn.Sequential:
+def _tower(width: int, n_conv: int, dtype: torch.dtype) -> nn.Sequential:
     layers = []
     for _ in range(n_conv):
-        layers += [nn.Conv2d(width, width, 3, padding=1),
-                   nn.GroupNorm(32, width, eps=1e-5), nn.ReLU()]
+        layers += [Conv2d(width, width, 3, padding=1, dtype=dtype),
+                   GroupNorm(32, width, eps=1e-5, dtype=dtype), nn.ReLU()]
     return nn.Sequential(*layers)
 
 
 class PoseHead(nn.Module):
     def __init__(self, width: int, n_fg: int, n_conv: int = 4,
-                 n_levels: int = 5):
+                 n_levels: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cls_tower = _tower(width, n_conv)
-        self.pose_tower = _tower(width, n_conv)
-        self.cls_logits = nn.Conv2d(width, n_fg, 3, padding=1)
-        self.pose_pred = nn.Conv2d(width, n_fg * 16, 3, padding=1)
+        self.cls_tower = _tower(width, n_conv, dtype)
+        self.pose_tower = _tower(width, n_conv, dtype)
+        self.cls_logits = Conv2d(width, n_fg, 3, padding=1, dtype=dtype)
+        self.pose_pred = Conv2d(width, n_fg * 16, 3, padding=1, dtype=dtype)
         self.scales = nn.ModuleList([Scale() for _ in range(n_levels)])
 
     def forward(self, feats: List[torch.Tensor]

@@ -21,14 +21,39 @@ from .darknet53 import DarkNet53
 from .fpn import FPN
 from .head import PoseHead
 
-_BACKBONE_VERSIONS = {"darknet_tiny_h": "tiny-h", "darknet53": None}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def make_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                  stem_stacked: bool = False) -> nn.Module:
+    """The backbone `cfg.backbone` names (JAX `pose_net.py:23-41`), in
+    `dtype`, BN-folded when `cfg.bn_folded`."""
+    kw = dict(dtype=dtype, folded=cfg.bn_folded)
+    if cfg.backbone == "darknet53":
+        if stem_stacked:
+            raise ValueError("stem_stacked applies to the DarkNet backbones only")
+        return DarkNet53(**kw)
+    versions = {"darknet_tiny": ("tiny", False), "darknet_tiny_h": ("tiny-h", False),
+                "darknet_tiny_h_wide": ("tiny-h-wide", False),
+                "darknet_tiny_h_s2d": ("tiny-h", True)}
+    if cfg.backbone not in versions:
+        raise ValueError(f"Unsupported backbone {cfg.backbone}")
+    version, s2d = versions[cfg.backbone]
+    return DarkNet(version, s2d_stem=s2d, stem_stacked=stem_stacked, **kw)
 
 
 class PoseNet(nn.Module):
-    """Backbones: `darknet_tiny_h` (the student; its eval stem runs the K2
-    segment) and `darknet53` (the KD teacher; plain units). Train mode runs
-    every unit as a plain ConvBNAct, as the JAX package runs no conv kernel
-    in training (`kd6d_pose_adlp_tpu/ops/conv_pallas.py:37-41`).
+    """Backbones: every one `config._BACKBONE_SPECS` names — the students
+    `darknet_tiny_h`, `darknet_tiny`, `darknet_tiny_h_wide` and
+    `darknet_tiny_h_s2d` (their eval stem runs the K2 segment) and the
+    teacher `darknet53` (plain units) — in `cfg.compute_dtype` "float32"
+    or "bfloat16" (parameters and BN statistics float32, outputs float32),
+    BN-folded or not (`cfg.bn_folded`, weights from
+    `utils/fold_bn.fold_batchnorm`). Train mode runs every unit as a plain
+    ConvBNAct, as the JAX package runs no conv kernel in training
+    (`kd6d_pose_adlp_tpu/ops/conv_pallas.py:37-41`). `cfg.remat` belongs
+    to the train step (`engine/steps.py`). int8 PTQ (`quant_mode`, ROADMAP
+    Queue 1 item 4) and the binary-code head (`code_bits`, item 5) raise.
 
     `stem_stacked` is a measurement hook (see `models/darknet.py`): it
     routes the eval-mode stem segment through the slower stacked-tap kernel
@@ -38,26 +63,21 @@ class PoseNet(nn.Module):
     def __init__(self, cfg: ModelConfig, n_fg: int = 15,
                  stem_stacked: bool = False):
         super().__init__()
-        if cfg.backbone not in _BACKBONE_VERSIONS:
-            raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported")
-        if cfg.compute_dtype != "float32" or cfg.bn_folded or cfg.quant_mode \
-                or cfg.code_bits or cfg.remat:
-            raise NotImplementedError(
-                "only the float32, unfolded, unquantized, un-rematerialized "
-                "keypoint network is ported")
+        for asked, what, item in ((cfg.quant_mode, f"quant_mode {cfg.quant_mode!r}", 4),
+                                  (cfg.code_bits, f"code_bits {cfg.code_bits}", 5)):
+            if asked:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+        if cfg.compute_dtype not in DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(DTYPES)}")
         self.cfg = cfg
         self.n_fg = n_fg
-        if cfg.backbone == "darknet53":
-            if stem_stacked:
-                raise ValueError("stem_stacked applies to darknet_tiny_h only")
-            self.backbone = DarkNet53()
-        else:
-            self.backbone = DarkNet(_BACKBONE_VERSIONS[cfg.backbone],
-                                    stem_stacked=stem_stacked)
+        self.dtype = DTYPES[cfg.compute_dtype]
+        self.backbone = make_backbone(cfg, self.dtype, stem_stacked)
         self.fpn = FPN(cfg.feat_channels, cfg.out_channel,
-                       use_p6p7=cfg.use_higher_levels)
+                       use_p6p7=cfg.use_higher_levels, dtype=self.dtype)
         self.head = PoseHead(cfg.out_channel, n_fg, n_conv=cfg.n_conv,
-                             n_levels=max(5, cfg.num_levels))
+                             n_levels=max(5, cfg.num_levels), dtype=self.dtype)
         self.register_buffer("pixel_mean", torch.as_tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("pixel_std", torch.as_tensor(IMAGENET_STD),
@@ -67,11 +87,13 @@ class PoseNet(nn.Module):
         """images (B, H, W, 3) -> (cls (B, A, n_fg), reg (B, A, n_fg*16)) f32.
 
         uint8 input = raw BGR crops, flipped to RGB and ImageNet-normalized
-        here in fp32; float input is taken as already-normalized RGB."""
+        here in fp32; float input is taken as already-normalized RGB. The
+        normalized images are cast to the compute dtype before the
+        backbone, the outputs back to float32 (JAX `pose_net.py:60-61`)."""
         if images.dtype == torch.uint8:
             x = images.flip(-1).to(torch.float32)
             images = (x / 255.0 - self.pixel_mean) / self.pixel_std
-        feats = self.backbone(images.to(torch.float32))
+        feats = self.backbone(images.to(self.dtype))
         pyramid = self.fpn(feats)
         assert len(pyramid) == self.cfg.num_levels
         logits, pose_reg = self.head(pyramid)
@@ -82,15 +104,18 @@ class PoseNet(nn.Module):
                               for r in pose_reg], dim=1)
         assert flat_cls.shape[1] == self.cfg.num_cells, (
             flat_cls.shape, self.cfg.num_cells)
-        return flat_cls, flat_reg
+        return flat_cls.float(), flat_reg.float()
 
 
 def init_pose_net(net: PoseNet, generator: Optional[torch.Generator] = None,
                   prior: Optional[float] = None) -> PoseNet:
     """Draw every parameter from `generator` with the JAX package's
-    initializers: backbone convs kaiming-uniform (a=0), FPN convs
-    kaiming-uniform (a=1) with zero bias, head convs N(0, 0.01) with zero
-    bias and the focal prior on cls_logits; norms at weight 1, bias 0."""
+    initializers: backbone convs kaiming-uniform (a=0) with zero bias when
+    folded, FPN convs kaiming-uniform (a=1) with zero bias, head convs
+    N(0, 0.01) with zero bias and the focal prior on cls_logits; norms at
+    weight 1, bias 0; the classifier heads of `include_head`, DarkNet's
+    `final_conv` N(0, 0.01) and DarkNet53's `output` flax's Dense default
+    (LeCun truncated normal), both with zero bias."""
     prior = net.cfg.prior if prior is None else prior
 
     def uniform_(t, bound):
@@ -104,9 +129,24 @@ def init_pose_net(net: PoseNet, generator: Optional[torch.Generator] = None,
 
     for m in net.backbone.modules():
         if isinstance(m, ConvBNAct):
-            fan_in = m.conv.weight[0].numel()
-            uniform_(m.conv.weight, math.sqrt(6.0 / fan_in))
-            m.bn.reset_parameters()
+            uniform_(m.conv.weight, math.sqrt(6.0 / m.conv.weight[0].numel()))
+            if m.folded:
+                nn.init.zeros_(m.conv.bias)
+            else:
+                m.bn.reset_parameters()
+    head = getattr(net.backbone, "final_conv", None)
+    if head is not None:
+        normal_(head.weight, 0.01)
+        nn.init.zeros_(head.bias)
+    head = getattr(net.backbone, "output", None)
+    if head is not None:
+        # variance_scaling(1, fan_in, truncated_normal): the normal cut at two
+        # standard deviations, rescaled to keep the variance 1 / fan_in
+        std = math.sqrt(1.0 / head.weight.shape[1]) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(head.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+        nn.init.zeros_(head.bias)
     for m in net.fpn.modules():
         if isinstance(m, nn.Conv2d):
             uniform_(m.weight, math.sqrt(3.0 / m.weight[0].numel()))

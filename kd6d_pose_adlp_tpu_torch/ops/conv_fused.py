@@ -13,11 +13,18 @@ two entry points:
 - `conv3x3_bn_act_flat`    (K2, `conv_pallas.py:105`)
 - `conv3x3_bn_act_stacked` (K3, `conv_pallas.py:178`)
 
+Types (JAX's contract, `conv_pallas.py:142,296-303`): x and wmat are both
+float32 or both bfloat16, scale and bias float32; the sum is accumulated in
+float32 and the output has x's dtype, rounded once. Each source has a
+float32 and a bfloat16 entry point for each form.
+
 Each wrapper checks its inputs, allocates its output with `torch.empty`,
 launches the kernel on PyTorch's current stream and counts the launch in
-`launches` under (kernel name, C, O). For CPU tensors (and only for them) it
-runs the plain PyTorch version beside it, which computes the same flat
-formula, garbage columns included. fp32 only.
+`launches` under (kernel name, C, O, dtype name). For CPU tensors (and only
+for them) it runs the plain PyTorch version beside it, which computes the
+same flat formula, garbage columns included, in float32 from the inputs'
+values and rounds its result to x's dtype once. A CUDA tensor of any other
+type raises.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ import torch.nn.functional as F
 
 from ..utils import cuda_build
 
-# kernel launches since the last reset, keyed (kernel name, C, O)
+# kernel launches since the last reset, keyed (kernel name, C, O, dtype
+# name: "float32" or "bfloat16")
 launches: collections.Counter = collections.Counter()
 
 
@@ -100,6 +108,14 @@ def pool2x2_slab_to_nhwc(y: torch.Tensor, H: int, W: int) -> torch.Tensor:
     return _pool_valid(y, H, W).permute(0, 2, 3, 1)
 
 
+def repad_flat(y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """An output slab as the next conv's zero-padded input slab at the same
+    size: (B, O, H*(W+2)) -> (B, O, (H+2)*(W+2)+2), garbage columns dropped."""
+    B, O, _ = y.shape
+    v = F.pad(y.reshape(B, O, H, W + 2)[:, :, :, :W], (1, 1, 1, 1))
+    return F.pad(v.reshape(B, O, (H + 2) * (W + 2)), (0, 2))
+
+
 def flat_slab_to_nhwc(x_flat: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """Logical (B, H, W, C) view of a zero-padded INPUT slab (the inverse of
     nhwc_to_flat; no copy)."""
@@ -112,39 +128,44 @@ def flat_slab_to_nhwc(x_flat: torch.Tensor, H: int, W: int) -> torch.Tensor:
 # plain versions (CPU path of the wrappers; the card's oracle)
 # ---------------------------------------------------------------------------
 
-def _affine_act(acc, scale, bias, alpha):
-    acc = acc * scale + bias
-    return torch.where(acc >= 0, acc, alpha * acc)
+def _affine_act(acc, scale, bias, alpha, dtype):
+    acc = acc * scale.float() + bias.float()
+    return torch.where(acc >= 0, acc, alpha * acc).to(dtype)
 
 
 def conv3x3_bn_act_flat_plain(x_flat, wmat, scale, bias, *, H: int, W: int,
                               alpha: float = 0.1) -> torch.Tensor:
-    """Nine accumulated (O, C) @ (C, M) tap products, then affine + act."""
+    """Nine accumulated (O, C) @ (C, M) tap products in float32, then
+    affine + act, rounded to x_flat's dtype."""
     Wp = W + 2
     M = H * Wp
+    x32, w32 = x_flat.float(), wmat.float()
     acc = None
     for tap in range(9):
         dy, dx = divmod(tap, 3)
         off = dy * Wp + dx
-        prod = torch.matmul(wmat[tap], x_flat[:, :, off:off + M])
+        prod = torch.matmul(w32[tap], x32[:, :, off:off + M])
         acc = prod if acc is None else acc + prod
-    return _affine_act(acc, scale, bias, alpha)
+    return _affine_act(acc, scale, bias, alpha, x_flat.dtype)
 
 
 def conv3x3_bn_act_stacked_plain(xs, wmat, scale, bias, *,
                                  alpha: float = 0.1) -> torch.Tensor:
+    x32, w32 = xs.float(), wmat.float()
     acc = None
     for tap in range(9):
-        prod = torch.matmul(wmat[tap], xs[:, tap])
+        prod = torch.matmul(w32[tap], x32[:, tap])
         acc = prod if acc is None else acc + prod
-    return _affine_act(acc, scale, bias, alpha)
+    return _affine_act(acc, scale, bias, alpha, xs.dtype)
 
 
 def conv3x3_bn_act_ref(x, k, scale, bias, alpha: float = 0.1) -> torch.Tensor:
-    """Library-conv oracle with identical semantics, NHWC in/out; k HWIO."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=1)
+    """Library-conv oracle with the same semantics, NHWC in/out; k HWIO,
+    cast to x's dtype. In bfloat16 the conv's result is rounded to
+    bfloat16 before the float32 affine, then the output once more."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.to(x.dtype).permute(3, 2, 0, 1), padding=1)
     y = y * scale.reshape(1, -1, 1, 1) + bias.reshape(1, -1, 1, 1)
-    return F.leaky_relu(y, alpha).permute(0, 2, 3, 1)
+    return F.leaky_relu(y, alpha).permute(0, 2, 3, 1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -156,11 +177,17 @@ def _lib():
     """The built kernels with their C signatures declared."""
     lib = cuda_build.load("conv3x3_bn_act")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.conv3x3_bn_act_flat.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
-    lib.conv3x3_bn_act_stacked.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
-    lib.conv3x3_bn_act_flat.restype = i
-    lib.conv3x3_bn_act_stacked.restype = i
+    for suffix in ("", "_bf16"):
+        flat = getattr(lib, "conv3x3_bn_act_flat" + suffix)
+        stacked = getattr(lib, "conv3x3_bn_act_stacked" + suffix)
+        flat.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+        stacked.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+        flat.restype = stacked.restype = i
     return lib
+
+
+# the C entry point's suffix for each slab dtype
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def _check(x, wmat, scale, bias, C: int, O: int):
@@ -169,9 +196,13 @@ def _check(x, wmat, scale, bias, C: int, O: int):
     for name, t in (("scale", scale), ("bias", bias)):
         if t.shape not in ((O, 1), (O,)):
             raise ValueError(f"{name} {tuple(t.shape)} is not ({O}, 1)")
-    for name, t in (("x", x), ("wmat", wmat), ("scale", scale), ("bias", bias)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    for name, t, want in (("wmat", wmat, x.dtype), ("scale", scale, torch.float32),
+                          ("bias", bias, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} with a {x.dtype} x, got {t.dtype}")
+    for name, t in (("wmat", wmat), ("scale", scale), ("bias", bias)):
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
@@ -181,6 +212,10 @@ def _check(x, wmat, scale, bias, C: int, O: int):
                         ("bias", bias)):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def _raise_on(err: int, what: str):
@@ -193,8 +228,9 @@ def conv3x3_bn_act_flat(x_flat, wmat, scale, bias, *, H: int, W: int,
     """Fused 3x3 conv (stride 1, SAME) + affine + LeakyReLU, flat layout (K2).
 
     x_flat (B, C, (H+2)*(W+2)+2) from nhwc_to_flat; wmat (9, O, C) from
-    pack_weights; scale, bias (O, 1) folded BN affine
-    -> (B, O, H*(W+2)); the 2 pad columns per row hold wrap-around values.
+    pack_weights, x_flat's dtype; scale, bias (O, 1) float32 folded BN
+    affine -> (B, O, H*(W+2)) in x_flat's dtype; the 2 pad columns per row
+    hold wrap-around values.
     """
     B, C, L = x_flat.shape
     Wp = W + 2
@@ -206,14 +242,15 @@ def conv3x3_bn_act_flat(x_flat, wmat, scale, bias, *, H: int, W: int,
         return conv3x3_bn_act_flat_plain(x_flat, wmat, scale.reshape(O, 1),
                                          bias.reshape(O, 1), H=H, W=W,
                                          alpha=alpha)
-    out = torch.empty((B, O, H * Wp), device=x_flat.device, dtype=torch.float32)
+    out = torch.empty((B, O, H * Wp), device=x_flat.device, dtype=x_flat.dtype)
+    name = "conv3x3_bn_act_flat"
     with torch.cuda.device(x_flat.device):
-        err = _lib().conv3x3_bn_act_flat(
+        err = getattr(_lib(), name + _SUFFIX[x_flat.dtype])(
             x_flat.data_ptr(), wmat.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, C, O, H, W, alpha,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "conv3x3_bn_act_flat")
-    launches[("conv3x3_bn_act_flat", C, O)] += 1
+    _raise_on(err, name + _SUFFIX[x_flat.dtype])
+    launches[(name, C, O, _dtype_name(x_flat))] += 1
     return out
 
 
@@ -228,14 +265,15 @@ def conv3x3_bn_act_stacked(xs, wmat, scale, bias, *,
     if xs.device.type == "cpu":
         return conv3x3_bn_act_stacked_plain(xs, wmat, scale.reshape(O, 1),
                                             bias.reshape(O, 1), alpha=alpha)
-    out = torch.empty((B, O, M), device=xs.device, dtype=torch.float32)
+    out = torch.empty((B, O, M), device=xs.device, dtype=xs.dtype)
+    name = "conv3x3_bn_act_stacked"
     with torch.cuda.device(xs.device):
-        err = _lib().conv3x3_bn_act_stacked(
+        err = getattr(_lib(), name + _SUFFIX[xs.dtype])(
             xs.data_ptr(), wmat.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), B, C, O, M, alpha,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "conv3x3_bn_act_stacked")
-    launches[("conv3x3_bn_act_stacked", C, O)] += 1
+    _raise_on(err, name + _SUFFIX[xs.dtype])
+    launches[(name, C, O, _dtype_name(xs))] += 1
     return out
 
 
@@ -243,18 +281,22 @@ def conv3x3_bn_act_stacked(xs, wmat, scale, bias, *,
 # the serving-stem segment
 # ---------------------------------------------------------------------------
 
-def _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked, flat_fn,
-             stacked_fn):
+def _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked, pool_first,
+             flat_fn, stacked_fn):
     B, H, W, C = x.shape
-    if H < 4 or W < 4:
-        raise ValueError(f"stem segment needs H, W >= 4 (two 2x2 pools), got {H}x{W}")
+    n_pool = 2 if pool_first else 1
+    if H < 2 * n_pool or W < 2 * n_pool:
+        raise ValueError(f"stem segment needs H, W >= {2 * n_pool} ({n_pool} 2x2 "
+                         f"pools), got {H}x{W}")
     xf = nhwc_to_flat(x)
     if stacked:
         y1 = stacked_fn(stack_taps(xf, H, W), w1, sc1, bi1, alpha=alpha)
     else:
         y1 = flat_fn(xf, w1, sc1, bi1, H=H, W=W, alpha=alpha)
-    x2 = pool2x2_flat(y1, H, W)
-    H2, W2 = H // 2, W // 2
+    if pool_first:
+        x2, H2, W2 = pool2x2_flat(y1, H, W), H // 2, W // 2
+    else:
+        x2, H2, W2 = repad_flat(y1, H, W), H, W
     if stacked:
         y2 = stacked_fn(stack_taps(x2, H2, W2), w2, sc2, bi2, alpha=alpha)
     else:
@@ -263,22 +305,25 @@ def _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked, flat_fn,
 
 
 def stem_s2_segment_flat(x, w1, sc1, bi1, w2, sc2, bi2, *, alpha: float = 0.1,
-                         stacked: bool = False):
+                         stacked: bool = False, pool_first: bool = True):
     """The serving-stem segment — stem conv -> pool -> s2 conv -> pool — in
-    flat channel-major layout, through the kernels.
+    flat channel-major layout, through the kernels, in x's dtype.
 
     x (B, H, W, C) NHWC; w1 (9, O1, C), sc1/bi1 (O1, 1); w2 (9, O2, O1),
     sc2/bi2 (O2, 1) -> (pool1 (B, H//2, W//2, O1),
     pool2 (B, (H//2)//2, (W//2)//2, O2)), NHWC views; each pool floors odd
     maps as flax's VALID max pool does. pool2 is what the JAX
     `stem_s2_segment_flat` returns; pool1 is the darknet pyramid's first map.
+    pool_first=False is the space-to-depth stem's form, stem conv -> s2
+    conv -> pool: (stem conv's map (B, H, W, O1), pool2 (B, H//2, W//2, O2)).
     """
-    return _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked,
+    return _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked, pool_first,
                     conv3x3_bn_act_flat, conv3x3_bn_act_stacked)
 
 
 def stem_s2_segment_flat_plain(x, w1, sc1, bi1, w2, sc2, bi2, *,
-                               alpha: float = 0.1, stacked: bool = False):
+                               alpha: float = 0.1, stacked: bool = False,
+                               pool_first: bool = True):
     """stem_s2_segment_flat through the plain versions, on any device."""
-    return _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked,
+    return _segment(x, w1, sc1, bi1, w2, sc2, bi2, alpha, stacked, pool_first,
                     conv3x3_bn_act_flat_plain, conv3x3_bn_act_stacked_plain)

@@ -9,24 +9,22 @@ JAX package's `train_kd.py`:
 
 It takes `train_kd.py`'s flags with the same meaning: it builds the
 configs and the synthetic data, the teacher from `--weight_file_t` (a
-`torch.save`d state_dict or a JAX checkpoint, read loosely), prints the
-model sizes, evaluates the teacher once when a weight file is given
-(sanity gate), then trains through `engine/loop.train` with an evaluation
+`torch.save`d state_dict or a JAX checkpoint, read loosely) with its BN
+folded into its convolutions (`--fold_teacher_bn`, on by default, as in
+`train_kd.py:190-198`), prints the model sizes, evaluates the teacher once
+when a weight file is given (sanity gate), then trains through `engine/loop.train` with an evaluation
 every VAL_FREQ steps and at the end (scan or stream, `--eval_mode`; their
 scalars to eval_scalars.jsonl). `--device_pool N` stacks N batches onto the
 device and runs `--steps_per_dispatch` steps per call; `--cache_teacher`
-votes the teacher over that pool once. Runs on the card unless --cpu is
-given. `--config_file ''` takes the built-in defaults.
+votes the teacher over that pool once. Student and teacher compute in
+`--compute_dtype` (bfloat16 by default, as in `train_kd.py`; float32 is
+the other choice), and `--remat` rematerializes the student forward in
+the backward pass. Runs on the card unless --cpu is given.
+`--config_file ''` takes the built-in defaults.
 
 Defaults that differ from `train_kd.py`, because the JAX default asks for
-a module that is not ported: `--compute_dtype float32` (bfloat16),
-`--vis_every 0` (1000) and `--fold_teacher_bn False` (True); `--n_devices
-0` means one device, not all of them. Flags of modules not ported yet
-raise `NotImplementedError` naming their ROADMAP Queue 1 item: `--data
-bop`, `--fast_pipeline`, `--n_devices` > 1, `--distributed` and
-`--vis_every` > 0 (item 6); `--compute_dtype bfloat16` and `--remat` (item
-3); `--fold_teacher_bn` with `--weight_file_t`, and `--quant_teacher`
-(item 4).
+a module that is not ported: `--vis_every 0` (1000); `--n_devices 0` means
+one device, not all of them. See `check_ported` for the flags that raise.
 """
 from __future__ import annotations
 
@@ -72,10 +70,11 @@ def get_argparser() -> argparse.ArgumentParser:
                         "teacher's best-scoring candidate label")
     # the JAX package's extras
     p.add_argument("--data", type=str, default="bop", choices=["bop", "synthetic"])
-    p.add_argument("--compute_dtype", type=str, default="float32",
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--fast_pipeline", action="store_true")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize the student forward in the backward pass")
     p.add_argument("--n_devices", type=int, default=0, help="0 = one device")
     p.add_argument("--device_pool", type=int, default=0,
                    help="synthetic only: render N batches, keep them on the device "
@@ -90,7 +89,8 @@ def get_argparser() -> argparse.ArgumentParser:
                    help="weight file (torch or JAX) to initialize the student "
                         "backbone from")
     p.add_argument("--fold_teacher_bn", type=str2bool, nargs="?", const=True,
-                   default=False, help="fold the teacher's BN into its convs (not ported)")
+                   default=True, help="fold the frozen teacher's BN into its conv "
+                                      "weights (with --weight_file_t)")
     p.add_argument("--quant_teacher", type=str2bool, nargs="?", const=True, default=False)
     p.add_argument("--quant_calib_batches", type=int, default=4)
     p.add_argument("--eval_mode", type=str, default="scan", choices=["scan", "stream"],
@@ -102,18 +102,18 @@ def get_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raises NotImplementedError on a flag whose module is not ported."""
+    """Raises NotImplementedError on a flag whose module is not ported yet,
+    naming its ROADMAP Queue 1 item: `--quant_teacher`, the teacher's int8
+    PTQ (`utils/quant.py`, item 4); and the BOP host data and distribution
+    (item 6): `--data bop`, `--fast_pipeline`, `--n_devices` > 1,
+    `--distributed` and `--vis_every` > 0 (the KD cloud plots)."""
     unported = (
         (args.data == "bop", "--data bop (the BOP host pipeline)", 6),
         (args.fast_pipeline, "--fast_pipeline", 6),
         (args.n_devices > 1, f"--n_devices {args.n_devices} (the data mesh)", 6),
         (args.distributed, "--distributed", 6),
         (args.vis_every > 0, f"--vis_every {args.vis_every} (KD cloud plots)", 6),
-        (args.compute_dtype != "float32", f"--compute_dtype {args.compute_dtype}", 3),
-        (args.remat, "--remat", 3),
-        (args.fold_teacher_bn and bool(args.weight_file_t),
-         "--fold_teacher_bn with --weight_file_t", 4),
-        (args.quant_teacher, "--quant_teacher", 4),
+        (args.quant_teacher, "--quant_teacher (int8 PTQ)", 4),
     )
     for asked, what, item in unported:
         if asked:
@@ -165,6 +165,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from .engine.serving import network_fn
     from .models.pose_net import PoseNet, init_pose_net
     from .utils.checkpoint import load_params_loose
+    from .utils.fold_bn import fold_batchnorm
     from .utils.logging_utils import ScalarLogger
 
     device = torch.device("cpu" if args.cpu else "cuda")
@@ -189,6 +190,16 @@ def main(argv: Optional[Sequence[str]] = None):
         if args.weight_file_t:
             n = load_params_loose(args.weight_file_t, teacher_net)
             print(f"teacher: loaded {n} tensors from {args.weight_file_t}", flush=True)
+            if args.fold_teacher_bn:
+                # the frozen eval-mode teacher's BN is a constant affine:
+                # fold it into the conv weights once and rebuild the teacher
+                # as the folded model (JAX train_kd.py:190-198)
+                folded = fold_batchnorm(teacher_net)
+                cfg_t = cfg_t.replace(model=dataclasses.replace(cfg_t.model,
+                                                                bn_folded=True))
+                teacher_net = PoseNet(cfg_t.model, n_fg=cfg.data.n_fg).eval()
+                teacher_net.load_state_dict(folded, strict=True)
+                print("teacher: BN folded into conv weights", flush=True)
 
     # model-size comparison (reference train_kd.py:76-78)
     n_student = sum(p.numel() for p in PoseNet(cfg.model, n_fg=cfg.data.n_fg).parameters())

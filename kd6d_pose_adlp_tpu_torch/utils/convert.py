@@ -4,7 +4,12 @@ Takes the JAX package's `{"params", "batch_stats"}` tree (nested dicts of
 arrays) of a `PoseNet`, whole or in part (a backbone-only file), and returns
 the port's state_dict of the parts present:
 HWIO conv kernels -> OIHW weights, BN scale/bias/mean/var ->
-weight/bias/running_mean/running_var, GN scale -> weight. The port's names
+weight/bias/running_mean/running_var, GN scale -> weight, Dense kernels
+(in, out) -> Linear weights (out, in). Every backbone of the JAX package
+converts (the DarkNet plans with their `final_conv` head, darknet53 with
+its `output` head), and so does a BN-folded tree
+(`kd6d_pose_adlp_tpu/utils/fold_bn.fold_batchnorm`'s `{"params"}`: a conv
+with a bias and no BN, the port's `bn_folded` form). The port's names
 are the reference torch names that `kd6d_pose_adlp_tpu/utils/
 torch_convert.convert_pose_module` parses, so the reverse direction is that
 function.
@@ -30,8 +35,11 @@ def _conv(sd: Dict, prefix: str, node: Mapping):
 
 def _conv_bn(sd: Dict, pre: str, block: Mapping, stats: Mapping):
     """One ConvBNAct: flax {conv, bn} params + {bn} stats -> `pre.conv/bn.*`
-    (the running statistics only when `stats` holds them)."""
+    (the running statistics only when `stats` holds them); a folded unit,
+    {conv} with its bias, -> `pre.conv.*`."""
     _conv(sd, pre + ".conv", block["conv"])
+    if "bn" not in block:
+        return
     bn = block["bn"]
     sd[pre + ".bn.weight"] = _t(bn["scale"])
     sd[pre + ".bn.bias"] = _t(bn["bias"])
@@ -48,10 +56,18 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     stats = variables.get("batch_stats") or {}
     sd: Dict[str, torch.Tensor] = {}
 
-    # darknet (tiny-h): stage{i}_unit{j}; darknet53: init_block,
-    # stage{i}_unit1 and the residual stage{i}_unit{j}/conv{1,2}
+    # darknet: stage{i}_unit{j} and the classifier final_conv; darknet53:
+    # init_block, stage{i}_unit1, the residual stage{i}_unit{j}/conv{1,2}
+    # and the classifier output
     for name, block in params.get("backbone", {}).items():
         st = stats.get("backbone", {}).get(name, {})
+        if name == "final_conv":
+            _conv(sd, "backbone.final_conv", block)
+            continue
+        if name == "output":
+            sd["backbone.output.weight"] = _t(np.asarray(block["kernel"]).T)
+            sd["backbone.output.bias"] = _t(block["bias"])
+            continue
         m = re.fullmatch(r"init_block|stage(\d+)_unit(\d+)", name)
         if not m:
             raise KeyError(f"unexpected backbone module {name!r}")

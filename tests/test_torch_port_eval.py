@@ -641,8 +641,10 @@ def test_load_params_loose_and_the_cli(tmp_path, capsys, monkeypatch):
         assert len(json.load(f)) == 6
     r2 = evaluate.main(args + ["--eval_mode", "stream"])
     assert r2["table"] == r["table"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        evaluate.main(args + ["--compute_dtype", "bfloat16"])
+    # bfloat16 by default, as test.py; float32 the other choice
+    assert evaluate.parse_args(["--weight_file", "w"]).compute_dtype == "bfloat16"
+    with pytest.raises(SystemExit):
+        evaluate.parse_args(["--weight_file", "w", "--compute_dtype", "float16"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         evaluate.main(args[:4] + ["--data", "bop", "--cpu"])
     assert evaluate.parse_args(["--weight_file", "w"]).device == "cuda"
