@@ -6,6 +6,7 @@ card: the quickest proof that the port builds, starts and answers on the GPU.
     python3 chip_smoke.py --phases kernel  # kernel checks and timings only
     python3 chip_smoke.py --phases train   # the KD steps only
     python3 chip_smoke.py --phases cli     # the training entry point's path only
+    python3 chip_smoke.py --phases export  # frame endpoint, artifacts, int8 PTQ
 
 Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
@@ -103,6 +104,26 @@ Phases:
            scan equal to streaming; images/s (median of 3), a split of a
            scan run and one profiled chunk; then evaluate.main on 64 images
            from a state_dict file (table printed, preds.json written).
+  export   the rest of serving at full width (darknet_tiny_h, FPN 128, P6/P7,
+           15 classes, seeded random weights). (a) build_frame_infer_fn on 8
+           raw 480x640 frames -> 256² crops: the card's crops within 1 LSB of
+           the CPU's, bbox_trans within 1e-4, the poses equal (ints and masks;
+           floats within 1e-4) to build_infer_fn on its own crops with the
+           same seed, K2 once per request at each stem shape, the warp's and
+           the request's median ms. (b) export_inference + load_serving on
+           the card: single B=8, frame B=8 and a symbolic batch served at B=1
+           and B=8, each loaded program against the eager endpoint with the
+           same seed (ints and masks equal, floats rtol/atol 1e-5, JAX's
+           check) and K2 counted from inside each loaded program; exported vs
+           eager request ms (median of 5). (c) int8 PTQ of the darknet53
+           teacher (FPN 256, the config's head prior) at B=16, 256², BN
+           folded, calibrated on 4 synthetic batches: its logits within 0.05
+           of the folded fp32 teacher's largest |logit| (JAX's bound), the
+           int32 sums of one full-width QConv (cls_tower.0, 256 -> 256 at
+           P5) equal on card and CPU; the int8, fp32-folded and bf16-folded
+           teacher forwards timed (CUDA events) with their peak memory; an
+           int8 darknet_tiny_h artifact exported and reloaded (no K2: its
+           stem is int8).
   cli      the training entry point's path at full width: the same student
            and teacher, a device pool of 4 synthetic batches of 16 at 256²
            on the card. (a) precompute_pool_votes (under PyTorch's default
@@ -124,6 +145,11 @@ Phases:
            each shape; then again to 8: "resumed from ... @ step 6", K1
            twice. (e) evaluate.main at its default bf16 on the run's
            final.ckpt, every tensor loaded, the bf16 K2 once per chunk.
+           (f) train_kd.main --quant_teacher with the cached votes, 4 steps:
+           the teacher folded, calibrated on 4 eval batches and int8, K1
+           once per step, finite losses; then export_model --check (bf16,
+           B=8) on that run's final.ckpt: the round trip passes, bf16 K2
+           once per shape in each of the eager and the loaded request.
 
 TF32 is off for matmuls and convolutions throughout, so the fp32
 comparisons are fp32 against fp32 (the serving network, one KD step and
@@ -190,6 +216,16 @@ CLI_POOL = 4
 CLI_TIMED_CALLS = 4
 CLI_CONFIG_FILE = ""
 CLI_EVAL_IMAGES = 64        # the synthetic eval split
+CLI_QUANT_STEPS = 4         # train_kd.main --quant_teacher
+# the export phase: raw frame size, requests per timed run, calibration
+# batches and timed forwards of the int8 teacher; the int8 teacher's logits
+# against the folded fp32 teacher's, over its largest |logit| (JAX's bound,
+# tests/test_quant.py:122-124)
+EXPORT_FRAME_HW = (480, 640)
+EXPORT_REQUESTS = 5
+EXPORT_CALIB = 4
+EXPORT_FWD_ITERS = 10
+INT8_LOGITS_RTOL = 0.05
 # K2's edge shapes (B, C, O, H, W): the stem kernel at each row-shift
 # remainder (W + 2) % 4 = 1, 3, 0 (M odd in the first two), the s2 kernel
 # with M odd and with a ragged last tile, then two shapes of the general
@@ -1318,8 +1354,9 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
     cached votes against live votes; (b) engine/loop.train with the pool
     and the cache, 10 steps in 2 calls, then timed and profiled cached
     steps; (c) live against cached multi-steps from the same weights and
-    draws; (d) train_kd.main to 6 steps, then resumed to 8; (e)
-    evaluate.main on the run's final.ckpt."""
+    draws; (d) train_kd.main to 6 steps, then resumed to 8; (f)
+    train_kd.main --quant_teacher, then export_model --check on its
+    final.ckpt; (e) evaluate.main on the (d) run's final.ckpt."""
     import contextlib
     import dataclasses
     import io
@@ -1516,6 +1553,60 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
             raise AssertionError(f"train_kd.main did not write {missing}")
         runs[max_iters] = dict(seconds=secs, k1=k1, k2=k2, history=h)
 
+    # (f) the int8 teacher: train_kd.main --quant_teacher with the cached
+    # votes, then export_model --check on that run's final.ckpt
+    from kd6d_pose_adlp_tpu_torch import export_model
+    qwd = os.path.join(wd, "quant")
+    sf.reset_launch_counts()
+    cf.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        st_q, h_q = train_kd.main(args[:-2] + ["--working_dir", qwd, "--quant_teacher",
+                                               "--max_iters", str(CLI_QUANT_STEPS)])
+    torch.cuda.synchronize()
+    q_secs = time.perf_counter() - t0
+    printed = buf.getvalue()
+    k1_q = sf.launches.get(k1_key, 0)
+    k2_q = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o, "bfloat16"), 0)
+            for c, o in shapes}
+    for key, v in cf.launches.items():
+        k2_launches[cfg.test.ims_per_batch][key] = (
+            k2_launches[cfg.test.ims_per_batch].get(key, 0) + v)
+    log(f"[cli] (f) train_kd.main --quant_teacher --max_iters {CLI_QUANT_STEPS} "
+        f"({q_secs:.1f} s): step {st_q.step}, K1 {k1_q} launches, K2 {k2_q}; "
+        + "; ".join(f"step {x['step']}: loss_total {x['loss_total']:.4f} (kd "
+                    f"{x['loss_kd']:.5f})" for x in h_q) + "; printed: "
+        + " | ".join(line for line in printed.splitlines() if line.startswith("teacher")))
+    if not (st_q.step == CLI_QUANT_STEPS and k1_q == CLI_QUANT_STEPS
+            and sum(sf.launches.values()) == CLI_QUANT_STEPS
+            and set(k2_q.values()) == {n_chunks} and sum(cf.launches.values()) == 2 * n_chunks
+            and all(math.isfinite(v) for x in h_q for v in x.values())
+            and "teacher: int8-quantized (4 calib batches)" in printed
+            and "teacher knowledge cached for" in printed):
+        raise AssertionError("train_kd.main --quant_teacher: steps, launches, losses or "
+                             "the int8 teacher not as expected")
+    cf.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        meta = export_model.main(["--weight_file", os.path.join(qwd, "final.ckpt"),
+                                  "--batch_size", str(BATCH), "--check",
+                                  "--out", os.path.join(wd, "student.pt2")])
+    printed = buf.getvalue()
+    k2_launches.setdefault(BATCH, {})
+    for key, v in cf.launches.items():
+        k2_launches[BATCH][key] = k2_launches[BATCH].get(key, 0) + v
+    log(f"[cli] (f) export_model --check on its final.ckpt ({time.perf_counter() - t0:.1f} "
+        f"s): {meta['bytes']} bytes, K2 {dict(cf.launches)}; "
+        + " | ".join(line for line in printed.splitlines()
+                     if line.startswith(("loaded", "round-trip"))))
+    if not ("round-trip check OK" in printed and printed.startswith("loaded ")
+            and set(cf.launches.values()) == {2}):
+        raise AssertionError("export_model --check on the run's final.ckpt failed")
+    runs["quant_teacher"] = dict(seconds=q_secs, k1=k1_q, k2=k2_q, history=h_q,
+                                 export_bytes=meta["bytes"])
+
     buf = io.StringIO()
     cf.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
@@ -1546,7 +1637,279 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
                             param_max_abs=p_err, bn_stats_ok=st_ok),
         train_kd=runs, k2_launches={str(b): {":".join(map(str, k)): v for k, v in by.items()}
                                     for b, by in k2_launches.items()}), \
-        k1_b + runs[6]["k1"] + runs[8]["k1"], k2_launches
+        k1_b + runs[6]["k1"] + runs[8]["k1"] + k1_q, k2_launches
+
+
+# ---------------------------------------------------------------------------
+# export phase
+# ---------------------------------------------------------------------------
+
+def outputs_equal(torch, got: dict, want: dict, rtol: float = 1e-5, atol: float = 1e-5):
+    """(max |diff| over the float outputs, passed): the same keys in the same
+    order, ints and bools equal, floats within rtol / atol (JAX's
+    scripts/export_model.py --check)."""
+    if list(got) != list(want):
+        return float("inf"), False
+    worst, ok = 0.0, True
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), False
+        if w.is_floating_point():
+            worst = max(worst, (g - w).abs().max().item() if w.numel() else 0.0)
+            ok = ok and bool(torch.allclose(g, w, rtol=rtol, atol=atol))
+        else:
+            ok = ok and bool(torch.equal(g, w))
+    return worst, ok
+
+
+def export_phase(torch, cf, dev):
+    """(a) the raw-frame endpoint, (b) the exported artifact's round trips,
+    (c) int8 PTQ of the darknet53 teacher and an int8 student artifact, all
+    on the card at full width. Returns (summary, K2 launches by batch)."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch.config import Config
+    from kd6d_pose_adlp_tpu_torch.data import loaders
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from kd6d_pose_adlp_tpu_torch.data.transforms import internal_frame_matrix
+    from kd6d_pose_adlp_tpu_torch.engine.serving import (build_frame_infer_fn, build_infer_fn,
+                                                         export_inference, load_serving)
+    from kd6d_pose_adlp_tpu_torch.models.blocks import conv2d_int8
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.ops import warp
+    from kd6d_pose_adlp_tpu_torch.utils.fold_bn import fold_batchnorm
+    from kd6d_pose_adlp_tpu_torch.utils.quant import quantize_posenet
+
+    cfg = Config()
+    assert (cfg.model.backbone, cfg.model.input_res, cfg.model.out_channel,
+            cfg.model.use_higher_levels, cfg.data.n_fg) == ("darknet_tiny_h", RES, 128, True, 15)
+    ds = SyntheticPoseDataset(n_fg=cfg.data.n_fg, input_res=RES, seed=0)
+    consts = ds.consts(device=dev)
+    net = init_pose_net(PoseNet(cfg.model, n_fg=cfg.data.n_fg),
+                        torch.Generator().manual_seed(0)).to(dev).eval()
+    seg = {("conv3x3_bn_act_flat", 3, 8, "float32"), ("conv3x3_bn_act_flat", 8, 16, "float32")}
+    launches = {BATCH: {}, 1: {}}
+
+    def k2_per_request(n, what, batch=BATCH):
+        by = dict(cf.launches)
+        if set(by) != seg or set(by.values()) != {n}:
+            raise AssertionError(f"{what}: K2 launches {by}, not once per request at each "
+                                 f"of the stem's two shapes over {n} requests")
+        for key, v in by.items():
+            launches[batch][key] = launches[batch].get(key, 0) + v
+        return {f"{c}->{o}": v for (_, c, o, _), v in by.items()}
+
+    def timed(fn, n):
+        """(outputs of the last call, host ms of each call, synchronized)."""
+        ms, out = [], None
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return out, ms
+
+    # (a) the raw-frame endpoint: B=8 raw 480x640 frames -> 256² crops
+    fh, fw = EXPORT_FRAME_HW
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (BATCH, fh, fw, 3), dtype=np.uint8)
+    centers = np.stack([rng.uniform(40, 600, BATCH), rng.uniform(40, 440, BATCH)],
+                       axis=1).astype(np.float32)
+    scales = rng.uniform(120, 400, BATCH).astype(np.float32)
+    ids = rng.integers(0, cfg.data.n_fg, BATCH).astype(np.int32)
+    frame_fn = build_frame_infer_fn(cfg, consts, net, (fh, fw), device=dev)
+    crop_fn = build_infer_fn(cfg, consts, net, device=dev)
+    frame_fn(frames, centers, scales, ids, seed=0)                 # warm-up, not counted
+    crops, bt = frame_fn.crops(frames, centers, scales)
+    M_int = torch.from_numpy(internal_frame_matrix(fw, fh, cfg.data.internal_width,
+                                                   cfg.data.internal_height)[:2].copy())
+    crops_cpu, bt_cpu = warp.frame_to_crop(torch.from_numpy(frames), M_int,
+                                           torch.from_numpy(centers), torch.from_numpy(scales),
+                                           RES)
+    crop_diff = (crops.cpu().int() - crops_cpu.int()).abs()
+    crop_lsb, crop_off = int(crop_diff.max()), float((crop_diff > 0).float().mean())
+    bt_err = (bt.cpu() - bt_cpu).abs().max().item()
+    cf.reset_launch_counts()
+    warp_ms, frame_ms = [], []
+    for r in range(EXPORT_REQUESTS):
+        tm = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_f = frame_fn(frames, centers, scales, ids, seed=r, timings=tm)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        warp_ms.append(1e3 * tm["warp_s"])
+    k2_frame = k2_per_request(EXPORT_REQUESTS, "the frame endpoint")
+    out_c = crop_fn(crops, bt, ids, seed=EXPORT_REQUESTS - 1)
+    pose_err, pose_ok = outputs_equal(torch, out_f, out_c, rtol=0.0, atol=1e-4)
+    log(f"[export] (a) frame endpoint, B={BATCH} raw {fh}x{fw} frames -> {RES}² crops: crops "
+        f"card vs CPU max {crop_lsb} LSB ({crop_off:.2e} of values off), bbox_trans max |diff| "
+        f"{bt_err:.2e}; poses vs build_infer_fn on its own crops, same draws: max |diff| "
+        f"{pose_err:.2e} (gate 1e-4, ints and masks equal); K2 {k2_frame} in "
+        f"{EXPORT_REQUESTS} requests; warp median {statistics.median(warp_ms):.3f} ms, "
+        f"request median {statistics.median(frame_ms):.2f} ms")
+    if not (crop_lsb <= 1 and bt_err <= 1e-4 and pose_ok):
+        raise AssertionError("the frame endpoint's crops or poses miss their references")
+
+    # (b) export round trips: single B=8, frame, a symbolic batch at B=1 and 8
+    reqs = [ds.requests(range(BATCH * r, BATCH * (r + 1))) for r in range(2)]
+    req = reqs[1]
+    tmp = tempfile.TemporaryDirectory()
+    rows = {}
+
+    def export_row(tag, mode, batch_size, frame_hw=None):
+        path = os.path.join(tmp.name, f"{tag}.pt2")
+        t0 = time.perf_counter()
+        meta = export_inference(cfg, consts, net, path, batch_size=batch_size, mode=mode,
+                                frame_hw=frame_hw, device=dev)
+        t1 = time.perf_counter()
+        serve, _ = load_serving(path, device=dev)
+        rows[tag] = dict(export_s=t1 - t0, load_s=time.perf_counter() - t1,
+                         bytes=meta["bytes"])
+        return serve
+
+    serve = export_row("single_b8", "single", BATCH)
+    call_e = lambda: crop_fn(req["images"], req["bbox_trans"], req["class_ids"], seed=3)  # noqa: E731
+    call_x = lambda: serve(req["images"], req["bbox_trans"], req["class_ids"], seed=3)  # noqa: E731
+    call_x()                                                       # warm-up
+    cf.reset_launch_counts()
+    got, ms_x = timed(call_x, EXPORT_REQUESTS)
+    k2_loaded = k2_per_request(EXPORT_REQUESTS, "the loaded program")
+    want, ms_e = timed(call_e, EXPORT_REQUESTS)
+    err, ok = outputs_equal(torch, got, want)
+    rows["single_b8"].update(max_abs_diff=err, k2=k2_loaded, exported_ms=ms_x, eager_ms=ms_e)
+    log(f"[export] (b) single B={BATCH}: exported in {rows['single_b8']['export_s']:.1f} s, "
+        f"loaded in {rows['single_b8']['load_s']:.1f} s, {rows['single_b8']['bytes']} bytes; "
+        f"loaded vs eager, seed 3: max |diff| {err:.2e} (gate rtol/atol 1e-5); K2 from inside "
+        f"the loaded program {k2_loaded} in {EXPORT_REQUESTS} requests; request median "
+        f"exported {statistics.median(ms_x):.2f} ms vs eager {statistics.median(ms_e):.2f} ms "
+        f"on {gpu_name_and_power()}")
+    if not ok:
+        raise AssertionError("the loaded single-mode program misses the eager endpoint")
+
+    serve_f = export_row("frame_b8", "frame", BATCH, (fh, fw))
+    cf.reset_launch_counts()
+    got = serve_f(frames, centers, scales, ids, seed=5)
+    k2_per_request(1, "the loaded frame program")
+    err, ok = outputs_equal(torch, got, frame_fn(frames, centers, scales, ids, seed=5))
+    rows["frame_b8"]["max_abs_diff"] = err
+    log(f"[export] (b) frame B={BATCH}: exported in {rows['frame_b8']['export_s']:.1f} s; "
+        f"loaded vs eager frame endpoint: max |diff| {err:.2e}")
+    if not ok:
+        raise AssertionError("the loaded frame program misses the eager frame endpoint")
+
+    serve_s = export_row("symbolic", "single", 0)
+    for n in (1, BATCH):
+        r = ds.requests(range(n))
+        cf.reset_launch_counts()
+        got = serve_s(r["images"], r["bbox_trans"], r["class_ids"], seed=n)
+        k2_per_request(1, f"the symbolic program at B={n}", batch=1 if n == 1 else BATCH)
+        err, ok = outputs_equal(torch, got, crop_fn(r["images"], r["bbox_trans"],
+                                                    r["class_ids"], seed=n))
+        rows["symbolic"][f"max_abs_diff_b{n}"] = err
+        log(f"[export] (b) symbolic batch served at B={n}: R {tuple(got['R'].shape)}, vs eager "
+            f"max |diff| {err:.2e}")
+        if not (ok and got["R"].shape[0] == n):
+            raise AssertionError(f"the symbolic program at B={n} misses the eager endpoint")
+
+    # (c) int8 PTQ of the darknet53 teacher (FPN 256), B=16, folded,
+    # calibrated on 4 synthetic batches. The head's prior is the config's
+    # (0.01), the condition of JAX's 0.05 bound (tests/test_quant.py:96-124)
+    cfg_t = cfg.replace(model=dataclasses.replace(cfg.model, backbone="darknet53",
+                                                  bn_folded=True))
+    assert cfg_t.model.out_channel == 256 and cfg.solver.ims_per_batch == 16
+    data = loaders.build(cfg, kind="synthetic", device=dev)
+    it = data.train_iter()
+    batches = [next(it).images.to(dev) for _ in range(EXPORT_CALIB + 1)]
+    raw = init_pose_net(PoseNet(dataclasses.replace(cfg_t.model, bn_folded=False),
+                                n_fg=cfg.data.n_fg), torch.Generator().manual_seed(1))
+    folded = fold_batchnorm(raw)
+    t0 = time.perf_counter()
+    t_int8, q_state = quantize_posenet(cfg_t.model, cfg.data.n_fg, folded,
+                                       batches[:EXPORT_CALIB], device=dev)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    x = batches[-1]
+    forwards = {}
+    for tag, dtype in (("fp32_folded", "float32"), ("bf16_folded", "bfloat16")):
+        m = PoseNet(dataclasses.replace(cfg_t.model, compute_dtype=dtype), n_fg=cfg.data.n_fg)
+        m.load_state_dict(folded, strict=True)
+        forwards[tag] = m.to(dev).eval()
+    forwards["int8"] = t_int8
+    fwd = {}
+    for tag, m in forwards.items():
+        with torch.no_grad():
+            m(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = time_cuda(torch, m, [(x,)], iters=EXPORT_FWD_ITERS, warmup=2, graph=False)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            fwd[tag] = dict(ms=ms, peak_gib=peak, out=m(x))
+    c32, r32 = fwd["fp32_folded"]["out"]
+    c8, r8 = fwd["int8"]["out"]
+    rel = ((c8 - c32).abs().max() / c32.abs().max()).item()
+    rel_reg = ((r8 - r32).abs().max() / r32.abs().max()).item()
+    # one full-width QConv's int32 sums, card and CPU: the first cls-tower
+    # conv (256 -> 256) on its P5 input (8x8), captured on the card
+    conv = t_int8.head.cls_tower[0]
+    seen = []
+    hook = conv.register_forward_hook(lambda m_, i_, o_: seen.append(i_[0].detach()))
+    with torch.no_grad():
+        t_int8(x)
+    hook.remove()
+    xin = seen[2]
+    xq = torch.clamp(torch.round(xin.float() / conv.in_scale), -127, 127).to(torch.int8)
+    acc_card = conv2d_int8(xq, conv.kernel_q, conv.stride, conv.padding)
+    acc_cpu = conv2d_int8(xq.cpu(), conv.kernel_q.cpu(), conv.stride, conv.padding)
+    acc_equal = bool(torch.equal(acc_card.cpu(), acc_cpu))
+    log(f"[export] (c) int8 darknet53 teacher, B={x.shape[0]} at {RES}², calibrated on "
+        f"{EXPORT_CALIB} batches ({quant_s:.1f} s): logits vs the folded fp32 teacher max "
+        f"|diff| {(c8 - c32).abs().max().item():.3e} = {rel:.4f} of max |logit| (gate "
+        f"{INT8_LOGITS_RTOL}), regression {rel_reg:.4f}; cls_tower.0 int32 sums at "
+        f"{tuple(acc_card.shape)} (K = {xq.shape[1] * 9}) card == CPU: {acc_equal}")
+    for tag, f in fwd.items():
+        log(f"[export] (c) teacher forward {tag}: {f['ms']:.2f} ms, peak {f['peak_gib']:.2f} "
+            f"GiB above the weights, on {gpu_name_and_power()}")
+    if not (acc_equal and rel <= INT8_LOGITS_RTOL and bool(torch.isfinite(r8).all())):
+        raise AssertionError("the int8 teacher misses the folded one, or its int32 sums "
+                             "differ between card and CPU")
+
+    # an int8 student exported and reloaded: no K2 in it (its stem is int8)
+    cfg_s = cfg.replace(model=dataclasses.replace(cfg.model, bn_folded=True))
+    s_int8, _ = quantize_posenet(cfg_s.model, cfg.data.n_fg, fold_batchnorm(net),
+                                 [b[:BATCH] for b in batches[:EXPORT_CALIB]], device=dev)
+    cfg_q = cfg_s.replace(model=dataclasses.replace(cfg_s.model, quant_mode="quant"))
+    path = os.path.join(tmp.name, "int8.pt2")
+    meta = export_inference(cfg_q, consts, s_int8, path, batch_size=BATCH, device=dev)
+    serve_q, _ = load_serving(path, device=dev)
+    cf.reset_launch_counts()
+    got = serve_q(req["images"], req["bbox_trans"], req["class_ids"], seed=4)
+    no_k2 = not cf.launches
+    err, ok = outputs_equal(torch, got, build_infer_fn(cfg_q, consts, s_int8, device=dev)(
+        req["images"], req["bbox_trans"], req["class_ids"], seed=4))
+    rows["int8_student"] = dict(bytes=meta["bytes"], max_abs_diff=err)
+    log(f"[export] (c) int8 tiny_h artifact: {meta['bytes']} bytes (float "
+        f"{rows['single_b8']['bytes']}), loaded vs eager max |diff| {err:.2e}, no K2: {no_k2}")
+    if not (ok and no_k2):
+        raise AssertionError("the int8 student artifact misses its eager endpoint")
+    tmp.cleanup()
+
+    summary = dict(
+        frame=dict(batch=BATCH, frame_hw=[fh, fw], crop_max_lsb=crop_lsb,
+                   crop_off_share=crop_off, bbox_trans_err=bt_err, pose_max_abs_diff=pose_err,
+                   k2=k2_frame, warp_ms=warp_ms, request_ms=frame_ms),
+        artifacts=rows,
+        int8_teacher=dict(batch=int(x.shape[0]), calib_batches=EXPORT_CALIB, quant_s=quant_s,
+                          logits_rel=rel, reg_rel=rel_reg, acc_card_equals_cpu=acc_equal,
+                          forwards={k: dict(ms=v["ms"], peak_gib=v["peak_gib"])
+                                    for k, v in fwd.items()}))
+    return summary, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1829,7 +2192,7 @@ def eval_phase(torch, cf, dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,cli")
+    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,export,cli")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1878,6 +2241,11 @@ def main(argv=None) -> int:
         result["train"], k1_launches = train_phase(torch, sf, dev, tf32_defaults)
     if "eval" in phases:
         result["eval"], launches[EVAL_BATCH] = eval_phase(torch, cf, dev)
+    if "export" in phases:
+        result["export"], k2_export = export_phase(torch, cf, dev)
+        for b, by in k2_export.items():
+            for key, v in by.items():
+                launches.setdefault(b, {})[key] = launches.get(b, {}).get(key, 0) + v
     if "cli" in phases:
         result["cli"], k1_cli, k2_cli = cli_phase(torch, sf, cf, dev, tf32_defaults)
         k1_launches = (k1_launches or 0) + k1_cli

@@ -10,7 +10,7 @@ the host (`apply_symmetry_host`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -117,20 +117,12 @@ def _make_class_solver(cfg: Config, consts: TaskConsts):
             pts2d = kp_internal.reshape(B, V * 8, 2)
             valid = votes.valid[:, :, None].expand(B, V, 8).reshape(B, V * 8)
 
-            K = consts.K
-            R, T, n_in = ransac_epnp(pts3d, pts2d, valid, K,
-                                     iters=t.ransac_iters,
-                                     reproj_err=t.ransac_reproj_err,
-                                     gumbel=gumbel, generator=generator)
-            if t.lhm_iters > 0:
-                # object-space refinement on the RANSAC inliers
-                pix = torch.cat([pts2d, torch.ones_like(pts2d[..., :1])], dim=-1)
-                rays = torch.matmul(pix, inv3(K).T)
-                err = reprojection_errors(pts3d, pts2d, K, R, T)
-                w = ((err < t.ransac_reproj_err) & valid).to(torch.float32)
-                w = torch.where(w.sum(-1, keepdim=True) >= 6, w,
-                                valid.to(torch.float32))
-                R, T = lhm_refine(pts3d, rays, w, R, T, iters=t.lhm_iters)
+            if gumbel is None:
+                gumbel = sample_gumbel((B, t.ransac_iters, V * 8), generator,
+                                       pts3d.device)
+            R, T, n_in = torch.ops.kd6d.solve_pose(
+                pts3d, pts2d, valid, consts.K, gumbel, t.ransac_iters,
+                t.ransac_reproj_err, t.lhm_iters)
 
             # result confidence = sqrt of the max vote score (reference
             # postprocess/postprocess.py:57)
@@ -141,6 +133,42 @@ def _make_class_solver(cfg: Config, consts: TaskConsts):
                         kp2d=kp_internal, vote_valid=votes.valid)
 
     return solve
+
+
+@torch.library.custom_op("kd6d::solve_pose", mutates_args=())
+def solve_pose(pts3d: torch.Tensor, pts2d: torch.Tensor, valid: torch.Tensor,
+               K: torch.Tensor, gumbel: torch.Tensor, iters: int,
+               reproj_err: float, lhm_iters: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RANSAC-EPnP over the injected draws `gumbel` (B, iters, N), then
+    `lhm_iters` LHM steps on the inliers (on all valid points below 6) ->
+    (R (B, 3, 3), T (B, 3), n_inliers (B,) int32), in the caller's precision
+    context.
+
+    A custom op, so that `torch.export` records the pose solve as one node:
+    its fixed-count loops (Jacobi sweeps, subspace and power iterations,
+    Gauss-Newton and LHM steps) unroll to ~34k graph nodes per request,
+    which export traces in ~1 min, saves in ~40 s and loads in ~3 min on
+    one host core (64² tiny_h, 16 hypotheses). A loaded program runs this
+    function, as the kd6d conv ops, so it needs the port importable."""
+    R, T, n_in = ransac_epnp(pts3d, pts2d, valid, K, iters=iters,
+                             reproj_err=reproj_err, gumbel=gumbel)
+    if lhm_iters > 0:
+        # object-space refinement on the RANSAC inliers
+        pix = torch.cat([pts2d, torch.ones_like(pts2d[..., :1])], dim=-1)
+        rays = torch.matmul(pix, inv3(K).T)
+        err = reprojection_errors(pts3d, pts2d, K, R, T)
+        w = ((err < reproj_err) & valid).to(torch.float32)
+        w = torch.where(w.sum(-1, keepdim=True) >= 6, w, valid.to(torch.float32))
+        R, T = lhm_refine(pts3d, rays, w, R, T, iters=lhm_iters)
+    return R, T, n_in
+
+
+@solve_pose.register_fake
+def _(pts3d, pts2d, valid, K, gumbel, iters, reproj_err, lhm_iters):
+    B = pts3d.shape[0]
+    return (pts3d.new_empty((B, 3, 3)), pts3d.new_empty((B, 3)),
+            pts3d.new_empty((B,), dtype=torch.int32))
 
 
 def apply_symmetry_host(R, cls_id: int, symmetry: Dict[int, tuple]):

@@ -2,6 +2,9 @@
 Conv -> BatchNorm(eps 1e-5) -> LeakyReLU, the 2x2 max pool, and the
 compute-dtype convolution and GroupNorm the FPN and head use. NCHW.
 
+`QConv` and `conv2d_int8` are the int8 post-training-quantized conv
+(JAX `blocks.py:35-117`).
+
 Precision follows flax's `dtype=` (`kd6d_pose_adlp_tpu/models/blocks.py:
 120-189`): parameters stay float32; each convolution casts its input,
 weight and bias to the compute dtype (flax's `promote_dtype`) and returns
@@ -88,6 +91,95 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+def conv2d_int8(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1,
+                padding: int = 0) -> torch.Tensor:
+    """Exact int8 convolution: xq (B, C, H, W) int8, kq (O, C, k, k) int8,
+    symmetric zero padding -> (B, O, Ho, Wo) int32, the sum of products in
+    int32 (JAX's `conv_general_dilated(..., preferred_element_type=int32)`).
+
+    An int8 im2col, then `torch._int_mm` (int8 x int8 -> int32): cuDNN has
+    no int8 `F.conv2d`, and a float32 accumulation is not exact past 2^24
+    (127^2 * 9 * 1024 is more). The contraction (C, dy, dx) is zero-padded
+    to a multiple of 8, the output channels to a multiple of 8 and the rows
+    to more than 16, as cuBLASLt's int8 product asks on the card; the
+    padding is exact, zeros adding nothing."""
+    B, C, H, W = xq.shape
+    O, _, k, _ = kq.shape
+    Ho = (H + 2 * padding - k) // stride + 1
+    Wo = (W + 2 * padding - k) // stride + 1
+    xp = (F.pad(xq, (padding,) * 4) if padding else xq).contiguous()
+    Hp, Wp = H + 2 * padding, W + 2 * padding
+    # the (B, Ho, Wo, C, dy, dx) windows as one strided view, then one copy
+    cols = xp.as_strided((B, Ho, Wo, C, k, k),
+                         (C * Hp * Wp, stride * Wp, stride, Hp * Wp, Wp, 1))
+    Kc = C * k * k
+    a = cols.reshape(B * Ho * Wo, Kc)
+    b = kq.reshape(O, Kc).t()
+    pad_k, pad_o = -Kc % 8, -O % 8
+    # rows: the map's own size decides (the batch may be symbolic under export)
+    pad_m = 17 - Ho * Wo if Ho * Wo <= 16 else 0
+    if pad_k or pad_m:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_o:
+        b = F.pad(b, (0, pad_o, 0, pad_k))
+    acc = torch._int_mm(a.contiguous(), b.contiguous())
+    if pad_m:
+        acc = acc[:a.shape[0] - pad_m]
+    return acc[:, :O].reshape(B, Ho, Wo, O).permute(0, 3, 1, 2)
+
+
+QUANT_MODES = ("", "calibrate", "quant")
+
+
+class QConv(nn.Module):
+    """Post-training-quantized int8 convolution (JAX `blocks.py:35-117`),
+    bias on, symmetric padding at every stride (JAX resolves "SAME" to
+    symmetric pads too, `blocks.py:80-90`).
+
+    - "calibrate": the folded float conv (`weight`, `bias` parameters, the
+      names of the conv it replaces, computed as `Conv2d` in `dtype`) that
+      also keeps the running absmax of its input in the non-persistent
+      buffer `in_amax` (`utils/quant.calibrate_amax` zeroes and reads it).
+    - "quant": buffers `kernel_q` (O, C, k, k) int8, `w_scale` (O,),
+      `bias` (O,) and `in_scale` () float32 (`utils/quant.
+      build_quant_state`): xq = clip(round(x / in_scale), -127, 127) in
+      int8, the exact int32 conv (`conv2d_int8`), then
+      acc * (in_scale * w_scale) + bias in float32, cast to `dtype`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, mode: str = "calibrate",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if mode not in QUANT_MODES[1:]:
+            raise ValueError(f"QConv mode {mode!r}: one of {QUANT_MODES[1:]}")
+        self.mode, self.stride, self.compute_dtype = mode, stride, dtype
+        self.padding = kernel_size // 2
+        shape = (out_channels, in_channels, kernel_size, kernel_size)
+        if mode == "calibrate":
+            self.weight = nn.Parameter(torch.empty(shape))
+            self.bias = nn.Parameter(torch.zeros(out_channels))
+            self.register_buffer("in_amax", torch.zeros(()), persistent=False)
+        else:
+            self.register_buffer("kernel_q", torch.zeros(shape, dtype=torch.int8))
+            self.register_buffer("w_scale", torch.ones(out_channels))
+            self.register_buffer("bias", torch.zeros(out_channels))
+            self.register_buffer("in_scale", torch.ones(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.mode == "calibrate":
+            with torch.no_grad():
+                torch.maximum(self.in_amax, x.detach().abs().amax().float(),
+                              out=self.in_amax)
+            return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                            self.stride, self.padding)
+        xq = torch.clamp(torch.round(x.float() / self.in_scale), -127, 127).to(torch.int8)
+        acc = conv2d_int8(xq, self.kernel_q, self.stride, self.padding)
+        y = (acc.float() * (self.in_scale * self.w_scale).reshape(-1, 1, 1)
+             + self.bias.reshape(-1, 1, 1))
+        return y.to(dt)
+
+
 class GroupNorm(nn.GroupNorm):
     """`nn.GroupNorm` whose result is rounded to `dtype`: statistics and
     normalization in float32 from the input's values, as flax's
@@ -112,14 +204,23 @@ class ConvBNAct(nn.Module):
 
     `folded=True` is the inference form with BN folded into the conv
     (`utils/fold_bn.fold_batchnorm`): Conv2d(bias=True) -> LeakyReLU, no
-    BN (JAX `blocks.py:169-172`)."""
+    BN (JAX `blocks.py:169-172`). `quant_mode` "calibrate" or "quant"
+    makes the folded conv a `QConv` (int8 PTQ) and requires `folded`, as
+    JAX asserts (`blocks.py:150-157`)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, alpha: float = 0.1, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, folded: bool = False):
+                 dtype: torch.dtype = torch.float32, folded: bool = False,
+                 quant_mode: str = ""):
         super().__init__()
         self.alpha = alpha
         self.folded = folded
+        if quant_mode:
+            if not folded:
+                raise ValueError("int8 PTQ (quant_mode) runs on the BN-folded network")
+            self.conv = QConv(in_channels, out_channels, kernel_size, stride=stride,
+                              mode=quant_mode, dtype=dtype)
+            return
         self.conv = Conv2d(in_channels, out_channels, kernel_size,
                            stride=stride, padding=kernel_size // 2,
                            bias=folded, dtype=dtype)

@@ -13,7 +13,10 @@ pool, both single 3x3 ConvBNAct units in every plan — always run as ONE
 flat-layout segment through the fused CUDA kernels
 (`ops/conv_fused.stem_s2_segment_flat`), with BN folded from the running
 statistics (or the folded unit's bias), in the compute dtype; the segment
-takes any H, W >= 4 and raises below that. With `s2d_stem` the image is
+takes any H, W >= 4 and raises below that. Under `quant_mode` (int8 PTQ,
+"calibrate" or "quant") every unit is a `QConv` unit instead, in eval mode
+too: those two units then compute an int8 function, not the kernels' (JAX
+`darknet.py:68`). With `s2d_stem` the image is
 rearranged to half resolution and 4x the channels first, and stage 1 has
 no pool after it: the segment is stage1_unit1 -> stage2_unit1 -> pool. In
 train mode every unit is the plain ConvBNAct, as the JAX package runs no
@@ -61,7 +64,8 @@ class DarkNet(nn.Module):
     def __init__(self, version: str = "tiny-h", alpha: float = 0.1,
                  stem_stacked: bool = False, s2d_stem: bool = False,
                  include_head: bool = False, n_classes: int = 1000,
-                 dtype: torch.dtype = torch.float32, folded: bool = False):
+                 dtype: torch.dtype = torch.float32, folded: bool = False,
+                 quant_mode: str = ""):
         super().__init__()
         if version not in DARKNET_CHANNELS:
             raise ValueError(f"unknown darknet variant {version!r}")
@@ -70,6 +74,7 @@ class DarkNet(nn.Module):
         self.s2d_stem = s2d_stem
         self.include_head = include_head
         self.dtype = dtype
+        self.quant_mode = quant_mode
         stages, cin = OrderedDict(), 12 if s2d_stem else 3
         for si, stage in enumerate(channels):
             units = OrderedDict()
@@ -80,7 +85,7 @@ class DarkNet(nn.Module):
                     ((j + 1) % 2 == 1) ^ odd_pointwise)
                 units[f"unit{j + 1}"] = ConvBNAct(
                     cin, feats, kernel_size=1 if pointwise else 3, alpha=alpha,
-                    dtype=dtype, folded=folded)
+                    dtype=dtype, folded=folded, quant_mode=quant_mode)
                 cin = feats
             stages[f"stage{si + 1}"] = nn.Sequential(units)
         self.features = nn.Sequential(stages)
@@ -97,7 +102,7 @@ class DarkNet(nn.Module):
         if self.s2d_stem:
             x = space_to_depth(x)
         pyr = []   # stage outputs, pooled but the last (and s2d's first)
-        if not self.training:
+        if not self.training and not self.quant_mode:
             u1, u2 = stages[0][0], stages[1][0]
             sc1, bi1 = u1.folded_affine()
             sc2, bi2 = u2.folded_affine()

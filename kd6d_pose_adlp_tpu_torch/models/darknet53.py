@@ -6,7 +6,8 @@ padding 1, then residual DarkUnits (1x1 -> 3x3, skip)], layers
 the 5 stage outputs [/2, /4, /8, /16, /32], or with `include_head` the
 ImageNet classifier's logits (global average pool, then the Linear
 `output`; for the parameter count only). `dtype` is the compute dtype and
-`folded` the BN-folded inference form, as in `models/blocks.ConvBNAct`.
+`folded` the BN-folded inference form, as in `models/blocks.ConvBNAct`,
+and `quant_mode` its int8 PTQ form (every unit a `QConv`).
 
 Parameter names follow pytorchcv (`features.init_block.{conv,bn}`,
 `features.stage{i}.unit1.{conv,bn}`,
@@ -42,9 +43,9 @@ class DarkUnit(nn.Module):
 class DarkNet53(nn.Module):
     def __init__(self, alpha: float = 0.1, include_head: bool = False,
                  n_classes: int = 1000, dtype: torch.dtype = torch.float32,
-                 folded: bool = False):
+                 folded: bool = False, quant_mode: str = ""):
         super().__init__()
-        kw = dict(alpha=alpha, dtype=dtype, folded=folded)
+        kw = dict(alpha=alpha, dtype=dtype, folded=folded, quant_mode=quant_mode)
         feats = OrderedDict(init_block=ConvBNAct(3, 32, kernel_size=3, **kw))
         cin = 32
         for si, (n_units, ch) in enumerate(zip(LAYERS, CHANNELS)):

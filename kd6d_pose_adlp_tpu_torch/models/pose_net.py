@@ -15,7 +15,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
-from .blocks import ConvBNAct
+from .blocks import QUANT_MODES, ConvBNAct
 from .darknet import DarkNet
 from .darknet53 import DarkNet53
 from .fpn import FPN
@@ -27,8 +27,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def make_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                   stem_stacked: bool = False) -> nn.Module:
     """The backbone `cfg.backbone` names (JAX `pose_net.py:23-41`), in
-    `dtype`, BN-folded when `cfg.bn_folded`."""
-    kw = dict(dtype=dtype, folded=cfg.bn_folded)
+    `dtype`, BN-folded when `cfg.bn_folded`, int8 PTQ under
+    `cfg.quant_mode`."""
+    kw = dict(dtype=dtype, folded=cfg.bn_folded, quant_mode=cfg.quant_mode)
     if cfg.backbone == "darknet53":
         if stem_stacked:
             raise ValueError("stem_stacked applies to the DarkNet backbones only")
@@ -52,8 +53,12 @@ class PoseNet(nn.Module):
     `utils/fold_bn.fold_batchnorm`). Train mode runs every unit as a plain
     ConvBNAct, as the JAX package runs no conv kernel in training
     (`kd6d_pose_adlp_tpu/ops/conv_pallas.py:37-41`). `cfg.remat` belongs
-    to the train step (`engine/steps.py`). int8 PTQ (`quant_mode`, ROADMAP
-    Queue 1 item 4) and the binary-code head (`code_bits`, item 5) raise.
+    to the train step (`engine/steps.py`). `cfg.quant_mode` "calibrate" or
+    "quant" is the int8 PTQ network (requires `cfg.bn_folded`; its weights
+    come from `utils/quant.quantize_posenet`): every backbone unit, FPN
+    conv and tower conv a `QConv`, the eval stem included (no K2), the
+    head's output convs float. The binary-code head (`code_bits`, ROADMAP
+    Queue 1 item 5) raises.
 
     `stem_stacked` is a measurement hook (see `models/darknet.py`): it
     routes the eval-mode stem segment through the slower stacked-tap kernel
@@ -63,11 +68,11 @@ class PoseNet(nn.Module):
     def __init__(self, cfg: ModelConfig, n_fg: int = 15,
                  stem_stacked: bool = False):
         super().__init__()
-        for asked, what, item in ((cfg.quant_mode, f"quant_mode {cfg.quant_mode!r}", 4),
-                                  (cfg.code_bits, f"code_bits {cfg.code_bits}", 5)):
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+        if cfg.code_bits:
+            raise NotImplementedError(f"code_bits {cfg.code_bits} is not ported yet "
+                                      "(ROADMAP Queue 1 item 5)")
+        if cfg.quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode {cfg.quant_mode!r}: one of {QUANT_MODES}")
         if cfg.compute_dtype not in DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(DTYPES)}")
         self.cfg = cfg
@@ -75,9 +80,11 @@ class PoseNet(nn.Module):
         self.dtype = DTYPES[cfg.compute_dtype]
         self.backbone = make_backbone(cfg, self.dtype, stem_stacked)
         self.fpn = FPN(cfg.feat_channels, cfg.out_channel,
-                       use_p6p7=cfg.use_higher_levels, dtype=self.dtype)
+                       use_p6p7=cfg.use_higher_levels, dtype=self.dtype,
+                       quant_mode=cfg.quant_mode)
         self.head = PoseHead(cfg.out_channel, n_fg, n_conv=cfg.n_conv,
-                             n_levels=max(5, cfg.num_levels), dtype=self.dtype)
+                             n_levels=max(5, cfg.num_levels), dtype=self.dtype,
+                             quant_mode=cfg.quant_mode)
         self.register_buffer("pixel_mean", torch.as_tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("pixel_std", torch.as_tensor(IMAGENET_STD),
@@ -116,6 +123,9 @@ def init_pose_net(net: PoseNet, generator: Optional[torch.Generator] = None,
     weight 1, bias 0; the classifier heads of `include_head`, DarkNet's
     `final_conv` N(0, 0.01) and DarkNet53's `output` flax's Dense default
     (LeCun truncated normal), both with zero bias."""
+    if net.cfg.quant_mode:
+        raise ValueError("an int8 PoseNet takes its weights from utils/quant."
+                         "quantize_posenet, not from an initializer")
     prior = net.cfg.prior if prior is None else prior
 
     def uniform_(t, bound):

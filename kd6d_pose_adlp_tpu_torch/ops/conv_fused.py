@@ -18,13 +18,16 @@ float32 or both bfloat16, scale and bias float32; the sum is accumulated in
 float32 and the output has x's dtype, rounded once. Each source has a
 float32 and a bfloat16 entry point for each form.
 
-Each wrapper checks its inputs, allocates its output with `torch.empty`,
+Each wrapper checks its inputs and calls its custom op (`torch.ops.kd6d.*`,
+registered at import with a fake implementation that gives the output's
+shape and dtype), so that `torch.export` records the kernel as one node of
+the graph. On a CUDA tensor the op allocates its output with `torch.empty`,
 launches the kernel on PyTorch's current stream and counts the launch in
-`launches` under (kernel name, C, O, dtype name). For CPU tensors (and only
-for them) it runs the plain PyTorch version beside it, which computes the
-same flat formula, garbage columns included, in float32 from the inputs'
-values and rounds its result to x's dtype once. A CUDA tensor of any other
-type raises.
+`launches` under (kernel name, C, O, dtype name), also when it is called
+from a loaded exported program. For CPU tensors (and only for them) it runs
+the plain PyTorch version beside it, which computes the same flat formula,
+garbage columns included, in float32 from the inputs' values and rounds its
+result to x's dtype once. A CUDA tensor of any other type raises.
 """
 from __future__ import annotations
 
@@ -230,7 +233,9 @@ def conv3x3_bn_act_flat(x_flat, wmat, scale, bias, *, H: int, W: int,
     x_flat (B, C, (H+2)*(W+2)+2) from nhwc_to_flat; wmat (9, O, C) from
     pack_weights, x_flat's dtype; scale, bias (O, 1) float32 folded BN
     affine -> (B, O, H*(W+2)) in x_flat's dtype; the 2 pad columns per row
-    hold wrap-around values.
+    hold wrap-around values. The call is the custom op
+    `torch.ops.kd6d.conv3x3_bn_act_flat`, so `torch.export` records it as
+    one node and a loaded program launches the kernel through it.
     """
     B, C, L = x_flat.shape
     Wp = W + 2
@@ -238,11 +243,22 @@ def conv3x3_bn_act_flat(x_flat, wmat, scale, bias, *, H: int, W: int,
         raise ValueError(f"slab length {L} != (H+2)*(W+2)+2 for H={H}, W={W}")
     O = wmat.shape[1]
     _check(x_flat, wmat, scale, bias, C, O)
+    return torch.ops.kd6d.conv3x3_bn_act_flat(x_flat, wmat, scale.reshape(O, 1),
+                                              bias.reshape(O, 1), H, W, alpha)
+
+
+@torch.library.custom_op("kd6d::conv3x3_bn_act_flat", mutates_args=())
+def _flat_op(x_flat: torch.Tensor, wmat: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor, H: int, W: int, alpha: float) -> torch.Tensor:
+    """K2 on a CUDA tensor (counted in `launches`), its plain version on a
+    CPU one."""
     if x_flat.device.type == "cpu":
-        return conv3x3_bn_act_flat_plain(x_flat, wmat, scale.reshape(O, 1),
-                                         bias.reshape(O, 1), H=H, W=W,
+        return conv3x3_bn_act_flat_plain(x_flat, wmat, scale, bias, H=H, W=W,
                                          alpha=alpha)
-    out = torch.empty((B, O, H * Wp), device=x_flat.device, dtype=x_flat.dtype)
+    _check(x_flat, wmat, scale, bias, x_flat.shape[1], wmat.shape[1])
+    B, C, _ = x_flat.shape
+    O = wmat.shape[1]
+    out = torch.empty((B, O, H * (W + 2)), device=x_flat.device, dtype=x_flat.dtype)
     name = "conv3x3_bn_act_flat"
     with torch.cuda.device(x_flat.device):
         err = getattr(_lib(), name + _SUFFIX[x_flat.dtype])(
@@ -254,17 +270,34 @@ def conv3x3_bn_act_flat(x_flat, wmat, scale, bias, *, H: int, W: int,
     return out
 
 
+@_flat_op.register_fake
+def _(x_flat, wmat, scale, bias, H, W, alpha):
+    return x_flat.new_empty((x_flat.shape[0], wmat.shape[1], H * (W + 2)))
+
+
 def conv3x3_bn_act_stacked(xs, wmat, scale, bias, *,
                            alpha: float = 0.1) -> torch.Tensor:
-    """The same op over a pre-shifted tap stack xs (B, 9, C, M) (K3)."""
+    """The same op over a pre-shifted tap stack xs (B, 9, C, M) (K3), the
+    custom op `torch.ops.kd6d.conv3x3_bn_act_stacked`."""
     B, nine, C, M = xs.shape
     if nine != 9:
         raise ValueError(f"xs {tuple(xs.shape)} is not (B, 9, C, M)")
     O = wmat.shape[1]
     _check(xs, wmat, scale, bias, C, O)
+    return torch.ops.kd6d.conv3x3_bn_act_stacked(xs, wmat, scale.reshape(O, 1),
+                                                 bias.reshape(O, 1), alpha)
+
+
+@torch.library.custom_op("kd6d::conv3x3_bn_act_stacked", mutates_args=())
+def _stacked_op(xs: torch.Tensor, wmat: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, alpha: float) -> torch.Tensor:
+    """K3 on a CUDA tensor (counted in `launches`), its plain version on a
+    CPU one."""
     if xs.device.type == "cpu":
-        return conv3x3_bn_act_stacked_plain(xs, wmat, scale.reshape(O, 1),
-                                            bias.reshape(O, 1), alpha=alpha)
+        return conv3x3_bn_act_stacked_plain(xs, wmat, scale, bias, alpha=alpha)
+    B, _, C, M = xs.shape
+    O = wmat.shape[1]
+    _check(xs, wmat, scale, bias, C, O)
     out = torch.empty((B, O, M), device=xs.device, dtype=xs.dtype)
     name = "conv3x3_bn_act_stacked"
     with torch.cuda.device(xs.device):
@@ -275,6 +308,11 @@ def conv3x3_bn_act_stacked(xs, wmat, scale, bias, *,
     _raise_on(err, name + _SUFFIX[xs.dtype])
     launches[(name, C, O, _dtype_name(xs))] += 1
     return out
+
+
+@_stacked_op.register_fake
+def _(xs, wmat, scale, bias, alpha):
+    return xs.new_empty((xs.shape[0], wmat.shape[1], xs.shape[3]))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ It takes `train_kd.py`'s flags with the same meaning: it builds the
 configs and the synthetic data, the teacher from `--weight_file_t` (a
 `torch.save`d state_dict or a JAX checkpoint, read loosely) with its BN
 folded into its convolutions (`--fold_teacher_bn`, on by default, as in
-`train_kd.py:190-198`), prints the model sizes, evaluates the teacher once
+`train_kd.py:190-198`) and, with `--quant_teacher` (which requires the
+fold), int8-quantized after calibrating on the first
+`--quant_calib_batches` eval batches (`utils/quant`, as in
+`train_kd.py:200-217`), prints the model sizes, evaluates the teacher once
 when a weight file is given (sanity gate), then trains through `engine/loop.train` with an evaluation
 every VAL_FREQ steps and at the end (scan or stream, `--eval_mode`; their
 scalars to eval_scalars.jsonl). `--device_pool N` stacks N batches onto the
@@ -91,8 +94,12 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--fold_teacher_bn", type=str2bool, nargs="?", const=True,
                    default=True, help="fold the frozen teacher's BN into its conv "
                                       "weights (with --weight_file_t)")
-    p.add_argument("--quant_teacher", type=str2bool, nargs="?", const=True, default=False)
-    p.add_argument("--quant_calib_batches", type=int, default=4)
+    p.add_argument("--quant_teacher", type=str2bool, nargs="?", const=True, default=False,
+                   help="int8-quantize the frozen teacher (PTQ, utils/quant): "
+                        "requires --fold_teacher_bn")
+    p.add_argument("--quant_calib_batches", type=int, default=4,
+                   help="eval batches that calibrate the activation ranges "
+                        "for --quant_teacher")
     p.add_argument("--eval_mode", type=str, default="scan", choices=["scan", "stream"],
                    help="scan = the device-resident one-pass evaluator "
                         "(engine/eval_scan); stream = the per-batch evaluator.valid")
@@ -103,8 +110,7 @@ def get_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raises NotImplementedError on a flag whose module is not ported yet,
-    naming its ROADMAP Queue 1 item: `--quant_teacher`, the teacher's int8
-    PTQ (`utils/quant.py`, item 4); and the BOP host data and distribution
+    naming its ROADMAP Queue 1 item: the BOP host data and distribution
     (item 6): `--data bop`, `--fast_pipeline`, `--n_devices` > 1,
     `--distributed` and `--vis_every` > 0 (the KD cloud plots)."""
     unported = (
@@ -113,7 +119,6 @@ def check_ported(args: argparse.Namespace) -> None:
         (args.n_devices > 1, f"--n_devices {args.n_devices} (the data mesh)", 6),
         (args.distributed, "--distributed", 6),
         (args.vis_every > 0, f"--vis_every {args.vis_every} (KD cloud plots)", 6),
-        (args.quant_teacher, "--quant_teacher (int8 PTQ)", 4),
     )
     for asked, what, item in unported:
         if asked:
@@ -200,6 +205,25 @@ def main(argv: Optional[Sequence[str]] = None):
                 teacher_net = PoseNet(cfg_t.model, n_fg=cfg.data.n_fg).eval()
                 teacher_net.load_state_dict(folded, strict=True)
                 print("teacher: BN folded into conv weights", flush=True)
+            if args.quant_teacher:
+                if not args.fold_teacher_bn:
+                    raise SystemExit("--quant_teacher requires --fold_teacher_bn")
+                # int8 PTQ of the frozen teacher: calibrate the activation
+                # ranges on the first eval batches, on the device, then
+                # rebuild it as the quant_mode="quant" model (JAX
+                # train_kd.py:200-217)
+                from .utils.quant import quantize_posenet
+                calib = []
+                for b, _ in data.eval_batches():
+                    calib.append(b.images.to(device))
+                    if len(calib) >= args.quant_calib_batches:
+                        break
+                teacher_net, _ = quantize_posenet(cfg_t.model, cfg.data.n_fg,
+                                                  folded, calib, device=device)
+                teacher_net.cpu()
+                cfg_t = cfg_t.replace(model=dataclasses.replace(cfg_t.model,
+                                                                quant_mode="quant"))
+                print(f"teacher: int8-quantized ({len(calib)} calib batches)", flush=True)
 
     # model-size comparison (reference train_kd.py:76-78)
     n_student = sum(p.numel() for p in PoseNet(cfg.model, n_fg=cfg.data.n_fg).parameters())

@@ -12,7 +12,10 @@ its `output` head), and so does a BN-folded tree
 with a bias and no BN, the port's `bn_folded` form). The port's names
 are the reference torch names that `kd6d_pose_adlp_tpu/utils/
 torch_convert.convert_pose_module` parses, so the reverse direction is that
-function.
+function. An int8 PTQ model's "quant" collection (`kd6d_pose_adlp_tpu/
+utils/quant.build_quant_variables`) converts too: each QConv's HWIO
+`kernel_q` becomes the port's OIHW int8 buffer beside `w_scale`, `bias`
+and `in_scale`; `amax_from_jax` reads a "quant_stats" calibration tree.
 """
 from __future__ import annotations
 
@@ -49,9 +52,53 @@ def _conv_bn(sd: Dict, pre: str, block: Mapping, stats: Mapping):
         sd[pre + ".bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
+def _backbone_prefix(name: str) -> str:
+    m = re.fullmatch(r"init_block|stage(\d+)_unit(\d+)", name)
+    if not m:
+        raise KeyError(f"unexpected backbone module {name!r}")
+    return ("backbone.features.init_block" if m.group(1) is None else
+            f"backbone.features.stage{m.group(1)}.unit{m.group(2)}")
+
+
+def _fpn_prefix(name: str) -> str:
+    m = re.fullmatch(r"(inner|out)(\d+)|(p6|p7)", name)
+    if not m:
+        raise KeyError(f"unexpected fpn module {name!r}")
+    if m.group(3):
+        return f"fpn.top_blocks.{m.group(3)}"
+    return f"fpn.{m.group(1)}_convs.{m.group(2)}"
+
+
+def _qconv_nodes(tree: Mapping):
+    """(port name of the QConv, its node) for every QConv scope of a JAX
+    "quant" or "quant_stats" tree: backbone units (`conv`, or a DarkUnit's
+    `conv1/conv`, `conv2/conv`), FPN convs and head tower convs."""
+    for name, node in tree.get("backbone", {}).items():
+        pre = _backbone_prefix(name)
+        for sub in ("conv1", "conv2") if "conv1" in node else ("",):
+            unit = node[sub] if sub else node
+            yield f"{pre}.{sub}.conv" if sub else f"{pre}.conv", unit["conv"]
+    for name, node in tree.get("fpn", {}).items():
+        yield _fpn_prefix(name), node
+    for name, node in tree.get("head", {}).items():
+        m = re.fullmatch(r"(cls|pose)_conv(\d+)", name)
+        if not m:
+            raise KeyError(f"unexpected quantized head module {name!r}")
+        yield f"head.{m.group(1)}_tower.{3 * int(m.group(2))}", node
+
+
+def amax_from_jax(quant_stats: Mapping) -> Dict[str, np.float32]:
+    """A JAX "quant_stats" tree (the calibrated `in_amax` of each QConv)
+    keyed by the port's module names, as `utils/quant.calibrate_amax`
+    returns it."""
+    return {name: np.float32(np.asarray(node["in_amax"]))
+            for name, node in _qconv_nodes(quant_stats)}
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The port's state_dict of every subtree present in `variables`
-    (`backbone`, `fpn`, `head` under "params"; "batch_stats" optional)."""
+    (`backbone`, `fpn`, `head` under "params"; "batch_stats" and "quant"
+    optional)."""
     params = variables["params"]
     stats = variables.get("batch_stats") or {}
     sd: Dict[str, torch.Tensor] = {}
@@ -68,11 +115,7 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd["backbone.output.weight"] = _t(np.asarray(block["kernel"]).T)
             sd["backbone.output.bias"] = _t(block["bias"])
             continue
-        m = re.fullmatch(r"init_block|stage(\d+)_unit(\d+)", name)
-        if not m:
-            raise KeyError(f"unexpected backbone module {name!r}")
-        pre = ("backbone.features.init_block" if m.group(1) is None else
-               f"backbone.features.stage{m.group(1)}.unit{m.group(2)}")
+        pre = _backbone_prefix(name)
         if "conv1" in block:
             for sub in ("conv1", "conv2"):
                 _conv_bn(sd, f"{pre}.{sub}", block[sub], st.get(sub, {}))
@@ -80,14 +123,7 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             _conv_bn(sd, pre, block, st)
 
     for name, node in params.get("fpn", {}).items():
-        m = re.fullmatch(r"(inner|out)(\d+)|(p6|p7)", name)
-        if not m:
-            raise KeyError(f"unexpected fpn module {name!r}")
-        if m.group(3):
-            pre = f"fpn.top_blocks.{m.group(3)}"
-        else:
-            pre = f"fpn.{m.group(1)}_convs.{m.group(2)}"
-        _conv(sd, pre, node)
+        _conv(sd, _fpn_prefix(name), node)
 
     for name, node in params.get("head", {}).items():
         if name == "scales":
@@ -106,6 +142,13 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             _conv(sd, f"head.{name}", node)
         else:
             raise KeyError(f"unexpected head module {name!r}")
+
+    for pre, q in _qconv_nodes(variables.get("quant") or {}):
+        kq = np.asarray(q["kernel_q"], np.int8).transpose(3, 2, 0, 1)
+        sd[pre + ".kernel_q"] = torch.from_numpy(np.ascontiguousarray(kq))
+        sd[pre + ".w_scale"] = _t(q["w_scale"])
+        sd[pre + ".bias"] = _t(q["bias"])
+        sd[pre + ".in_scale"] = _t(q["in_scale"])
     return sd
 
 

@@ -209,10 +209,13 @@ def test_darknet53_posenet_forward_shapes_and_raises():
     assert cfg.num_levels == 5 and c.shape == (1, cfg.num_cells, 15)
     assert r.shape == (1, cfg.num_cells, 15 * 16)
     import dataclasses
-    # bfloat16, remat and the folded form build; int8 PTQ and the code head
-    # wait for their ROADMAP items
-    for kw in (dict(compute_dtype="bfloat16"), dict(remat=True), dict(bn_folded=True)):
+    # bfloat16, remat, the folded form and its int8 PTQ forms build; int8
+    # PTQ needs the fold, and the code head waits for its ROADMAP item
+    for kw in (dict(compute_dtype="bfloat16"), dict(remat=True), dict(bn_folded=True),
+               dict(bn_folded=True, quant_mode="calibrate"),
+               dict(bn_folded=True, quant_mode="quant")):
         PoseNet(dataclasses.replace(cfg, **kw))
-    for kw, item in ((dict(bn_folded=True, quant_mode="quant"), 4), (dict(code_bits=4), 5)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            PoseNet(dataclasses.replace(cfg, **kw))
+    with pytest.raises(ValueError, match="BN-folded"):
+        PoseNet(dataclasses.replace(cfg, quant_mode="quant"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        PoseNet(dataclasses.replace(cfg, code_bits=4))

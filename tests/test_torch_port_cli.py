@@ -115,7 +115,6 @@ def test_defaults_that_differ_from_the_jax_cli():
     (["--n_devices", "2"], 6),
     (["--distributed"], 6),
     (["--vis_every", "1000"], 6),
-    (["--quant_teacher"], 4),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     args = _args(tmp_path, 1, *flags)          # a later --data overrides synthetic
