@@ -7,6 +7,7 @@ card: the quickest proof that the port builds, starts and answers on the GPU.
     python3 chip_smoke.py --phases train   # the KD steps only
     python3 chip_smoke.py --phases cli     # the training entry point's path only
     python3 chip_smoke.py --phases export  # frame endpoint, artifacts, int8 PTQ
+    python3 chip_smoke.py --phases zebra   # the dense binary-code head
 
 Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
@@ -115,7 +116,9 @@ Phases:
            and B=8, each loaded program against the eager endpoint with the
            same seed (ints and masks equal, floats rtol/atol 1e-5, JAX's
            check) and K2 counted from inside each loaded program; exported vs
-           eager request ms (median of 5). (c) int8 PTQ of the darknet53
+           eager request ms (median of 5); then a mode="multi" artifact at
+           B=8 (every class solved) against the eager multi endpoint, K2
+           counted from inside it. (c) int8 PTQ of the darknet53
            teacher (FPN 256, the config's head prior) at B=16, 256², BN
            folded, calibrated on 4 synthetic batches: its logits within 0.05
            of the folded fp32 teacher's largest |logit| (JAX's bound), the
@@ -150,6 +153,26 @@ Phases:
            once per step, finite losses; then export_model --check (bf16,
            B=8) on that run's final.ckpt: the round trip passes, bf16 K2
            once per shape in each of the eager and the loaded request.
+  zebra    the dense binary-code head at full width (darknet_tiny_h, FPN 128,
+           P6/P7, 15 classes, 256², 16-bit codes over the 152 box-surface
+           vertices a class). (a) one distilling zebra step, B=2, fp32, with a
+           tiny_h zebra teacher (head prior 0.5), from the same weights, batch
+           and SSC draw on the card and on the CPU: metrics rtol 1e-3, every
+           gradient within RTOL_GRADIENTS, K2 once at each stem shape in the
+           teacher's forward. (b) train_zebra.main at its defaults (bf16) but
+           a pool of 4 batches of 16, 20 steps, 5 a call, 16 eval images and
+           --kd_weight 1 with a darknet53 zebra teacher file (seeded, head
+           prior 0.5): finite losses, loss_kd > 0, final.ckpt and the result
+           line, the bf16 K2 once per eval batch of 8 at each shape; then the
+           same bf16 step timed live (a host batch a step) and pooled (5 a
+           call), with the peak memory. (c) perfect per-cell outputs through
+           the dense postprocess on the card, B=8 eval crops: R within 0.02,
+           T within 5 mm of the ground truth. (d) jittered outputs with some
+           wrong codes through the dense postprocess on the card and on the
+           CPU with the same draws: n_inliers, valid and pt_valid equal, R
+           within 0.1 deg, T within 0.5 mm (the pose phase's gates); the
+           dense and the corner postprocess timed per B=8 batch (median of
+           5), one dense postprocess profiled.
 
 TF32 is off for matmuls and convolutions throughout, so the fp32
 comparisons are fp32 against fp32 (the serving network, one KD step and
@@ -226,6 +249,18 @@ EXPORT_REQUESTS = 5
 EXPORT_CALIB = 4
 EXPORT_FWD_ITERS = 10
 INT8_LOGITS_RTOL = 0.05
+# the zebra phase: train_zebra's code bits and vertex grid, and its cuts (a
+# pool of 4 batches of 16, 20 steps, 5 a call, 16 eval images); the bf16
+# steps timed live and pooled, and the timed postprocess runs
+ZEBRA_BITS = 16
+ZEBRA_VERTS = 6
+ZEBRA_POOL = 4
+ZEBRA_BATCH = 16
+ZEBRA_STEPS = 20
+ZEBRA_PER_CALL = 5
+ZEBRA_EVAL = 16
+ZEBRA_TIMED = 10
+ZEBRA_POST_RUNS = 5
 # K2's edge shapes (B, C, O, H, W): the stem kernel at each row-shift
 # remainder (W + 2) % 4 = 1, 3, 0 (M odd in the first two), the s2 kernel
 # with M odd and with a ragged last tile, then two shapes of the general
@@ -919,6 +954,15 @@ def serving_phase(torch, cf, dev, tf32_defaults, n_flat: int = 4, n_stacked: int
 # pose phase
 # ---------------------------------------------------------------------------
 
+def pose_rot_deg(Ra, Rb) -> float:
+    """Angle between two rotations in degrees, from the chord |Ra - Rb|_F =
+    2 sqrt(2) sin(angle / 2): stable near 0, where arccos of the fp32 trace
+    floors at a few hundredths of a degree."""
+    import numpy as np
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2 * np.arcsin(min(d / (2 * np.sqrt(2)), 1.0))))
+
+
 def pose_phase(torch, dev):
     import numpy as np
 
@@ -963,15 +1007,9 @@ def pose_phase(torch, dev):
                  torch.as_tensor(Mc, device=dev)[None], generator=gen)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    def rot_deg(Ra, Rb):
-        # from the chord |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): stable near 0,
-        # where arccos of the fp32 trace floors at a few hundredths of a degree
-        d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
-        return float(np.degrees(2 * np.arcsin(min(d / (2 * np.sqrt(2)), 1.0))))
-
     R = out["R"][0].cpu().numpy()
     T = out["T"][0].cpu().numpy()
-    rot = rot_deg(R_gt, R)
+    rot = pose_rot_deg(R_gt, R)
     trans = float(np.linalg.norm(T - T_gt))
     log(f"[pose] planted scene: valid {bool(out['valid'][0])}, inliers "
         f"{int(out['n_inliers'][0])}, rotation error {rot:.3f} deg, translation "
@@ -993,7 +1031,7 @@ def pose_phase(torch, dev):
         card = pp(*(a.to(dev) for a in args), gumbel=gumbel.to(dev))
         host = pp_cpu(*args, gumbel=gumbel)
     Rc, Rh = card["R"][0].cpu().numpy(), host["R"][0].numpy()
-    rot_ch = rot_deg(Rh, Rc)
+    rot_ch = pose_rot_deg(Rh, Rc)
     trans_ch = float(np.linalg.norm(card["T"][0].cpu().numpy() - host["T"][0].numpy()))
     same_votes = bool(torch.equal(card["vote_valid"].cpu(), host["vote_valid"]))
     same_inliers = int(card["n_inliers"][0]) == int(host["n_inliers"][0])
@@ -1817,6 +1855,24 @@ def export_phase(torch, cf, dev):
         if not (ok and got["R"].shape[0] == n):
             raise AssertionError(f"the symbolic program at B={n} misses the eager endpoint")
 
+    serve_m = export_row("multi_b8", "multi", BATCH)
+    multi_fn = build_infer_fn(cfg, consts, net, mode="multi", device=dev)
+    cf.reset_launch_counts()
+    got, ms_xm = timed(lambda: serve_m(req["images"], req["bbox_trans"], req["class_ids"],
+                                       seed=6), 1)
+    k2_multi = k2_per_request(1, "the loaded multi program")
+    want, ms_em = timed(lambda: multi_fn(req["images"], req["bbox_trans"], req["class_ids"],
+                                         seed=6), 1)
+    err, ok = outputs_equal(torch, got, want)
+    rows["multi_b8"].update(max_abs_diff=err, k2=k2_multi, exported_ms=ms_xm, eager_ms=ms_em)
+    log(f"[export] (b) multi B={BATCH}: exported in {rows['multi_b8']['export_s']:.1f} s, "
+        f"loaded in {rows['multi_b8']['load_s']:.1f} s; R {tuple(got['R'].shape)}, loaded vs "
+        f"eager multi endpoint, seed 6: max |diff| {err:.2e} (gate rtol/atol 1e-5); K2 from "
+        f"inside the loaded program {k2_multi}; request exported {ms_xm[0]:.1f} ms vs eager "
+        f"{ms_em[0]:.1f} ms")
+    if not (ok and tuple(got["R"].shape) == (BATCH, cfg.data.n_fg, 3, 3)):
+        raise AssertionError("the loaded multi program misses the eager multi endpoint")
+
     # (c) int8 PTQ of the darknet53 teacher (FPN 256), B=16, folded,
     # calibrated on 4 synthetic batches. The head's prior is the config's
     # (0.01), the condition of JAX's 0.05 bound (tests/test_quant.py:96-124)
@@ -2190,9 +2246,322 @@ def eval_phase(torch, cf, dev):
         cli_s=cli_s), launches
 
 
+# ---------------------------------------------------------------------------
+# zebra phase
+# ---------------------------------------------------------------------------
+
+def zebra_configs(dtype: str = "float32"):
+    """The dense binary-code configuration at full width (darknet_tiny_h, FPN
+    128, P6/P7, 15 classes, 256², ZEBRA_BITS-bit codes, train_zebra's
+    defaults) in `dtype`."""
+    import dataclasses
+
+    from kd6d_pose_adlp_tpu_torch.config import Config
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype=dtype,
+                                                code_bits=ZEBRA_BITS))
+    m = cfg.model
+    assert (m.backbone, m.input_res, m.out_channel, m.use_higher_levels, cfg.data.n_fg) == (
+        "darknet_tiny_h", RES, 128, True, 15)
+    return cfg
+
+
+def zebra_oracle_outputs(tgt, n_fg: int, n_bits: int, rng=None):
+    """(cls_logits, code_pred) numpy network outputs that decode to the
+    targets `tgt` (numpy ZebraTargets): each positive slot's cell at logit
+    +10 for its class, the rest -10, its code as saturated logits and its
+    offset (tests/test_zebra.py:155). With a numpy `rng`, offsets are
+    jittered by N(0, 0.1/32) of the anchor size and a sixth of the slots
+    get their leading code bit wrong, so RANSAC meets outliers."""
+    import numpy as np
+    B, A = tgt.labels.shape
+    cls_logits = np.full((B, A, n_fg), -10.0, np.float32)
+    code_pred = np.zeros((B, A, n_fg * (n_bits + 2)), np.float32)
+    for b in range(B):
+        for p in np.flatnonzero(tgt.s_valid[b]):
+            a, c = int(tgt.sidx[b, p]), int(tgt.cls_idx[b, p])
+            cls_logits[b, a, c] = 10.0
+            code = np.array(tgt.code_tgt[b, p], np.float32)
+            off = np.array(tgt.off_tgt[b, p], np.float32)
+            if rng is not None:
+                off += rng.normal(0.0, 0.1 / 32, 2).astype(np.float32)
+                if rng.random() < 1 / 6:
+                    code[0] = 1.0 - code[0]
+            base = c * (n_bits + 2)
+            code_pred[b, a, base:base + n_bits] = (2.0 * code - 1.0) * 10.0
+            code_pred[b, a, base + n_bits:base + n_bits + 2] = off
+    return cls_logits, code_pred
+
+
+def one_zebra_step(torch, cfg, consts, student_sd, teacher_sd, batch, uniform, dev):
+    """One distilling zebra step from the given weights on `dev`: (metrics,
+    the step's gradient of each parameter on the CPU)."""
+    from kd6d_pose_adlp_tpu_torch.engine import steps, zebra
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet
+
+    n_fg = cfg.data.n_fg
+    net = PoseNet(cfg.model, n_fg=n_fg)
+    net.load_state_dict(student_sd, strict=True)
+    teacher = PoseNet(cfg.model, n_fg=n_fg)
+    teacher.load_state_dict(teacher_sd, strict=True)
+    opt = steps.make_optimizer(cfg)
+    state = steps.create_train_state(cfg, net.to(dev), opt)
+    step = zebra.build_zebra_train_step(cfg, consts.to(dev), net, teacher.to(dev), opt, n_fg,
+                                        distill=True)
+    _, m = step(state, batch.to(dev), uniform=uniform.to(dev))
+    return ({k: float(v) for k, v in m.items()},
+            {k: p.grad.detach().cpu() for k, p in net.named_parameters()
+             if p.grad is not None})
+
+
+def zebra_phase(torch, cf, dev):
+    """The dense binary-code head on the card at full width. (a) one
+    distilling step card vs CPU; (b) train_zebra.main at its defaults (bf16)
+    with a darknet53 zebra teacher file, then its step timed live and
+    pooled; (c) the oracle round trip; (d) the dense postprocess card vs
+    CPU with the same draws, timed beside the corner postprocess and
+    profiled. Returns (summary, K2 launches by batch)."""
+    import contextlib
+    import dataclasses
+    import io
+    import statistics
+
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch import train_zebra
+    from kd6d_pose_adlp_tpu_torch.data.batch import Batch
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from kd6d_pose_adlp_tpu_torch.engine import steps, zebra
+    from kd6d_pose_adlp_tpu_torch.engine.postprocess import build_postprocess
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.ops.epnp import sample_gumbel
+
+    cfg = zebra_configs()
+    n_fg, nb, t = cfg.data.n_fg, ZEBRA_BITS, cfg.test
+    ds = SyntheticPoseDataset(n_fg=n_fg, input_res=RES, seed=0)
+    consts = ds.consts(device=dev, code_bits=nb, verts_per_axis=ZEBRA_VERTS)
+    consts_cpu = consts.to("cpu")
+    V = int(consts.verts.shape[1])
+    log(f"[zebra] darknet_tiny_h zebra head at {RES}², {n_fg} classes, {nb}-bit codes over "
+        f"{V} vertices a class, {n_fg * (nb + 2)} code channels on {cfg.model.num_cells} cells")
+    seg = {("conv3x3_bn_act_flat", 3, 8, "float32"), ("conv3x3_bn_act_flat", 8, 16, "float32")}
+    seg16 = {(n, c, o, "bfloat16") for n, c, o, _ in seg}
+
+    # (a) one distilling step, B=2, fp32, card vs CPU, a tiny_h zebra teacher
+    # (head prior 0.5) whose eval-mode stem runs K2
+    student_sd = init_pose_net(PoseNet(cfg.model, n_fg=n_fg),
+                               torch.Generator().manual_seed(2)).state_dict()
+    teacher_sd = init_pose_net(PoseNet(cfg.model, n_fg=n_fg), torch.Generator().manual_seed(3),
+                               prior=0.5).state_dict()
+    small = ds.batch(range(2))
+    uniform = torch.rand((2, cfg.model.num_cells, ds.max_objs),
+                         generator=torch.Generator().manual_seed(3))
+    cf.reset_launch_counts()
+    mc, gc = one_zebra_step(torch, cfg, consts, student_sd, teacher_sd, small, uniform, dev)
+    k2_a = dict(cf.launches)
+    mh, gh = one_zebra_step(torch, cfg, consts_cpu, student_sd, teacher_sd, small, uniform,
+                            "cpu")
+    if set(gc) != set(gh):
+        raise AssertionError(f"zebra gradients differ in their parameters: {set(gc) ^ set(gh)}")
+    met_rel = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh}
+    g_rel = {k: float(torch.linalg.vector_norm(gc[k] - gh[k])
+                      / torch.linalg.vector_norm(gh[k]).clamp_min(1e-30)) for k in gh}
+    worst = max(g_rel, key=g_rel.get)
+    log(f"[zebra] (a) one distilling step B=2, fp32, card vs CPU: metrics {mc} (largest "
+        f"relative difference {max(met_rel.values()):.2e}, gate 1e-3); gradients of "
+        f"{len(gh)} tensors: worst ||g_card - g_cpu|| / ||g_cpu|| {g_rel[worst]:.2e} "
+        f"({worst}; gate RTOL_GRADIENTS {RTOL_GRADIENTS:g}); K2 in the teacher's forward "
+        f"{k2_a}")
+    if not (mc["loss_kd"] > 0 and mc["num_pos"] == mh["num_pos"] > 0
+            and max(met_rel.values()) <= 1e-3 and g_rel[worst] <= RTOL_GRADIENTS):
+        raise AssertionError("the zebra step on the card and on the CPU disagree")
+    if k2_a != {key: 1 for key in seg}:
+        raise AssertionError(f"the tiny_h zebra teacher's forward launched K2 {k2_a}, "
+                             "not once at each of the stem's shapes")
+
+    # (b) train_zebra.main at its defaults (bf16, 256², 16 bits) but the
+    # cuts: a pool of ZEBRA_POOL batches of 16, ZEBRA_STEPS steps,
+    # ZEBRA_PER_CALL a call, ZEBRA_EVAL eval images; a darknet53 zebra
+    # teacher file (head prior 0.5) for --kd_weight 1
+    cfg_t = cfg.replace(model=dataclasses.replace(cfg.model, backbone="darknet53"))
+    t_net = init_pose_net(PoseNet(cfg_t.model, n_fg=n_fg), torch.Generator().manual_seed(1),
+                          prior=0.5)
+    wd = tempfile.TemporaryDirectory()
+    t_path = os.path.join(wd.name, "zebra_teacher.pt")
+    torch.save(t_net.state_dict(), t_path)
+    argv = ["--batches", str(ZEBRA_POOL), "--batch_size", str(ZEBRA_BATCH), "--input_res",
+            str(RES), "--steps", str(ZEBRA_STEPS), "--steps_per_dispatch",
+            str(ZEBRA_PER_CALL), "--log_every", str(ZEBRA_PER_CALL), "--eval_n",
+            str(ZEBRA_EVAL), "--kd_weight", "1", "--weight_file_t", t_path,
+            "--working_dir", os.path.join(wd.name, "run")]
+    defaults = vars(train_zebra.build_parser().parse_args([]))
+    assert (defaults["batch_size"], defaults["input_res"], defaults["code_bits"],
+            defaults["backbone_t"]) == (16, 256, 16, "darknet53")
+    buf = io.StringIO()
+    cf.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = train_zebra.main(argv)
+    run_s = time.perf_counter() - t0
+    k2_b = dict(cf.launches)
+    printed = buf.getvalue().splitlines()
+    for line in printed:
+        log(f"[zebra] (b) train_zebra: {line}")
+    step_lines = [ln for ln in printed if ln.startswith("step ")]
+    losses = [{k: float(ln.split(f" {k} ")[1].split()[0]) for k in ("cls", "code", "off", "kd")}
+              for ln in step_lines]
+    res_line = next((json.loads(ln) for ln in printed if ln.startswith('{"ADD.10d"')), None)
+    n_eval_batches = -(-ZEBRA_EVAL // t.ims_per_batch)
+    log(f"[zebra] (b) train_zebra.main, {ZEBRA_STEPS} steps of B={ZEBRA_BATCH} ({run_s:.1f} s "
+        f"with the pool, the teacher and the eval): K2 {k2_b} over {n_eval_batches} eval batches of "
+        f"{t.ims_per_batch}; final.ckpt "
+        f"{os.path.exists(os.path.join(wd.name, 'run', 'final.ckpt'))}")
+    if not (len(losses) == ZEBRA_STEPS // ZEBRA_PER_CALL
+            and all(math.isfinite(v) for ls in losses for v in ls.values())
+            and all(ls["kd"] > 0 for ls in losses)):
+        raise AssertionError(f"train_zebra's losses: {losses}")
+    if not (os.path.exists(os.path.join(wd.name, "run", "final.ckpt")) and res_line is not None
+            and out["final"] == res_line and res_line["n_eval"] == ZEBRA_EVAL):
+        raise AssertionError("train_zebra wrote no final.ckpt or printed no result line")
+    if k2_b != {key: n_eval_batches for key in seg16}:
+        raise AssertionError(f"train_zebra's eval launched K2 {k2_b}, not once per eval batch "
+                             "at each of the stem's shapes in bf16")
+    wd.cleanup()
+
+    # the same bf16 step timed: live (each batch moved from the host, one
+    # step a call) and pooled (ZEBRA_PER_CALL steps a call over the pool)
+    cfg16 = zebra_configs("bfloat16")
+    cfg16 = cfg16.replace(solver=dataclasses.replace(cfg16.solver, max_iter=ZEBRA_STEPS))
+    cfg16_t = cfg16.replace(model=dataclasses.replace(cfg16.model, backbone="darknet53"))
+    ds1 = SyntheticPoseDataset(n_fg=n_fg, input_res=RES, single_class=0, seed=0)
+    consts1 = ds1.consts(device=dev, code_bits=nb, verts_per_axis=ZEBRA_VERTS)
+    host = [ds1.batch(range(1000 + ZEBRA_BATCH * b, 1000 + ZEBRA_BATCH * (b + 1)))
+            for b in range(ZEBRA_POOL)]
+    pool = Batch.stack(host).to(dev)
+    teacher16 = PoseNet(cfg16_t.model, n_fg=n_fg)
+    teacher16.load_state_dict(t_net.state_dict(), strict=True)
+    teacher16 = teacher16.to(dev).eval()
+    net16 = init_pose_net(PoseNet(cfg16.model, n_fg=n_fg), torch.Generator().manual_seed(0))
+    opt16 = steps.make_optimizer(cfg16)
+    state16 = steps.create_train_state(cfg16, net16.to(dev), opt16)
+    step16 = zebra.build_zebra_train_step(cfg16, consts1, net16, teacher16, opt16, n_fg,
+                                          distill=True)
+    multi16 = zebra.build_zebra_multi_step(cfg16, consts1, net16, teacher16, opt16, n_fg,
+                                           ZEBRA_POOL, distill=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    torch.cuda.reset_peak_memory_stats()
+    live_ms = []
+    for i in range(ZEBRA_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state16, m = step16(state16, host[i % ZEBRA_POOL].to(dev), generator=gen)
+        float(m["loss_total"])
+        live_ms.append(1e3 * (time.perf_counter() - t0))
+    pooled_ms = []
+    for c in range(ZEBRA_TIMED // ZEBRA_PER_CALL + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state16, m = multi16(state16, pool, c * ZEBRA_PER_CALL, ZEBRA_PER_CALL, generator=gen)
+        float(m["loss_total"])
+        pooled_ms.append(1e3 * (time.perf_counter() - t0) / ZEBRA_PER_CALL)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    live_med, pooled_med = statistics.median(live_ms[1:]), statistics.median(pooled_ms[1:])
+    if not all(math.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"the timed zebra steps' metrics {m}")
+    log(f"[zebra] (b) bf16 step, B={ZEBRA_BATCH}, darknet53 zebra teacher: live median "
+        f"{live_med:.2f} ms ({1e3 * ZEBRA_BATCH / live_med:.1f} images/s) over {ZEBRA_TIMED} "
+        f"steps, pooled median {pooled_med:.2f} ms ({1e3 * ZEBRA_BATCH / pooled_med:.1f} "
+        f"images/s) over "
+        f"{ZEBRA_TIMED // ZEBRA_PER_CALL} calls of {ZEBRA_PER_CALL}; peak device memory "
+        f"{peak_gb:.2f} GiB; on {gpu_name_and_power()}")
+
+    # (c) the oracle round trip on the card: eval crops, perfect outputs
+    eval_batch = ds.batch(range(BATCH), train=False).to(dev)
+    tgt = zebra.zebra_targets(eval_batch, consts, cfg,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+    tgt_np = type(tgt)(*(x.cpu().numpy() for x in tgt))
+    if not (tgt_np.s_valid.sum(1) >= 6).all():
+        raise AssertionError(f"fewer than 6 positives in an eval crop: {tgt_np.s_valid.sum(1)}")
+    post = zebra.build_zebra_postprocess(cfg, consts, n_fg)
+    cls_o, code_o = zebra_oracle_outputs(tgt_np, n_fg, nb)
+    gen_p = torch.Generator(device=dev)
+    gen_p.manual_seed(3)
+    out = post(torch.as_tensor(cls_o, device=dev), torch.as_tensor(code_o, device=dev),
+               eval_batch.class_ids[:, 0], eval_batch.bbox_trans, generator=gen_p)
+    r_err = float((out["R"] - eval_batch.rotations[:, 0]).abs().max())
+    t_err = float((out["T"] - eval_batch.translations[:, 0]).abs().max())
+    log(f"[zebra] (c) oracle round trip, B={BATCH}: max |R - R_gt| {r_err:.2e} (gate 0.02), "
+        f"max |T - T_gt| {t_err:.3f} mm (gate 5); valid {out['valid'].tolist()}")
+    if not (bool(out["valid"].all()) and r_err < 0.02 and t_err < 5.0):
+        raise AssertionError("the dense postprocess misses the oracle poses on the card")
+
+    # (d) the dense postprocess, card vs CPU, the same draws; then timed
+    # beside the corner postprocess on the same B=8 crops, and profiled
+    cls_n, code_n = zebra_oracle_outputs(tgt_np, n_fg, nb, np.random.default_rng(6))
+    gumbel = sample_gumbel((BATCH, t.ransac_iters, t.max_votes),
+                           torch.Generator().manual_seed(4), "cpu")
+    args = (torch.as_tensor(cls_n), torch.as_tensor(code_n), eval_batch.class_ids[:, 0].cpu(),
+            eval_batch.bbox_trans.cpu())
+    card = post(*(a.to(dev) for a in args), gumbel=gumbel.to(dev))
+    hostp = zebra.build_zebra_postprocess(cfg, consts_cpu, n_fg)(*args, gumbel=gumbel)
+    rot = max(pose_rot_deg(card["R"][b].cpu().numpy(), hostp["R"][b].numpy())
+              for b in range(BATCH))
+    trans = float((card["T"].cpu() - hostp["T"]).norm(dim=-1).max())
+    same = {k: bool(torch.equal(card[k].cpu(), hostp[k]))
+            for k in ("n_inliers", "valid", "pt_valid")}
+    log(f"[zebra] (d) dense postprocess B={BATCH}, card vs CPU, same draws: {same}, rotation "
+        f"{rot:.4f} deg, translation {trans:.4f} mm (gates: equal, 0.1 deg, 0.5 mm); inliers "
+        f"{card['n_inliers'].tolist()} of {card['pt_valid'].sum(1).tolist()}")
+    if not (all(same.values()) and rot < 0.1 and trans < 0.5):
+        raise AssertionError("the dense postprocess on the card and on the CPU disagree")
+
+    corner_post = build_postprocess(cfg, consts)
+    g = torch.Generator().manual_seed(5)
+    cls_r = torch.randn((BATCH, cfg.model.num_cells, n_fg), generator=g).to(dev)
+    reg_r = (0.3 * torch.randn((BATCH, cfg.model.num_cells, n_fg * 16), generator=g)).to(dev)
+    calls = {
+        "dense": lambda: post(*(a.to(dev) for a in args), generator=gen_p),
+        "corner": lambda: corner_post(cls_r, reg_r, eval_batch.class_ids[:, 0],
+                                      eval_batch.bbox_trans, generator=gen_p)}
+    post_ms = {k: [] for k in calls}
+    for _ in range(ZEBRA_POST_RUNS + 1):
+        for k, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            post_ms[k].append(1e3 * (time.perf_counter() - t0))
+    post_med = {k: statistics.median(v[1:]) for k, v in post_ms.items()}
+    prof = profile_request(torch, calls["dense"])
+    idle = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+    log(f"[zebra] (d) postprocess per B={BATCH} batch, median of {ZEBRA_POST_RUNS}: dense "
+        f"({t.max_votes} correspondences) {post_med['dense']:.2f} ms, corner "
+        f"({t.max_votes} votes x 8) {post_med['corner']:.2f} ms; one profiled dense "
+        f"postprocess: {prof['device_kernels']} device kernels, busy {prof['device_busy_ms']:.2f} "
+        f"ms of {prof['wall_ms']:.2f} ms (idle share {idle:.3f}); top {prof['top']}")
+
+    summary = dict(
+        vertices=V, code_bits=nb,
+        step_card_vs_cpu=dict(card=mc, cpu=mh, metric_rel=met_rel, grad_rel_worst=g_rel[worst],
+                              grad_rel_worst_tensor=worst, k2={str(k): v for k, v in k2_a.items()}),
+        train_zebra=dict(argv=argv[:-4], run_s=run_s, losses=losses, result=res_line,
+                         k2={str(k): v for k, v in k2_b.items()}),
+        step_bf16=dict(live_ms=live_ms, pooled_ms=pooled_ms, live_median_ms=live_med,
+                       pooled_median_ms=pooled_med,
+                       live_images_per_sec=1e3 * ZEBRA_BATCH / live_med,
+                       pooled_images_per_sec=1e3 * ZEBRA_BATCH / pooled_med,
+                       peak_memory_gib=peak_gb),
+        oracle=dict(r_err=r_err, t_err_mm=t_err),
+        postprocess=dict(card_vs_cpu_rotation_deg=rot, card_vs_cpu_translation_mm=trans,
+                         ms=post_ms, median_ms=post_med, profile=prof, device_idle_share=idle))
+    return summary, {BATCH: k2_b}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,export,cli")
+    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,export,cli,zebra")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2230,6 +2599,12 @@ def main(argv=None) -> int:
     result = {"card": card}
     # launches of each main path's run, by batch: serving at B=8, eval at 24
     rows, launches, k1_row, k1_launches = [], {BATCH: {}, EVAL_BATCH: {}}, None, None
+
+    def add_launches(by_batch):
+        for b, by in by_batch.items():
+            for key, v in by.items():
+                launches.setdefault(b, {})[key] = launches.get(b, {}).get(key, 0) + v
+
     if "kernel" in phases:
         rows, result["segment"] = kernel_phase(torch, F, cf, dev)
         k1_row = sinkhorn_kernel(torch, sf, dev)
@@ -2243,15 +2618,14 @@ def main(argv=None) -> int:
         result["eval"], launches[EVAL_BATCH] = eval_phase(torch, cf, dev)
     if "export" in phases:
         result["export"], k2_export = export_phase(torch, cf, dev)
-        for b, by in k2_export.items():
-            for key, v in by.items():
-                launches.setdefault(b, {})[key] = launches.get(b, {}).get(key, 0) + v
+        add_launches(k2_export)
     if "cli" in phases:
         result["cli"], k1_cli, k2_cli = cli_phase(torch, sf, cf, dev, tf32_defaults)
         k1_launches = (k1_launches or 0) + k1_cli
-        for b, by in k2_cli.items():
-            for key, v in by.items():
-                launches.setdefault(b, {})[key] = launches.get(b, {}).get(key, 0) + v
+        add_launches(k2_cli)
+    if "zebra" in phases:
+        result["zebra"], k2_zebra = zebra_phase(torch, cf, dev)
+        add_launches(k2_zebra)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -17,7 +17,10 @@ loop (`engine/steps.py`, `engine/loop.py`, the Sinkhorn kernel in
 `engine/eval_scan.py`, `utils/metrics.py`, the `evaluate` CLI); the rest
 of the training loop (checkpoints and resume, reading the JAX package's
 msgpack checkpoints, backbone init, the device pool with K steps per call,
-the cached teacher, the `train_kd` CLI).
+the cached teacher, the `train_kd` CLI); bf16, the variants and the
+folded teacher; the raw-frame endpoint, `torch.export` and int8 PTQ; the
+dense binary-code (zebra) head (`ops/binary_code.py`, `engine/zebra.py`,
+the `train_zebra` CLI).
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU; on CPU tensors each kernel wrapper runs its plain PyTorch version.

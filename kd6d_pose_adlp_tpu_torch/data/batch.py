@@ -5,7 +5,7 @@ affines and class ids directly; training takes a `Batch`, or a pool of them
 batch i, as the JAX package's tree_map(lambda x: x[i], pool))."""
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,19 +49,28 @@ class Batch(NamedTuple):
 
 class TaskConsts(NamedTuple):
     """K (3,3) internal intrinsics; inv_K (3,3); kp3d (n_fg,8,3) 3D bbox
-    corners per class (mm); diameters (n_fg,) mesh diameters (mm)."""
+    corners per class (mm); diameters (n_fg,) mesh diameters (mm); for the
+    dense binary-code head only, else None: verts (n_fg,V,3) surface points
+    per class (mm) and vert_codes (n_fg,V,n_bits) their codes
+    (`ops/binary_code.build_codes`)."""
     K: torch.Tensor
     inv_K: torch.Tensor
     kp3d: torch.Tensor
     diameters: torch.Tensor
+    verts: Optional[torch.Tensor] = None
+    vert_codes: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(K: np.ndarray, kp3d: np.ndarray, diameters,
+               verts: Optional[np.ndarray] = None,
+               vert_codes: Optional[np.ndarray] = None,
                device="cuda") -> "TaskConsts":
         K = np.asarray(K, np.float32).reshape(3, 3)
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+        f32 = lambda a: (None if a is None else
+                         torch.as_tensor(np.asarray(a, np.float32), device=device))
         return TaskConsts(K=f32(K), inv_K=f32(np.linalg.inv(K)),
-                          kp3d=f32(kp3d), diameters=f32(diameters))
+                          kp3d=f32(kp3d), diameters=f32(diameters),
+                          verts=f32(verts), vert_codes=f32(vert_codes))
 
     def to(self, device) -> "TaskConsts":
-        return TaskConsts(*(t.to(device) for t in self))
+        return TaskConsts(*(None if t is None else t.to(device) for t in self))

@@ -81,9 +81,20 @@ class SyntheticPoseDataset:
             self.kp3d.max(1) - self.kp3d.min(1), axis=1).astype(np.float32)
         self.K = _INTERNAL_K
 
-    def consts(self, device="cuda") -> TaskConsts:
-        return TaskConsts.create(self.K, self.kp3d, self.diameters,
-                                 device=device)
+    def consts(self, device="cuda", code_bits: int = 0,
+               verts_per_axis: int = 6) -> TaskConsts:
+        """The task constants on `device`. code_bits > 0 adds the dense
+        binary-code tables (JAX `synthetic.py:86-97`): per class, a box-surface
+        grid of `verts_per_axis` points a side as the vertex set, and its
+        hierarchical codes."""
+        if code_bits <= 0:
+            return TaskConsts.create(self.K, self.kp3d, self.diameters, device=device)
+        from ..ops.binary_code import build_codes, sample_box_surface
+        verts = np.stack([sample_box_surface(self.kp3d[c], verts_per_axis)
+                          for c in range(self.n_fg)])              # (C,V,3)
+        codes = np.stack([build_codes(v, code_bits) for v in verts])
+        return TaskConsts.create(self.K, self.kp3d, self.diameters, verts=verts,
+                                 vert_codes=codes, device=device)
 
     def _render(self, index: int, train: bool):
         """One scene: the crop in [0, 1] RGB plus its annotations."""

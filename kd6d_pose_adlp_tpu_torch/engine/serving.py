@@ -57,10 +57,10 @@ SINGLE_KEYS = ("R", "T", "score", "cls", "n_inliers", "valid", "kp2d",
 
 
 def network_fn(net: nn.Module):
-    """network(images) -> (cls_logits, pred_reg), float32: `net` in eval
-    mode, in its compute dtype, under inference mode and full fp32 (TF32 off
-    for cuDNN and matmuls). A net that was in train mode (a training run's
-    student) is put back."""
+    """network(images) -> (cls_logits, pred_reg) (a zebra net's code third),
+    float32: `net` in eval mode, in its compute dtype, under inference mode
+    and full fp32 (TF32 off for cuDNN and matmuls). A net that was in train
+    mode (a training run's student) is put back."""
     def network(images: torch.Tensor):
         was_training = net.training
         net.eval()

@@ -57,8 +57,8 @@ class PoseNet(nn.Module):
     "quant" is the int8 PTQ network (requires `cfg.bn_folded`; its weights
     come from `utils/quant.quantize_posenet`): every backbone unit, FPN
     conv and tower conv a `QConv`, the eval stem included (no K2), the
-    head's output convs float. The binary-code head (`code_bits`, ROADMAP
-    Queue 1 item 5) raises.
+    head's output convs float. `cfg.code_bits` > 0 adds the dense
+    binary-code head's `code_pred` conv and a third output (`engine/zebra`).
 
     `stem_stacked` is a measurement hook (see `models/darknet.py`): it
     routes the eval-mode stem segment through the slower stacked-tap kernel
@@ -68,9 +68,6 @@ class PoseNet(nn.Module):
     def __init__(self, cfg: ModelConfig, n_fg: int = 15,
                  stem_stacked: bool = False):
         super().__init__()
-        if cfg.code_bits:
-            raise NotImplementedError(f"code_bits {cfg.code_bits} is not ported yet "
-                                      "(ROADMAP Queue 1 item 5)")
         if cfg.quant_mode not in QUANT_MODES:
             raise ValueError(f"quant_mode {cfg.quant_mode!r}: one of {QUANT_MODES}")
         if cfg.compute_dtype not in DTYPES:
@@ -84,14 +81,16 @@ class PoseNet(nn.Module):
                        quant_mode=cfg.quant_mode)
         self.head = PoseHead(cfg.out_channel, n_fg, n_conv=cfg.n_conv,
                              n_levels=max(5, cfg.num_levels), dtype=self.dtype,
-                             quant_mode=cfg.quant_mode)
+                             quant_mode=cfg.quant_mode, code_bits=cfg.code_bits)
         self.register_buffer("pixel_mean", torch.as_tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("pixel_std", torch.as_tensor(IMAGENET_STD),
                              persistent=False)
 
-    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """images (B, H, W, 3) -> (cls (B, A, n_fg), reg (B, A, n_fg*16)) f32.
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """images (B, H, W, 3) -> (cls (B, A, n_fg), reg (B, A, n_fg*16)) f32,
+        and with `code_bits` > 0 a third output, code (B, A,
+        n_fg*(code_bits+2)) f32 (JAX `pose_net.py:84-89`).
 
         uint8 input = raw BGR crops, flipped to RGB and ImageNet-normalized
         here in fp32; float input is taken as already-normalized RGB. The
@@ -103,15 +102,15 @@ class PoseNet(nn.Module):
         feats = self.backbone(images.to(self.dtype))
         pyramid = self.fpn(feats)
         assert len(pyramid) == self.cfg.num_levels
-        logits, pose_reg = self.head(pyramid)
+        maps = self.head(pyramid)
         B = images.shape[0]
-        flat_cls = torch.cat([l.permute(0, 2, 3, 1).reshape(B, -1, self.n_fg)
-                              for l in logits], dim=1)
-        flat_reg = torch.cat([r.permute(0, 2, 3, 1).reshape(B, -1, self.n_fg * 16)
-                              for r in pose_reg], dim=1)
-        assert flat_cls.shape[1] == self.cfg.num_cells, (
-            flat_cls.shape, self.cfg.num_cells)
-        return flat_cls.float(), flat_reg.float()
+        # each level NCHW -> NHWC, flattened to (B, cells, channels)
+        flat = tuple(torch.cat([m.permute(0, 2, 3, 1).reshape(B, -1, m.shape[1])
+                                for m in level_maps], dim=1).float()
+                     for level_maps in maps)
+        assert flat[0].shape[1] == self.cfg.num_cells, (
+            flat[0].shape, self.cfg.num_cells)
+        return flat
 
 
 def init_pose_net(net: PoseNet, generator: Optional[torch.Generator] = None,

@@ -138,7 +138,7 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 sd[f"head.{tower}_tower.{3 * k + 1}.weight"] = _t(node["scale"])
                 sd[f"head.{tower}_tower.{3 * k + 1}.bias"] = _t(node["bias"])
-        elif name in ("cls_logits", "pose_pred"):
+        elif name in ("cls_logits", "pose_pred", "code_pred"):
             _conv(sd, f"head.{name}", node)
         else:
             raise KeyError(f"unexpected head module {name!r}")

@@ -93,7 +93,7 @@ def build_quant_state(folded: Mapping[str, torch.Tensor],
 
 
 def quantize_posenet(model_cfg, n_fg: int, folded: Mapping[str, torch.Tensor],
-                     calib_batches: Iterable, device="cpu"):
+                     calib_batches: Iterable, device="cuda"):
     """One-call PTQ of a BN-folded PoseNet state_dict: calibrate on
     `calib_batches` on `device`, quantize, and return (the quant_mode="quant"
     PoseNet on `device` in eval mode, its state_dict). `model_cfg` must have

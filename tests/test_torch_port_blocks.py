@@ -210,12 +210,15 @@ def test_darknet53_posenet_forward_shapes_and_raises():
     assert r.shape == (1, cfg.num_cells, 15 * 16)
     import dataclasses
     # bfloat16, remat, the folded form and its int8 PTQ forms build; int8
-    # PTQ needs the fold, and the code head waits for its ROADMAP item
+    # PTQ needs the fold; the binary-code head adds a third output
     for kw in (dict(compute_dtype="bfloat16"), dict(remat=True), dict(bn_folded=True),
                dict(bn_folded=True, quant_mode="calibrate"),
                dict(bn_folded=True, quant_mode="quant")):
         PoseNet(dataclasses.replace(cfg, **kw))
     with pytest.raises(ValueError, match="BN-folded"):
         PoseNet(dataclasses.replace(cfg, quant_mode="quant"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        PoseNet(dataclasses.replace(cfg, code_bits=4))
+    net = PoseNet(dataclasses.replace(cfg, code_bits=4), n_fg=15).eval()
+    with torch.no_grad():
+        out = net(torch.zeros((1, 128, 128, 3)))
+    assert [tuple(o.shape) for o in out] == [(1, cfg.num_cells, 15), (1, cfg.num_cells, 15 * 16),
+                                             (1, cfg.num_cells, 15 * (4 + 2))]

@@ -243,7 +243,8 @@ def test_quant_export_roundtrip(setup, tmp_path):
     images, bt, ids = _request()
     cfg_f = cfg.replace(model=dataclasses.replace(cfg.model, bn_folded=True))
     folded = fold_batchnorm(net)
-    net_q, _ = quantize_posenet(cfg_f.model, 15, folded, [torch.from_numpy(images)])
+    net_q, _ = quantize_posenet(cfg_f.model, 15, folded, [torch.from_numpy(images)],
+                                device="cpu")
     cfg_q = cfg_f.replace(model=dataclasses.replace(cfg_f.model, quant_mode="quant"))
     meta_f = export_inference(cfg_f, consts, folded, str(tmp_path / "f.pt2"), batch_size=B,
                               device="cpu")

@@ -255,7 +255,7 @@ def test_quantize_posenet_end_to_end(folded_pair):
     magnitude (measured 0.017); bf16 compute runs the same int8 sums."""
     _, tcfg_f, _, sd, xs = folded_pair
     calib = [torch.from_numpy(x) for x in xs]
-    net_q, state = quant.quantize_posenet(tcfg_f, N_FG, sd, calib)
+    net_q, state = quant.quantize_posenet(tcfg_f, N_FG, sd, calib, device="cpu")
     assert not net_q.training and any(v.dtype == torch.int8 for v in state.values())
     net_f = PoseNet(tcfg_f, n_fg=N_FG).eval()
     net_f.load_state_dict(sd, strict=True)
@@ -265,7 +265,7 @@ def test_quantize_posenet_end_to_end(folded_pair):
     assert (qc - fc).abs().max() <= 0.05 * fc.abs().max()
     assert torch.isfinite(qr).all()
     net_b, _ = quant.quantize_posenet(dataclasses.replace(tcfg_f, compute_dtype="bfloat16"),
-                                      N_FG, sd, calib)
+                                      N_FG, sd, calib, device="cpu")
     with torch.no_grad():
         bc, _ = net_b(calib[0])
     assert bc.dtype == torch.float32 and torch.isfinite(bc).all()
@@ -299,7 +299,8 @@ def test_kd_train_step_with_int8_teacher():
     folded = fold_batchnorm(raw)
     t_folded = PoseNet(cfg_t.model, n_fg=N_FG).eval()
     t_folded.load_state_dict(folded, strict=True)
-    t_int8, _ = quant.quantize_posenet(cfg_t.model, N_FG, folded, [batch.images])
+    t_int8, _ = quant.quantize_posenet(cfg_t.model, N_FG, folded, [batch.images],
+                                       device="cpu")
     cfg_tq = cfg_t.replace(model=dataclasses.replace(cfg_t.model, quant_mode="quant"))
 
     u = torch.rand((4, cfg.model.num_cells, 2), generator=torch.Generator().manual_seed(3))
