@@ -15,25 +15,30 @@ Phases:
            ptxas's register and spill lines.
   kernel   in fp32 and in bf16, at the serving shapes (B=8: stem 3->8
            @256², s2 8->16 @128²) holds K2 (conv3x3_bn_act_flat) and K3
-           (conv3x3_bn_act_stacked), K2 also at the eval batch (B=24) and
-           at the other DarkNet plans' stem shapes (VARIANT_SHAPES, B=8:
+           (conv3x3_bn_act_stacked), K2 also at the eval batch (B=24), and
+           both at the other DarkNet plans' stem shapes (VARIANT_SHAPES, B=8:
            3->16 @256², 16->32 @128², 3->32 @256², 32->32 @128², 12->8
-           @128², 32->64 @128²; K3 there too in bf16), against their plain
-           PyTorch versions on the card: fp32 atol 1e-4, bf16 within one
-           bf16 rounding of the plain output (|k - p| <= 2^-7 |p| + 1e-3).
-           Each is timed with CUDA events beside its bound, the plain
-           version and one library call in the same dtype (F.conv2d /
-           matmul + affine + leaky_relu, a yardstick only). The bound's
-           operation term counts an fp32 instance that runs on the tensor
-           cores (K2_MMA) as three TF32 products per product, and bf16
-           products at the bf16 tensor-core rate. K2 also at the edges of
-           its mappings (K2_EDGES: the stem at 255², 41x61 and 33x30, s2 at
-           67x61 and 30², and outside the two serving instances 16->64
-           @20², 5->12 @9x7), and K3 at its (K3_EDGES: each serving-instance
-           kernel at B=1, odd M at both, a ragged tile at 30², the general
-           kernel at 3->16 and 16->32), in both dtypes, held the same way,
-           times logged. The fp32 stem segment in both forms against its
-           plain version (atol 1e-4).
+           @128², 32->64 @128²; every shape and type conv3x3_igemm serves),
+           against their plain PyTorch versions on the card: fp32 atol 1e-4,
+           bf16 within one bf16 rounding of the plain output (|k - p| <=
+           2^-7 |p| + 1e-3). Each is timed with CUDA events beside its
+           bound, the plain version and one library call in the same dtype
+           (F.conv2d / matmul + affine + leaky_relu, a yardstick only). The
+           bound's operation term counts an fp32 shape whose products run on
+           the tensor cores (fp32_on_tensor_cores: all but K2's stem
+           instance and K3's two streaming instances) as three TF32
+           products per product, and bf16 products at the bf16 tensor-core
+           rate. K2 also at the edges of its mappings (K2_EDGES: the stem
+           at 255², 41x61 and 33x30, s2 at 67x61 and 30², then
+           conv3x3_igemm's: 16->64 @20², 5->12 @9x7, a partial channel
+           octet at C = 5 and 20, eight octets through the staging ring at
+           C = 64, O = 12, 24 and 72 (the 128-output tiling past 64), two
+           passes of 128 outputs at O = 136, odd M, a ragged last tile at
+           32->64 and B = 1), and K3 at its (K3_EDGES: each
+           serving-instance kernel at B=1, odd M at both, a ragged tile at
+           30², conv3x3_igemm at 3->16, 16->32 and the same new edges), in
+           both dtypes, held the same way, times logged. The fp32 stem
+           segment in both forms against its plain version (atol 1e-4).
            Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
            problems of P = T = 64 points in [0, 1]², a quarter of the
            weights zero) against its plain version: each of the four
@@ -261,20 +266,27 @@ ZEBRA_PER_CALL = 5
 ZEBRA_EVAL = 16
 ZEBRA_TIMED = 10
 ZEBRA_POST_RUNS = 5
+# the edges of conv3x3_igemm's mapping (B, C, O, H, W), each in both forms:
+# a partial channel octet (C = 5, O = 12, M = 23 * 31 odd, B = 1); C = 20
+# (a partial third octet) with O = 72 (past 64: the 128-output tiling); C =
+# 64 (eight octets through the staging ring) with O = 24, M odd, B = 1;
+# 32 -> 64 with a ragged last tile of 256 columns; O = 136, two passes of
+# 128 outputs over the block's columns
+IGEMM_EDGES = ((1, 5, 12, 23, 29), (2, 20, 72, 10, 13), (1, 64, 24, 17, 19),
+               (3, 32, 64, 37, 45), (1, 3, 136, 7, 6))
 # K2's edge shapes (B, C, O, H, W): the stem kernel at each row-shift
 # remainder (W + 2) % 4 = 1, 3, 0 (M odd in the first two), the s2 kernel
-# with M odd and with a ragged last tile, then two shapes of the general
-# kernel
+# with M odd and with a ragged last tile, then shapes of conv3x3_igemm
 K2_EDGES = ((1, 3, 8, 255, 255), (1, 3, 8, 41, 61), (1, 3, 8, 33, 30),
             (3, 8, 16, 67, 61), (2, 8, 16, 30, 30), (2, 16, 64, 20, 20),
-            (2, 5, 12, 9, 7))
+            (2, 5, 12, 9, 7)) + IGEMM_EDGES
 # K3's edge shapes (B, C, O, H, W): each serving-instance kernel at B = 1
 # (both with a ragged last tile), M = H * (W + 2) odd (the 4-byte path) at
-# each instance, a ragged last tile at B = 2, then the general kernel at the
-# eval stems of darknet ref and tiny (3 -> 16, 16 -> 32)
+# each instance, a ragged last tile at B = 2, then conv3x3_igemm at the
+# eval stems of darknet ref and tiny (3 -> 16, 16 -> 32) and its edges
 K3_EDGES = ((1, 3, 8, 256, 256), (1, 8, 16, 128, 128), (1, 3, 8, 41, 61),
             (3, 8, 16, 67, 61), (2, 8, 16, 30, 30), (2, 3, 16, 64, 64),
-            (2, 16, 32, 32, 32))
+            (2, 16, 32, 32, 32)) + IGEMM_EDGES
 # the eval stems of the other DarkNet plans (tag, C, O, H = W), B = 8: tiny
 # and ref (3 -> 16 @256², 16 -> 32 @128²), tiny-h-wide (3 -> 32, 32 -> 32),
 # the space-to-depth stem's first conv (12 -> 8 @128²; its second is s2's
@@ -282,9 +294,17 @@ K3_EDGES = ((1, 3, 8, 256, 256), (1, 8, 16, 128, 128), (1, 3, 8, 41, 61),
 VARIANT_SHAPES = (("tiny_stem", 3, 16, RES), ("tiny_s2", 16, 32, RES // 2),
                   ("wide_stem", 3, 32, RES), ("wide_s2", 32, 32, RES // 2),
                   ("s2d_stem", 12, 8, RES // 2), ("19_s2", 32, 64, RES // 2))
-# the (C, O) instances of K2 whose fp32 products run on the tensor cores in
-# 3xTF32 (csrc/conv3x3_bn_act.cu, dispatch_flat)
-K2_MMA = ((8, 16),)
+
+
+def fp32_on_tensor_cores(stacked: bool, C: int, O: int) -> bool:
+    """Whether K2 (or K3, stacked) in fp32 at (C, O) runs its products on the
+    tensor cores, as csrc/conv3x3_bn_act.cu dispatches it: every shape in
+    3xTF32 (conv3x3_flat_mma at K2's 8 -> 16, conv3x3_igemm elsewhere) but
+    the FFMA instances, K2's stem (conv3x3_flat_tiled, 3 -> 8) and K3's
+    two streaming ones (conv3x3_stacked_stream, 3 -> 8 and 8 -> 16)."""
+    return (C, O) not in (((3, 8), (8, 16)) if stacked else ((3, 8),))
+
+
 CONV_SRC = "kd6d_pose_adlp_tpu_torch/csrc/conv3x3_bn_act.cu"
 SINKHORN_SRC = "kd6d_pose_adlp_tpu_torch/csrc/sinkhorn_potentials.cu"
 REPLACES = {
@@ -370,13 +390,14 @@ def conv_bound(in_bytes: int, B: int, C: int, O: int, M: int, mma: bool = False,
 def k2_bound(B: int, C: int, O: int, H: int, W: int, elem: int = 4):
     """conv_bound of K2 (the flat form) on its (B, C, (H+2)(W+2)+2) slab."""
     return conv_bound(elem * B * C * ((H + 2) * (W + 2) + 2), B, C, O, H * (W + 2),
-                      mma=(C, O) in K2_MMA, elem=elem)
+                      mma=fp32_on_tensor_cores(False, C, O), elem=elem)
 
 
 def k3_bound(B: int, C: int, O: int, H: int, W: int, elem: int = 4):
     """conv_bound of K3 (the stacked form) on its (B, 9, C, H(W+2)) stack."""
     M = H * (W + 2)
-    return conv_bound(elem * B * 9 * C * M, B, C, O, M, elem=elem)
+    return conv_bound(elem * B * 9 * C * M, B, C, O, M,
+                      mma=fp32_on_tensor_cores(True, C, O), elem=elem)
 
 
 def kernel_gate(torch, got, want) -> tuple:
@@ -481,7 +502,8 @@ def kernel_phase(torch, F, cf, dev):
     for dtype in (torch.float32, torch.bfloat16):
         # K2 and K3 at the serving batch; K2 also at the eval batch, where
         # the evaluators run the eval-mode stem once per chunk (K3 is off
-        # that path); K2 and K3 at the other DarkNet plans' stem shapes
+        # that path); K2 and K3 at the other DarkNet plans' stem shapes,
+        # in both types
         for tag, (C, O, H, W) in shapes.items():
             r, params[(tag, dtype)] = conv_rows(torch, F, cf, dev, g, BATCH, tag, C, O, H,
                                                 W, dtype, stacked_too=True)
@@ -491,7 +513,7 @@ def kernel_phase(torch, F, cf, dev):
                               stacked_too=False)[0]
         for tag, C, O, H in VARIANT_SHAPES:
             rows += conv_rows(torch, F, cf, dev, g, BATCH, tag, C, O, H, H, dtype,
-                              stacked_too=dtype == torch.bfloat16)[0]
+                              stacked_too=True)[0]
         conv_edges(torch, cf, dev, g, stacked=False, dtype=dtype)
         conv_edges(torch, cf, dev, g, stacked=True, dtype=dtype)
 
@@ -533,7 +555,7 @@ def kernel_phase(torch, F, cf, dev):
 
 def conv_edges(torch, cf, dev, g, stacked: bool, dtype):
     """K2 at K2_EDGES, or K3 at K3_EDGES (stacked), in `dtype`: the edges of
-    their thread mappings and shapes of the general kernel. All columns
+    their thread mappings and shapes of conv3x3_igemm. All columns
     against the plain version (kernel_gate), in fp32 the valid ones also
     against the library conv; each time is logged, not a row of the
     kernels line."""

@@ -14,14 +14,14 @@
 //
 // Types, as on the TPU: x, w and out are all fp32 (the *_flat / *_stacked
 // entry points) or all bf16 (*_bf16), scale and bias fp32; every kernel
-// sums in fp32 and rounds its output once. Each form below takes the
-// element type T as a template parameter and converts on load; shared
-// memory holds fp32. In bf16 each load moves half the bytes, and the s2
-// instance runs native bf16 tensor-core products (conv3x3_flat_mma_bf16,
-// mma.sync m16n8k16, fp32 accumulators): one product per pair of taps and
-// 8 columns, exact products of bf16 inputs, where fp32 needs three TF32
-// products per tap. The stacked form's streaming instances are fp32 only;
-// in bf16 every stacked shape runs the general kernel.
+// sums in fp32 and rounds its output once. The stem instance takes the
+// element type T as a template parameter and converts on load into fp32
+// shared memory; the tensor-core kernels keep bf16 as bf16. In bf16 each
+// load moves half the bytes, and the products are native bf16 tensor-core
+// products (mma.sync m16n8k16, fp32 accumulators): one product per pair of
+// taps and 8 channels, exact products of bf16 inputs, where fp32 needs
+// three TF32 products per tap. The stacked form's streaming instances are
+// fp32 only; in bf16 every stacked shape runs conv3x3_igemm.
 //
 // What bounds the flat form (K2) on an H100, at the two shapes the serving
 // stem gives it (B = 8): the stem, 3 -> 8 at 256^2, reads 6.4 MB and writes
@@ -69,12 +69,51 @@
 // block, which fold their sums through shared memory: 16 warps a SM, each
 // with half the chain.
 //
-// Every other flat and stacked shape runs conv3x3_bn_act_kernel, the first
-// design: one block per (b, strip of P * 256 columns) with the strip staged
-// synchronously (flat form) or read straight from global memory (stacked
-// form), runtime C, O tiled by OT, weights in shared memory transposed to
-// [tap][c][o] for 16-byte broadcast loads. P (columns per thread) is picked
-// per shape to keep at least two blocks per SM in flight.
+// Every other shape of either form, in either type, runs conv3x3_igemm, an
+// implicit GEMM on the tensor cores: out (O x M) = A (O x 9C) B (9C x M)
+// with B's row (tap t, channel c) the slab shifted by off_t (flat form) or
+// the stack's row xs[b, t, c] (stacked form). It replaces K2 at every flat
+// shape but 3 -> 8 and 8 -> 16, and K3 at every bf16 shape and every fp32
+// shape but those two; on the main path those are the DarkNet variants'
+// eval-mode stems (B = 8: 3 -> 16 and 3 -> 32 @256², 16 -> 32, 32 -> 32
+// and 12 -> 8 @128², and DarkNet-19's 32 -> 64) and the bf16 serving stem
+// under the stacked hook (3 -> 8, 8 -> 16). Counted with the products on
+// the tensor cores (fp32 three TF32 products each), the flat form is bound
+// by bytes in bf16 (the output is most of them) and in fp32 up to 16 -> 32;
+// fp32 at 32 -> 32 and 32 -> 64 is bound by its 3xTF32 products (e.g.
+// 14.6 GFLOP at 32 -> 64, 29.5 us at 495 TFLOP/s, against 15.4 us of
+// bytes). The stacked form reads 9 C rows a column and is bound by bytes
+// at every shape. What the design does about it:
+// - one block takes NCOL columns of one image for every output (16 MT a
+//   pass, sums in registers, MT x NG m16n8 tiles a warp), so each input
+//   element is staged once, and the outputs-by-tiles loop runs over shared
+//   memory, not over device memory;
+// - the reduction goes through shared memory in stages, one channel octet
+//   under all nine taps (flat) or 16 (fp32) / 32 (bf16) stack rows
+//   (stacked), with that stage's weights already in mma fragment order (one
+//   16-byte load a fragment); a ring of three (two for flat bf16) stages
+//   the next while one is multiplied, so any C and O are taken. cp.async
+//   fills it where the source is aligned; the flat bf16 strip cannot be
+//   (a shifted window, transposed into columns) and is gathered through
+//   registers, 4-byte column pairs where the slab's rows allow;
+// - fp32 runs 3xTF32 m16n8k8 (split_tf32; one plain TF32 product misses by
+//   ~1e-3 of each term), two taps of four channels a k8 step at C <= 4;
+//   bf16 m16n8k16, kept as bf16 in shared memory;
+// - the flat form's tap shifts are arbitrary element counts, so its B
+//   fragments are 4-byte shared loads at the shifted column (ldmatrix and
+//   wgmma descriptors need 16-byte aligned rows): fp32 from channel rows
+//   8 words mod 32 apart, bf16 from 16-byte columns of 8 channels (a tap
+//   pair's k16 step), both 32 banks a warp; the stacked form has no shift,
+//   so its bf16 fragments come by ldmatrix.trans from rows padded to 16
+//   bytes mod 128, and its rows by 16-byte cp.async where M allows;
+// - mma.sync, not wgmma: at O <= 64 a 64-row warpgroup tile would be mostly
+//   padding, and the shifted B fragments cannot be described to wgmma.
+// Sums are fp32 in either type; the epilogue applies the affine and the
+// LeakyReLU and rounds once. On an H100 80GB HBM3 at 700 W (B = 8) the
+// stacked form runs at 1.4-2.1x its byte bound, the flat form at 2.1-5.6x
+// (fp32 at C = 32 3.4-4.1x its 3xTF32 bound: mma.sync reaches about half
+// the TF32 rate; bf16 waits on its register gather and per-stage loads);
+// PERF.md has the times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,9 +124,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;
-constexpr int kNumSMs = 132;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -115,151 +151,6 @@ __device__ __forceinline__ void store4(T* p, float v0, float v1, float v2,
     u.y = *reinterpret_cast<const unsigned*>(&hi);
     *reinterpret_cast<uint2*>(p) = u;
   }
-}
-
-template <typename T, int OT, int P, bool STACKED>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_bn_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ bias, T* __restrict__ out,
-                      int C, int O, int OP, int Wp, int L, int M, float alpha) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int kTile = kThreads * P;
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int span = kTile + 2 * Wp + 2;
-
-  float* ws = smem;               // [9][C][OP] weights, zero past O
-  float* ss = ws + 9 * C * OP;    // [OP] scale
-  float* bs = ss + OP;            // [OP] bias
-  float* xs = bs + OP;            // [C][span] input strip (flat form)
-
-  for (int i = tid; i < 9 * C * OP; i += kThreads) {
-    const int o = i % OP;
-    const int tc = i / OP;
-    const int c = tc % C;
-    const int t = tc / C;
-    ws[i] = o < O ? to_f(w[(t * O + o) * C + c]) : 0.f;
-  }
-  for (int i = tid; i < OP; i += kThreads) {
-    ss[i] = i < O ? scale[i] : 0.f;
-    bs[i] = i < O ? bias[i] : 0.f;
-  }
-  if (!STACKED) {
-    const T* xb = x + (size_t)b * C * L;
-    for (int c = 0; c < C; ++c) {
-      for (int i = tid; i < span; i += kThreads) {
-        const int g = m0 + i;
-        xs[c * span + i] = g < L ? to_f(xb[(size_t)c * L + g]) : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int o0 = 0; o0 < OP; o0 += OT) {
-    float acc[P][OT];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int q = 0; q < OT; ++q) acc[p][q] = 0.f;
-
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const int off = (t / 3) * Wp + (t % 3);
-#pragma unroll 1
-      for (int c = 0; c < C; ++c) {
-        float xv[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const int ml = p * kThreads + tid;
-          if (STACKED) {
-            const int m = m0 + ml;
-            xv[p] = m < M ? to_f(x[(((size_t)b * 9 + t) * C + c) * M + m]) : 0.f;
-          } else {
-            xv[p] = xs[c * span + ml + off];
-          }
-        }
-        const float4* w4 =
-            reinterpret_cast<const float4*>(ws + (t * C + c) * OP + o0);
-#pragma unroll
-        for (int q = 0; q < OT / 4; ++q) {
-          const float4 wv = w4[q];
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            acc[p][4 * q + 0] = fmaf(wv.x, xv[p], acc[p][4 * q + 0]);
-            acc[p][4 * q + 1] = fmaf(wv.y, xv[p], acc[p][4 * q + 1]);
-            acc[p][4 * q + 2] = fmaf(wv.z, xv[p], acc[p][4 * q + 2]);
-            acc[p][4 * q + 3] = fmaf(wv.w, xv[p], acc[p][4 * q + 3]);
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int q = 0; q < OT; ++q) {
-      const int o = o0 + q;
-      if (o < O) {
-        const float sc = ss[o];
-        const float bi = bs[o];
-        T* ob = out + ((size_t)b * O + o) * M;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const int m = m0 + p * kThreads + tid;
-          if (m < M) {
-            const float v = acc[p][q] * sc + bi;
-            ob[m] = from_f<T>(v >= 0.f ? v : alpha * v);
-          }
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int OT, int P, bool STACKED>
-cudaError_t launch(const T* x, const T* w, const float* scale,
-                   const float* bias, T* out, int B, int C, int O, int Wp,
-                   int L, int M, float alpha, cudaStream_t stream) {
-  const int OP = (O + OT - 1) / OT * OT;
-  constexpr int kTile = kThreads * P;
-  size_t smem = sizeof(float) * (size_t)(9 * C * OP + 2 * OP);
-  if (!STACKED) smem += sizeof(float) * (size_t)C * (kTile + 2 * Wp + 2);
-  if (smem > 227 * 1024) return cudaErrorInvalidConfiguration;
-  auto kernel = conv3x3_bn_act_kernel<T, OT, P, STACKED>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((M + kTile - 1) / kTile, B);
-  kernel<<<grid, kThreads, smem, stream>>>(x, w, scale, bias, out, C, O, OP,
-                                           Wp, L, M, alpha);
-  return cudaGetLastError();
-}
-
-// columns per thread: the widest strip that still leaves >= 2 blocks per SM
-int pick_p(int M, int B) {
-  for (int p = 4; p > 1; p /= 2) {
-    const long blocks = (long)((M + kThreads * p - 1) / (kThreads * p)) * B;
-    if (blocks >= 2L * kNumSMs) return p;
-  }
-  return 1;
-}
-
-template <typename T, bool STACKED>
-cudaError_t dispatch(const T* x, const T* w, const float* scale,
-                     const float* bias, T* out, int B, int C, int O,
-                     int Wp, int L, int M, float alpha, cudaStream_t s) {
-  if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
-  const int p = pick_p(M, B);
-  if (O <= 8) {
-    if (p == 4) return launch<T, 8, 4, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-    if (p == 2) return launch<T, 8, 2, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-    return launch<T, 8, 1, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-  }
-  if (p == 4) return launch<T, 16, 4, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-  if (p == 2) return launch<T, 16, 2, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
-  return launch<T, 16, 1, STACKED>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -751,8 +642,555 @@ cudaError_t launch_mma_bf16(const bf16* x, const bf16* w, const float* scale,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// every other shape: implicit GEMM on the tensor cores (conv3x3_igemm)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async_16b(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// four 8x8 bf16 matrices, transposed: thread (g, tg) gets, of each matrix,
+// the elements (rows 2 tg, 2 tg + 1; column g) in one register; lanes
+// 8 i .. 8 i + 7 give the 16-byte row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+constexpr int kIgWarps = 8;
+constexpr int kIgThreads = kIgWarps * 32;
+
+// The k structure of one staged chunk of the reduction (a "stage"):
+//   flat form, one channel octet (8 channels, zero past C) under all nine
+//     taps: fp32 one m16n8k8 step a tap (k = the 8 channels); bf16 one
+//     m16n8k16 step a tap pair (k 0..7 tap 2p, 8..15 tap 2p + 1; a tenth
+//     tap of zeros);
+//   stacked form, kRows consecutive rows k = t * C + c of the (9 C, M) tap
+//     stack, zero past 9 C: two mma steps a stage.
+//   QUAD (flat fp32, C <= 4): one m16n8k8 step a tap pair, k 0..3 tap 2p's
+//     four channels, 4..7 tap 2p + 1's: five steps, not nine.
+// A block tile is kCols output columns, NG groups of 8 a warp, by MT m16
+// tiles of outputs (16 MT outputs a pass over the stages).
+template <typename T, bool STACKED, int MT, int NG, bool QUAD = false>
+struct IgCfg {
+  static constexpr bool kF32 = std::is_same_v<T, float>;
+  static constexpr int kK = kF32 ? 8 : 16;                         // k a step
+  static constexpr int kSteps = STACKED ? 2 : (kF32 && !QUAD ? 9 : 5);  // steps a stage
+  static constexpr int kRows = 2 * kK;                             // stacked rows a stage
+  static constexpr int kCols = kIgWarps * NG * 8;
+  static constexpr int kWBytes = kSteps * MT * 32 * 16;            // A fragments
+  // stages in the ring: the cp.async forms keep two in flight while one is
+  // multiplied; the flat bf16 strip is gathered through registers
+  static constexpr int kBufs = STACKED || kF32 ? 3 : 2;
+  // input bytes of a ring stage for row stride S: flat fp32 [8][S] floats
+  // ([4][S] in QUAD); flat bf16 [S] columns of 8 channels, 16 bytes each;
+  // stacked [kRows][S] elements
+  static __host__ __device__ constexpr int in_bytes(int S) {
+    return STACKED ? kRows * S * (int)sizeof(T) : (kF32 ? (QUAD ? 16 : 32) : 16) * S;
+  }
+  static __host__ __device__ int stages(int C) {
+    return STACKED ? (9 * C + kRows - 1) / kRows : (C + 7) / 8;
+  }
+};
+
+// Stage `st` of the reduction for outputs o0 .. o0 + 16 MT - 1 of the tile
+// at column m0 into ring buffer `buf`: its A fragments (weights, zero past
+// O, C and the ninth tap) in fragment order, [step][mt][lane] 16 bytes each,
+// then its input, by cp.async where the source allows it (fp32 always; bf16
+// weights when C is even, stacked rows 16 bytes at a time with `vec`),
+// plain loads otherwise, a thread's loads all ahead of its stores;
+// zeros are stored directly. The flat bf16 strip is gathered through
+// registers into 16-byte columns of 8 channels: column pairs by 4-byte
+// loads where the slab's rows are 4-byte aligned (`vec`), else by 2-byte
+// loads.
+template <typename T, bool STACKED, int MT, int NG, bool QUAD>
+__device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict__ x,
+                                         const T* __restrict__ w,
+                                         int st, int o0, int b, int m0, int C, int O, int L,
+                                         int M, int S, bool vec) {
+  using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
+  const int tid = threadIdx.x;
+  // weights: word e of the stage's fragments, for output o and reduction
+  // index kk of its step; fp32 a word an element, bf16 a word a pair of
+  // consecutive k
+  unsigned* wd = reinterpret_cast<unsigned*>(buf);
+  constexpr int NW = Cfg::kWBytes / 4;
+  auto word = [&](int e, int& o, int& kk) {
+    const int r = e & 3, ln = (e >> 2) & 31;
+    o = o0 + ((e >> 7) % MT) * 16 + (ln >> 2) + 8 * (r & 1);
+    kk = Cfg::kF32 ? (ln & 3) + 4 * (r >> 1) : 2 * (ln & 3) + 8 * (r >> 1);
+  };
+  // (tap, channel) of reduction index kk of word e's step, and whether the
+  // weight exists (tap < 9, channel < C, output < O)
+  auto tap_ch = [&](int e, int o, int kk, int& t, int& c) {
+    const int step = (e >> 7) / MT;
+    if constexpr (STACKED) {
+      const int k = st * Cfg::kRows + step * Cfg::kK + kk;
+      t = k / C;
+      c = k - t * C;
+    } else if constexpr (QUAD) {
+      t = 2 * step + (kk >> 2);
+      c = kk & 3;
+    } else if constexpr (Cfg::kF32) {
+      t = step;
+      c = 8 * st + kk;
+    } else {
+      t = 2 * step + (kk >> 3);
+      c = 8 * st + (kk & 7);
+    }
+    return o < O && t < 9 && c < C;
+  };
+  if (Cfg::kF32 || (C & 1) == 0) {
+    // a word is one fp32 weight, or (bf16, C even) two neighbours of one
+    // tap, 4-byte aligned, or absent as a whole
+    for (int e = tid; e < NW; e += kIgThreads) {
+      int o, kk, t, c;
+      word(e, o, kk);
+      if (tap_ch(e, o, kk, t, c)) {
+        cp_async4(reinterpret_cast<float*>(wd + e),
+                  reinterpret_cast<const float*>(w + ((size_t)t * O + o) * C + c));
+      } else {
+        wd[e] = 0u;
+      }
+    }
+  } else if constexpr (!Cfg::kF32) {
+    // C odd: two 2-byte loads a word, all of a thread's ahead of its
+    // stores
+    constexpr int PER = (NW + kIgThreads - 1) / kIgThreads;
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    unsigned v[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int e = tid + k * kIgThreads;
+      bf16 lo = zero, hi = zero;
+      if (e < NW) {
+        int o, kk, t, c;
+        word(e, o, kk);
+        if (tap_ch(e, o, kk, t, c)) lo = w[((size_t)t * O + o) * C + c];
+        if (tap_ch(e, o, kk + 1, t, c)) hi = w[((size_t)t * O + o) * C + c];
+      }
+      v[k] = pack_bf16(lo, hi);
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (tid + k * kIgThreads < NW) wd[tid + k * kIgThreads] = v[k];
+  }
+
+  unsigned char* in = buf + Cfg::kWBytes;
+  constexpr int NCOL = Cfg::kCols;
+  if constexpr (STACKED) {
+    // kRows rows of the (9 C, M) stack of image b: row k is xs[b, k / C, k % C]
+    constexpr int R = Cfg::kRows;
+    const int K = 9 * C;
+    const int k0 = st * R;
+    T* tile = reinterpret_cast<T*>(in);
+    const T* xb = x + (size_t)b * K * M + m0;
+    if (vec) {
+      constexpr int V = 16 / sizeof(T);  // elements a 16-byte copy
+      for (int e = tid; e < R * NCOL / V; e += kIgThreads) {
+        const int kk = e / (NCOL / V), i = (e % (NCOL / V)) * V;
+        T* d = tile + kk * S + i;
+        if (k0 + kk < K && m0 + i < M) {
+          cp_async_16b(d, xb + (size_t)(k0 + kk) * M + i);
+        } else {
+          *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    } else if constexpr (Cfg::kF32) {
+      for (int e = tid; e < R * NCOL; e += kIgThreads) {
+        const int kk = e / NCOL, i = e % NCOL;
+        float* d = tile + kk * S + i;
+        if (k0 + kk < K && m0 + i < M) {
+          cp_async4(d, xb + (size_t)(k0 + kk) * M + i);
+        } else {
+          *d = 0.f;
+        }
+      }
+    } else {
+      // rows not 16-byte aligned: 2-byte loads, eight a thread in flight
+      constexpr int NE = R * NCOL / kIgThreads, CH = 8;
+      static_assert(NE % CH == 0, "the tile splits into batches of CH a thread");
+#pragma unroll 1
+      for (int k0e = 0; k0e < NE; k0e += CH) {
+        bf16 v[CH];
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+          const int e = tid + (k0e + k) * kIgThreads;
+          const int kk = e / NCOL, i = e % NCOL;
+          v[k] = k0 + kk < K && m0 + i < M ? xb[(size_t)(k0 + kk) * M + i]
+                                           : __float2bfloat16_rn(0.f);
+        }
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+          const int e = tid + (k0e + k) * kIgThreads;
+          tile[(e / NCOL) * S + e % NCOL] = v[k];
+        }
+      }
+    }
+  } else {
+    // the strip of octet st: columns m0 .. m0 + S - 1 of channels 8 st ..
+    // 8 st + 7; zeros past the slab's end and past C
+    const T* xb = x + (size_t)b * C * L + m0;
+    const int n_in = min(S, L - m0);
+    if constexpr (Cfg::kF32) {
+      float* strip = reinterpret_cast<float*>(in);  // [8][S], QUAD [4][S]
+#pragma unroll 1
+      for (int ch = 0; ch < (QUAD ? 4 : 8); ++ch) {
+        const int c = 8 * st + ch;
+        float* d = strip + ch * S;
+        if (c < C) {
+          const float* src = xb + (size_t)c * L;
+          for (int i = tid; i < S; i += kIgThreads) {
+            if (i < n_in) {
+              cp_async4(d + i, src + i);
+            } else {
+              d[i] = 0.f;
+            }
+          }
+        } else {
+          for (int i = tid; i < S / 4; i += kIgThreads)
+            reinterpret_cast<float4*>(d)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    } else {
+      const int nc = min(8, C - 8 * st);
+      const T* src = xb + (size_t)(8 * st) * L;
+      uint4* cols = reinterpret_cast<uint4*>(in);  // [S] columns of 8 channels
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      if (vec) {
+        // column pairs: a 4-byte load a channel, split into the two
+        // columns' words (low halves: column i; high: i + 1)
+        constexpr int PER = 3;  // pairs a thread in flight
+#pragma unroll 1
+        for (int i0 = 2 * tid; i0 < S; i0 += 2 * PER * kIgThreads) {
+          unsigned v[PER][8];
+#pragma unroll
+          for (int k = 0; k < PER; ++k) {
+            const int i = i0 + 2 * k * kIgThreads;
+#pragma unroll
+            for (int ch = 0; ch < 8; ++ch) {
+              v[k][ch] = 0u;
+              if (ch < nc && i + 1 < n_in) {
+                v[k][ch] = *reinterpret_cast<const unsigned*>(src + (size_t)ch * L + i);
+              } else if (ch < nc && i < n_in) {
+                v[k][ch] = pack_bf16(src[(size_t)ch * L + i], zero);
+              }
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < PER; ++k) {
+            const int i = i0 + 2 * k * kIgThreads;
+            if (i < S) {
+              cols[i] = make_uint4(__byte_perm(v[k][0], v[k][1], 0x5410),
+                                   __byte_perm(v[k][2], v[k][3], 0x5410),
+                                   __byte_perm(v[k][4], v[k][5], 0x5410),
+                                   __byte_perm(v[k][6], v[k][7], 0x5410));
+              cols[i + 1] = make_uint4(__byte_perm(v[k][0], v[k][1], 0x7632),
+                                       __byte_perm(v[k][2], v[k][3], 0x7632),
+                                       __byte_perm(v[k][4], v[k][5], 0x7632),
+                                       __byte_perm(v[k][6], v[k][7], 0x7632));
+            }
+          }
+        }
+      } else {
+        // rows not 4-byte aligned: two columns (16 2-byte loads) a thread in
+        // flight
+        constexpr int CH = 2;
+#pragma unroll 1
+        for (int i0 = tid; i0 < S; i0 += CH * kIgThreads) {
+          bf16 v[CH][8];
+#pragma unroll
+          for (int k = 0; k < CH; ++k) {
+            const int i = i0 + k * kIgThreads;
+#pragma unroll
+            for (int ch = 0; ch < 8; ++ch)
+              v[k][ch] = (ch < nc && i < n_in) ? src[(size_t)ch * L + i] : zero;
+          }
+#pragma unroll
+          for (int k = 0; k < CH; ++k)
+            if (i0 + k * kIgThreads < S)
+              cols[i0 + k * kIgThreads] =
+                  make_uint4(pack_bf16(v[k][0], v[k][1]), pack_bf16(v[k][2], v[k][3]),
+                             pack_bf16(v[k][4], v[k][5]), pack_bf16(v[k][6], v[k][7]));
+        }
+      }
+    }
+  }
+}
+
+// The products of one staged chunk into acc[mt][j] (outputs mt * 16 + g,
+// + 8; columns wcol + 8 j + 2 tg, + 1 of the tile). B fragments come from
+// shared memory with 4-byte loads at each tap's shift (flat form: the
+// shifts are arbitrary element counts, so no ldmatrix), or with ldmatrix
+// (stacked bf16: no shift, rows 16-byte aligned); A fragments are one
+// 16-byte load a (step, m tile), each used for NG column groups.
+template <typename T, bool STACKED, int MT, int NG, bool QUAD>
+__device__ __forceinline__ void ig_compute(const unsigned char* buf, float (&acc)[MT][NG][4],
+                                           int wcol, int Wp, int S) {
+  using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const uint4* wf = reinterpret_cast<const uint4*>(buf) + lane;
+  const unsigned char* xin = buf + Cfg::kWBytes;
+
+  if constexpr (Cfg::kF32) {
+    const float* xs = reinterpret_cast<const float*>(xin);
+#pragma unroll
+    for (int step = 0; step < Cfg::kSteps; ++step) {
+      // B: rows tg, tg + 4 of the step's 8 k; flat: channel rows of the
+      // strip at the tap's shift (QUAD: channel row tg at taps 2 step and
+      // 2 step + 1); stacked: rows of the tile
+      const int t0 = QUAD ? 2 * step : step, t1 = 2 * step + 1;
+      const float* x0 = STACKED ? xs + (step * 8 + tg) * S + wcol + g
+                                : xs + tg * S + wcol + g + (t0 / 3) * Wp + t0 % 3;
+      const float* x1 = STACKED || !QUAD ? x0 + 4 * S
+                                         : xs + tg * S + wcol + g + (t1 / 3) * Wp + t1 % 3;
+      unsigned bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        split_tf32(x0[8 * j], bh[j][0], bl[j][0]);
+        if (QUAD && t1 >= 9) {
+          bh[j][1] = bl[j][1] = 0u;
+        } else {
+          split_tf32(x1[8 * j], bh[j][1], bl[j][1]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 a = wf[(step * MT + mt) * 32];
+        unsigned ahi[4], alo[4];
+        split_tf32(__uint_as_float(a.x), ahi[0], alo[0]);
+        split_tf32(__uint_as_float(a.y), ahi[1], alo[1]);
+        split_tf32(__uint_as_float(a.z), ahi[2], alo[2]);
+        split_tf32(__uint_as_float(a.w), ahi[3], alo[3]);
+        // the three products of a column group go to one accumulator: take
+        // each term across the NG groups, so NG products lie between two
+        // that depend on each other
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma_tf32(acc[mt][j], alo, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma_tf32(acc[mt][j], ahi, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma_tf32(acc[mt][j], ahi, bh[j][0], bh[j][1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int step = 0; step < Cfg::kSteps; ++step) {
+      unsigned bf[NG][2];
+      if constexpr (STACKED) {
+        // rows step * 16 .. + 15 of the tile; matrix i of an x4 load: k half
+        // i & 1 of column group 2 jj + (i >> 1)
+        const bf16* tile = reinterpret_cast<const bf16*>(xin);
+        const int mi = lane >> 3;
+        const bf16* p = tile + (step * 16 + (mi & 1) * 8 + (lane & 7)) * S + wcol + (mi >> 1) * 8;
+#pragma unroll
+        for (int jj = 0; jj < NG / 2; ++jj) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, p + 16 * jj);
+          bf[2 * jj][0] = r[0];
+          bf[2 * jj][1] = r[1];
+          bf[2 * jj + 1][0] = r[2];
+          bf[2 * jj + 1][1] = r[3];
+        }
+      } else {
+        // channel pair (2 tg, 2 tg + 1) of column c: word 4 c + tg
+        const unsigned* xw = reinterpret_cast<const unsigned*>(xin) + tg;
+        const int t0 = 2 * step, t1 = 2 * step + 1;
+        const int c0 = wcol + g + (t0 / 3) * Wp + t0 % 3;
+        const int c1 = wcol + g + (t1 / 3) * Wp + t1 % 3;
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          bf[j][0] = xw[4 * (c0 + 8 * j)];
+          bf[j][1] = t1 < 9 ? xw[4 * (c1 + 8 * j)] : 0u;
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 a4 = wf[(step * MT + mt) * 32];
+        const unsigned a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma_bf16(acc[mt][j], a, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+}
+
+// The implicit GEMM: out[o, m] = act(scale[o] * sum_k A[o, k] B[k, m] +
+// bias[o]) over k = (tap, channel), on the tensor cores (fp32 as 3xTF32,
+// bf16 native). A block takes kCols output columns of image b = blockIdx.y
+// for all O outputs (16 MT a pass, the sums in registers) and walks the
+// reduction's stages through a ring: stages q + 1 .. q + NB - 1 are staged
+// while stage q is multiplied. Each input element is staged once per pass
+// over the outputs; the epilogue applies the affine and LeakyReLU and
+// rounds once.
+template <typename T, bool STACKED, int MT, int NG, bool QUAD>
+__global__ void __launch_bounds__(kIgThreads, 2)
+conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
+              const float* __restrict__ scale, const float* __restrict__ bias,
+              T* __restrict__ out, int C, int O, int Wp, int L, int M, int S,
+              int vec, int vec2, float alpha) {
+  using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
+  constexpr int NB = Cfg::kBufs;
+  constexpr int NCOL = Cfg::kCols;
+  extern __shared__ __align__(16) unsigned char ig_smem[];
+  const int stage_bytes = Cfg::kWBytes + Cfg::in_bytes(S);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int b = blockIdx.y;
+  const int wcol = warp * NG * 8;
+  const int m0 = blockIdx.x * NCOL;
+  const int nst = Cfg::stages(C);
+  const int nq = (O + 16 * MT - 1) / (16 * MT) * nst;  // stages of the block
+
+  // stage q of this block: output group q / nst, reduction chunk q % nst
+  auto stage_in = [&](int q) {
+    ig_stage<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, x, w, q % nst,
+                                       q / nst * 16 * MT, b, m0, C, O, L, M, S, vec);
+  };
+
+  float acc[MT][NG][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][j][r] = 0.f;
+
+  // one commit group a stage (empty past the last), so "all but the NB - 1
+  // newest groups" is always "stage q"
+#pragma unroll
+  for (int p = 0; p < NB - 1; ++p) {
+    if (p < nq) stage_in(p);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q) {
+    if (q + NB - 1 < nq) stage_in(q + NB - 1);
+    cp_async_commit();
+    cp_async_wait(NB - 1);
+    __syncthreads();
+    ig_compute<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, acc, wcol, Wp, S);
+    __syncthreads();
+
+    if (q % nst == nst - 1) {
+      // the last stage of an output group: D rows (outputs) g, g + 8 of
+      // each m tile, columns 2 tg, 2 tg + 1 of each group
+      const int o0 = q / nst * 16 * MT;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = o0 + mt * 16 + g + 8 * h;
+          if (o >= O) continue;
+          const float sc = scale[o], bi = bias[o];
+          T* ob = out + ((size_t)b * O + o) * M;
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            const int m = m0 + wcol + 8 * j + 2 * tg;
+            float v0 = acc[mt][j][2 * h] * sc + bi, v1 = acc[mt][j][2 * h + 1] * sc + bi;
+            v0 = v0 >= 0.f ? v0 : alpha * v0;
+            v1 = v1 >= 0.f ? v1 : alpha * v1;
+            if (vec2 && m + 2 <= M) {
+              if constexpr (Cfg::kF32) {
+                *reinterpret_cast<float2*>(ob + m) = make_float2(v0, v1);
+              } else {
+                *reinterpret_cast<__nv_bfloat162*>(ob + m) = __floats2bfloat162_rn(v0, v1);
+              }
+            } else {
+              if (m < M) ob[m] = from_f<T>(v0);
+              if (m + 1 < M) ob[m + 1] = from_f<T>(v1);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mt][j][r] = 0.f;
+    }
+  }
+}
+
+template <typename T, bool STACKED, int MT, int NG, bool QUAD = false>
+cudaError_t launch_igemm(const T* x, const T* w, const float* scale,
+                         const float* bias, T* out, int B, int C, int O, int Wp,
+                         int L, int M, float alpha, cudaStream_t stream) {
+  using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
+  constexpr int NCOL = Cfg::kCols;
+  int S;
+  if (STACKED) {
+    // rows NCOL + 8 elements apart: fp32 8 words mod 32 (the 4-byte B loads
+    // of 4 rows x 8 columns hit 32 banks); bf16 16 bytes mod 128 (the 8 rows
+    // of an ldmatrix hit 8 different 16-byte bank groups)
+    S = NCOL + 8;
+  } else if (Cfg::kF32) {
+    // reads reach 2 Wp + 2 past the tile's last column; a channel row 8
+    // words mod 32, as for the stacked tile
+    S = (NCOL + 2 * Wp + 2 - 8 + 31) / 32 * 32 + 8;
+  } else {
+    S = (NCOL + 2 * Wp + 2 + 1) / 2 * 2;  // column pairs
+  }
+  const size_t smem = (size_t)Cfg::kBufs * (Cfg::kWBytes + Cfg::in_bytes(S));
+  if (smem > 227 * 1024) return cudaErrorInvalidConfiguration;
+  auto kernel = conv3x3_igemm<T, STACKED, MT, NG, QUAD>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  // stacked: rows by 16-byte copies; flat bf16: the slab's rows 4-byte
+  // aligned, so column pairs load 4 bytes at a time
+  const int vec = STACKED ? M % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                          : L % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  const int vec2 = M % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
+  const dim3 grid((M + NCOL - 1) / NCOL, B);
+  kernel<<<grid, kIgThreads, smem, stream>>>(x, w, scale, bias, out, C, O, Wp, L,
+                                             M, S, vec, vec2, alpha);
+  return cudaGetLastError();
+}
+
+// Every shape outside the serving instances, both forms, both types: the
+// m16 tiles and column groups a warp by O (at most 64 sums a thread).
+template <typename T, bool STACKED>
+cudaError_t dispatch_igemm(const T* x, const T* w, const float* scale,
+                           const float* bias, T* out, int B, int C, int O,
+                           int Wp, int L, int M, float alpha, cudaStream_t s) {
+  if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, float> && !STACKED) {
+    if (C <= 4) {
+      if (O <= 16)
+        return launch_igemm<T, false, 1, 8, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
+                                                  alpha, s);
+      if (O <= 32)
+        return launch_igemm<T, false, 2, 4, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
+                                                  alpha, s);
+      if (O <= 64)
+        return launch_igemm<T, false, 4, 4, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
+                                                  alpha, s);
+      return launch_igemm<T, false, 8, 2, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
+                                                alpha, s);
+    }
+  }
+  if (O <= 16)
+    return launch_igemm<T, STACKED, 1, 8>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  if (O <= 32)
+    return launch_igemm<T, STACKED, 2, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  if (O <= 64)
+    return launch_igemm<T, STACKED, 4, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  // 128 outputs a pass, 128 columns a block
+  return launch_igemm<T, STACKED, 8, 2>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+}
+
 // The flat form: the serving stem's two (C, O) instances on their own
-// kernels, every other shape on the general one. A launch error returns.
+// kernels, every other shape on the implicit GEMM. A launch error returns.
 template <typename T>
 cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
                           const float* bias, T* out, int B, int C, int O,
@@ -774,7 +1212,8 @@ cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
     }
   }
   if (taken || e != cudaSuccess) return e;
-  return dispatch<T, false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  return dispatch_igemm<T, false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha,
+                                 s);
 }
 
 // ---------------------------------------------------------------------------
@@ -944,8 +1383,8 @@ cudaError_t launch_stacked(const float* xs, const float* w, const float* scale,
   return cudaGetLastError();
 }
 
-// The stacked form: the serving stem's two (C, O) instances on their own
-// kernels, every other shape on the general one.
+// The stacked form in fp32: the serving stem's two (C, O) instances on
+// their own kernels, every other shape on the implicit GEMM.
 cudaError_t dispatch_stacked(const float* xs, const float* w,
                              const float* scale, const float* bias, float* out,
                              int B, int C, int O, int M, float alpha,
@@ -962,8 +1401,8 @@ cudaError_t dispatch_stacked(const float* xs, const float* w,
     return launch_stacked<8, 16, 2, 8, 2>(xs, w, scale, bias, out, B, M,
                                           alpha, s);
   }
-  return dispatch<float, true>(xs, w, scale, bias, out, B, C, O, 0, 0, M, alpha,
-                              s);
+  return dispatch_igemm<float, true>(xs, w, scale, bias, out, B, C, O, 0, 0, M,
+                                    alpha, s);
 }
 
 }  // namespace
@@ -1000,12 +1439,12 @@ extern "C" int conv3x3_bn_act_flat_bf16(const bf16* x, const bf16* w,
                                   (cudaStream_t)stream);
 }
 
-// K3 in bf16 runs the general kernel at every (C, O)
+// K3 in bf16 runs the implicit GEMM at every (C, O)
 extern "C" int conv3x3_bn_act_stacked_bf16(const bf16* xs, const bf16* w,
                                            const float* scale,
                                            const float* bias, bf16* out,
                                            int B, int C, int O, int M,
                                            float alpha, void* stream) {
-  return (int)dispatch<bf16, true>(xs, w, scale, bias, out, B, C, O, 0, 0, M,
-                                   alpha, (cudaStream_t)stream);
+  return (int)dispatch_igemm<bf16, true>(xs, w, scale, bias, out, B, C, O, 0, 0,
+                                         M, alpha, (cudaStream_t)stream);
 }

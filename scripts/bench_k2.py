@@ -9,26 +9,30 @@ their source.
 Each source (default: kd6d_pose_adlp_tpu_torch/csrc/conv3x3_bn_act.cu) is
 built with the port's nvcc flags and called through the same C interfaces
 as `ops/conv_fused.conv3x3_bn_act_flat` (K2) and `conv3x3_bn_act_stacked`
-(K3). Each is first held against the plain versions (chip_smoke's
-ATOL_KERNEL, all columns) at the serving shapes (B = 8: stem 3->8 @256²,
-s2 8->16 @128²) and at chip_smoke's K2 and K3 edge shapes, then timed by
-CUDA-graph replay, inputs cycled past the L2 as in chip_smoke.time_cuda,
-the sources in turn and back (a, b, b, a): K2 and K3 at the stem and s2
-shapes and at their edge shapes, and the serving-stem segment
-(`stem_s2_segment_flat`: conv, pool, conv, pool) in both forms built on
-that source's kernels; the flat segment's device kernels are then listed
-(torch.profiler). `--sweep` also
-times K2 and K3 at B = 1, 2, 4, 8 and one tiny graph node (a block's
+(K3), fp32 and bf16. Each is first held against the plain versions
+(chip_smoke.kernel_gate: fp32 within ATOL_KERNEL, bf16 within one bf16
+rounding, all columns) in both types at the serving shapes (B = 8: stem
+3->8 @256², s2 8->16 @128²), at chip_smoke's VARIANT_SHAPES (B = 8: the
+DarkNet variants' stems and DarkNet-19's 32->64, every shape
+conv3x3_igemm serves on the main path) and at chip_smoke's K2 and
+K3 edge shapes, then timed by CUDA-graph replay, inputs cycled past the L2
+as in chip_smoke.time_cuda, the sources in turn and back (a, b, b, a): K2
+and K3 in both types at all of those shapes, and the fp32 serving-stem
+segment (`stem_s2_segment_flat`: conv, pool, conv, pool) in both forms
+built on that source's kernels; the flat segment's device kernels are then
+listed (torch.profiler). The serving and variant rows carry their bounds
+(chip_smoke.k2_bound / k3_bound). `--sweep` also times K2 and K3 at the
+serving shapes at B = 1, 2, 4, 8 and one tiny graph node (a block's
 latency against throughput); `--sass` prints the opcode counts of the
-serving-instance kernels of both forms (cuobjdump). Prints one JSON line,
-then the card's name and power limit; runs only on the card.
+serving-instance kernels and conv3x3_igemm's instances (cuobjdump). Prints
+one JSON line, then the card's name and power limit; runs only on the
+card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
-import math
 import os
 import subprocess
 import sys
@@ -43,10 +47,10 @@ ITERS = 100
 
 
 def sass_histogram(lib_path):
-    """Opcode counts of K2's and K3's serving-instance kernels in the
-    library (conv3x3_flat_*, conv3x3_stacked_*, and the general kernel's
-    stacked instances, mangled ...Lb1E, which K3 ran before it had its own),
-    from cuobjdump -sass: {kernel: {opcode: count}}."""
+    """Opcode counts of K2's and K3's kernels in the library
+    (conv3x3_flat_*, conv3x3_stacked_*, conv3x3_igemm's instances, and a
+    parent source's general kernel conv3x3_bn_act_kernel), from cuobjdump
+    -sass: {kernel: {opcode: count}}."""
     from kd6d_pose_adlp_tpu_torch.utils import cuda_build as cb
 
     cuobjdump = os.path.join(os.path.dirname(cb.nvcc_path()), "cuobjdump")
@@ -58,7 +62,7 @@ def sass_histogram(lib_path):
         if s.startswith("Function :"):
             name = s.split(":", 1)[1].strip()
             keep = ("conv3x3_flat_" in name or "conv3x3_stacked" in name
-                    or ("conv3x3_bn_act_kernel" in name and "Lb1E" in name))
+                    or "conv3x3_igemm" in name or "conv3x3_bn_act_kernel" in name)
             cur = hist.setdefault(name, {}) if keep else None
         elif cur is not None and s.startswith("/*") and "*/" in s:
             body = s.split("*/", 1)[1].strip()
@@ -83,7 +87,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sources", nargs="+", default=[os.path.join(
         ROOT, "kd6d_pose_adlp_tpu_torch", "csrc", "conv3x3_bn_act.cu")])
     ap.add_argument("--sass", action="store_true",
-                    help="print each source's opcode counts of its serving-instance kernels")
+                    help="print each source's opcode counts of its serving-instance kernels "
+                         "and conv3x3_igemm's instances")
     ap.add_argument("--sweep", action="store_true",
                     help="also time K2 and K3 at B = 1, 2, 4, 8 (per-block latency "
                          "against throughput)")
@@ -99,15 +104,19 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs = build(args.sources, {"conv3x3_bn_act_flat": [p, p, p, p, p, i, i, i, i, i, f, p],
-                                "conv3x3_bn_act_stacked": [p, p, p, p, p, i, i, i, i, f, p]})
+    flat_args, stacked_args = [p, p, p, p, p, i, i, i, i, i, f, p], [p, p, p, p, p, i, i, i, i, f, p]
+    libs = build(args.sources, {"conv3x3_bn_act_flat": flat_args,
+                                "conv3x3_bn_act_stacked": stacked_args,
+                                "conv3x3_bn_act_flat_bf16": flat_args,
+                                "conv3x3_bn_act_stacked_bf16": stacked_args})
+    suffix = {torch.float32: "", torch.bfloat16: "_bf16"}
 
     def flat_fn(lib):
         def run(xf, w, sc, bi, *, H, W, alpha=0.1):
             B, C, _ = xf.shape
             O = w.shape[1]
-            out = torch.empty((B, O, H * (W + 2)), device=dev)
-            err = lib.conv3x3_bn_act_flat(
+            out = torch.empty((B, O, H * (W + 2)), device=dev, dtype=xf.dtype)
+            err = getattr(lib, "conv3x3_bn_act_flat" + suffix[xf.dtype])(
                 xf.data_ptr(), w.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(),
                 B, C, O, H, W, alpha, torch.cuda.current_stream().cuda_stream)
             if err != 0:
@@ -119,8 +128,8 @@ def main(argv=None) -> int:
         def run(xs, w, sc, bi, *, alpha=0.1):
             B, _, C, M = xs.shape
             O = w.shape[1]
-            out = torch.empty((B, O, M), device=dev)
-            err = lib.conv3x3_bn_act_stacked(
+            out = torch.empty((B, O, M), device=dev, dtype=xs.dtype)
+            err = getattr(lib, "conv3x3_bn_act_stacked" + suffix[xs.dtype])(
                 xs.data_ptr(), w.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(),
                 B, C, O, M, alpha, torch.cuda.current_stream().cuda_stream)
             if err != 0:
@@ -131,31 +140,34 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
-    def conv_inputs(B, C, O, H, W):
-        k = torch.randn((3, 3, C, O), generator=g, device=dev) * (1.0 / math.sqrt(9 * C))
-        sc = torch.rand((O, 1), generator=g, device=dev) + 0.5
-        bi = torch.randn((O, 1), generator=g, device=dev) * 0.1
-        x = torch.randn((B, H, W, C), generator=g, device=dev)
-        return cf.nhwc_to_flat(x), cf.pack_weights(k), sc, bi
+    def conv_inputs(B, C, O, H, W, dtype=torch.float32):
+        _, w, sc, bi, _, xf = cs.conv_case(torch, cf, g, dev, B, C, O, H, W, dtype)
+        return xf, w, sc, bi
 
     B, R = cs.BATCH, cs.RES
     shapes = {"stem": (B, 3, 8, R, R), "s2": (B, 8, 16, R // 2, R // 2)}
-    inputs = {k: conv_inputs(*v) for k, v in shapes.items()}
+    shapes.update({tag: (B, C, O, H, H) for tag, C, O, H in cs.VARIANT_SHAPES})
     # (key, shape, flat input, weights, scale, bias, kernel input) of K2 and
-    # K3 at the serving shapes, then at their edge shapes
-    cases = []
-    for form, edges in (("K2", cs.K2_EDGES), ("K3", cs.K3_EDGES)):
-        for tag, s, (xf, w, sc, bi) in ([(t, shapes[t], inputs[t]) for t in shapes]
-                                        + [(f"B={e[0]} {e[1]}->{e[2]} @{e[3]}x{e[4]}", e,
-                                            conv_inputs(*e)) for e in edges]):
-            inp = xf if form == "K2" else cf.stack_taps(xf, s[3], s[4])
-            cases.append((f"{form} {tag}", s, xf, w, sc, bi, inp))
+    # K3 in both types at the serving and variant shapes, then at their edge
+    # shapes
+    cases, bounds = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        elem = 2 if dtype == torch.bfloat16 else 4
+        for form, edges, bound in (("K2", cs.K2_EDGES, cs.k2_bound),
+                                   ("K3", cs.K3_EDGES, cs.k3_bound)):
+            named = [(t, shapes[t], conv_inputs(*shapes[t], dtype)) for t in shapes]
+            named += [(f"B={e[0]} {e[1]}->{e[2]} @{e[3]}x{e[4]}", e, conv_inputs(*e, dtype))
+                      for e in edges]
+            for tag, s, (xf, w, sc, bi) in named:
+                inp = xf if form == "K2" else cf.stack_taps(xf, s[3], s[4])
+                key = f"{form} {dname} {tag}"
+                cases.append((key, s, xf, w, sc, bi, inp))
+                if tag in shapes:
+                    bounds[key] = dict(zip(("bound_ms", "bound_by"), bound(*s, elem=elem)))
     seg_x = torch.randn((B, R, R, 3), generator=g, device=dev)
-    seg_p = inputs["stem"][1:] + inputs["s2"][1:]
+    seg_p = conv_inputs(*shapes["stem"])[1:] + conv_inputs(*shapes["s2"])[1:]
 
-    bounds = {f"{form} {tag}": dict(zip(("bound_ms", "bound_by"), bound(*s)))
-              for form, bound in (("K2", cs.k2_bound), ("K3", cs.k3_bound))
-              for tag, s in shapes.items()}
     result = {"card": cs.gpu_name_and_power(), "shapes": shapes, "bounds": bounds,
               "sources": {}}
 
@@ -168,13 +180,13 @@ def main(argv=None) -> int:
         return lambda a: st(a, w, sc, bi)
 
     for name, lib in libs.items():
-        gate = {}
+        gate, agrees = {}, True
         for key, s, xf, w, sc, bi, inp in cases:
             got = kernel_call(lib, key, s, w, sc, bi)(inp)
             torch.cuda.synchronize()
             want = cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=s[3], W=s[4])
-            gate[key] = (got - want).abs().max().item()
-        agrees = all(e <= cs.ATOL_KERNEL for e in gate.values())
+            gate[key], ok = cs.kernel_gate(torch, got, want)
+            agrees = agrees and ok
         result["sources"][name] = dict(
             agrees=agrees, max_abs_err=gate,
             ms={k: [] for k in [c[0] for c in cases] + ["segment", "segment stacked"]})
@@ -190,7 +202,7 @@ def main(argv=None) -> int:
                       flush=True)
 
     def copies(t):
-        return [(t.clone(),) for _ in range(cs.n_copies(4 * t.numel()))]
+        return [(t.clone(),) for _ in range(cs.n_copies(t.element_size() * t.numel()))]
 
     print(f"[clock] before timing: {sm_clock()}", flush=True)
 
@@ -207,7 +219,7 @@ def main(argv=None) -> int:
                 flush=True)
         fn, st = flat_fn(lib), stacked_fn(lib)
         for key, stacked in (("segment", False), ("segment stacked", True)):
-            seg = lambda a: cf._segment(a, *seg_p, 0.1, stacked, fn, st)
+            seg = lambda a: cf._segment(a, *seg_p, 0.1, stacked, True, fn, st)
             ms = cs.time_cuda(torch, seg, copies(seg_x), iters=20)
             result["sources"][name]["ms"][key].append(ms)
             print(f"[time] {name} {key}: {ms * 1e3:.2f} us", flush=True)
@@ -221,7 +233,7 @@ def main(argv=None) -> int:
         for name, lib in libs.items():
             sweep = result["sources"][name]["sweep"] = {}
             for key, s, _, w, sc, bi, inp in cases:
-                if key in bounds:
+                if key in bounds and key.split()[-1] in ("stem", "s2"):
                     for b_ in (1, 2, 4, 8):
                         sweep[f"{key} B={b_}"] = cs.time_cuda(
                             torch, kernel_call(lib, key, s, w, sc, bi),
@@ -231,7 +243,7 @@ def main(argv=None) -> int:
     for name, lib in libs.items():
         # the flat segment's device kernels, eager, under torch.profiler
         fn = flat_fn(lib)
-        prof = cs.profile_request(torch, lambda: cf._segment(seg_x, *seg_p, 0.1, False, fn, None))
+        prof = cs.profile_request(torch, lambda: cf._segment(seg_x, *seg_p, 0.1, False, True, fn, None))
         result["sources"][name]["segment_profile"] = prof
         print(f"[profile] {name} segment: {prof['device_kernels']} kernels, busy "
               f"{prof['device_busy_ms'] * 1e3:.1f} us; "

@@ -27,12 +27,17 @@ from kd6d_pose_adlp_tpu_torch.ops import conv_fused as T
 # odd with (W + 2) % 4 = 3 and 1, and a (C, O) outside the tiled instances;
 # then chip_smoke's K3_EDGES: each serving instance at B = 1 and full size,
 # odd M at both, a ragged tile at 30², and the eval stems of darknet ref and
-# tiny (3 -> 16, 16 -> 32)
+# tiny (3 -> 16, 16 -> 32); then the shapes and mapping edges of the card's
+# implicit GEMM (conv3x3_igemm): the variants' 3 -> 32, 32 -> 32, 32 -> 64
+# and 12 -> 8, a partial channel octet with O past 64 (20 -> 72), odd M
+# (24 -> 24 at 9 x 11)
 SHAPES = [(2, 16, 16, 3, 8), (2, 12, 20, 8, 16), (1, 8, 8, 16, 64),
           (1, 15, 17, 3, 8), (3, 9, 7, 8, 16), (2, 9, 7, 5, 12),
           (1, 256, 256, 3, 8), (1, 128, 128, 8, 16), (1, 41, 61, 3, 8),
           (3, 67, 61, 8, 16), (2, 30, 30, 8, 16), (2, 64, 64, 3, 16),
-          (2, 32, 32, 16, 32)]
+          (2, 32, 32, 16, 32),
+          (1, 24, 24, 3, 32), (1, 16, 16, 32, 32), (1, 12, 12, 32, 64),
+          (2, 16, 16, 12, 8), (1, 10, 13, 20, 72), (1, 9, 11, 24, 24)]
 
 
 def _inputs(seed, B, H, W, C, O):

@@ -114,7 +114,9 @@ def stats_tree(flat, variables):
 
 
 @pytest.mark.parametrize("B, C, O, H, W", [(1, 3, 8, 8, 8), (2, 8, 16, 6, 5),
-                                           (1, 12, 8, 4, 6), (1, 16, 32, 5, 5)])
+                                           (1, 12, 8, 4, 6), (1, 16, 32, 5, 5),
+                                           (1, 3, 32, 8, 8), (1, 32, 64, 6, 6),
+                                           (1, 20, 72, 5, 7)])
 @pytest.mark.parametrize("form", ["flat", "stacked"])
 def test_bf16_plain_versions_match_pallas_interpret(B, C, O, H, W, form):
     """K2's and K3's plain versions on bf16 slabs against the Pallas kernels
