@@ -29,16 +29,21 @@ Phases:
            instance and K3's two streaming instances) as three TF32
            products per product, and bf16 products at the bf16 tensor-core
            rate. K2 also at the edges of its mappings (K2_EDGES: the stem
-           at 255², 41x61 and 33x30, s2 at 67x61 and 30², then
-           conv3x3_igemm's: 16->64 @20², 5->12 @9x7, a partial channel
-           octet at C = 5 and 20, eight octets through the staging ring at
-           C = 64, O = 12, 24 and 72 (the 128-output tiling past 64), two
-           passes of 128 outputs at O = 136, odd M, a ragged last tile at
-           32->64 and B = 1), and K3 at its (K3_EDGES: each
+           at 255², 41x61, 33x30 and 19x28 (each (W + 2) % 4), s2 at 67x61,
+           30², 128² at B = 1, 6x5 and 12², the bf16 tiling edges of
+           tests/test_torch_port_precision.py, the serving instances also
+           on a slab at an odd element offset, then conv3x3_igemm's:
+           16->64 @20², 5->12 @9x7, a partial channel octet at C = 5 and
+           20, eight octets through the staging ring at C = 64, O = 12, 24
+           and 72 (the 128-output tiling past 64), two passes of 128
+           outputs at O = 136, odd M, a ragged last tile at 32->64 and B =
+           1), and K3 at its (K3_EDGES: each
            serving-instance kernel at B=1, odd M at both, a ragged tile at
            30², conv3x3_igemm at 3->16, 16->32 and the same new edges), in
-           both dtypes, held the same way, times logged. The fp32 stem
-           segment in both forms against its plain version (atol 1e-4).
+           both dtypes, held the same way, times logged. The stem segment
+           in both forms and both types against its plain version (fp32
+           atol 1e-4, bf16 within one bf16 rounding), timed beside the
+           library chain in the same type.
            Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
            problems of P = T = 64 points in [0, 1]², a quarter of the
            weights zero) against its plain version: each of the four
@@ -274,12 +279,22 @@ ZEBRA_POST_RUNS = 5
 # 128 outputs over the block's columns
 IGEMM_EDGES = ((1, 5, 12, 23, 29), (2, 20, 72, 10, 13), (1, 64, 24, 17, 19),
                (3, 32, 64, 37, 45), (1, 3, 136, 7, 6))
-# K2's edge shapes (B, C, O, H, W): the stem kernel at each row-shift
-# remainder (W + 2) % 4 = 1, 3, 0 (M odd in the first two), the s2 kernel
-# with M odd and with a ragged last tile, then shapes of conv3x3_igemm
+# K2's edge shapes (B, C, O, H, W): the stem kernels at each row-shift
+# remainder (W + 2) % 4 = 1, 3, 0, 2 (M odd in the first two; a ragged last
+# tile of the bf16 kernel's 1,024 columns in the first three, a map
+# narrower than one in the last), the s2 kernels with M odd and a ragged
+# last tile (of 256 columns in bf16), at B = 1 and full size, on a map
+# narrower than one 64-column span (M = 42) and on one narrower than a
+# tile (M = 168); the bf16 tiling edges that
+# tests/test_torch_port_precision.py holds on the CPU (a ragged second
+# stem tile with M odd, B = 1; (W + 2) % 4 = 0, 1, 2 on tiny maps; s2 at
+# M = 15 and a ragged third tile), then shapes of conv3x3_igemm
 K2_EDGES = ((1, 3, 8, 255, 255), (1, 3, 8, 41, 61), (1, 3, 8, 33, 30),
-            (3, 8, 16, 67, 61), (2, 8, 16, 30, 30), (2, 16, 64, 20, 20),
-            (2, 5, 12, 9, 7)) + IGEMM_EDGES
+            (2, 3, 8, 19, 28), (3, 8, 16, 67, 61), (2, 8, 16, 30, 30),
+            (1, 8, 16, 128, 128), (1, 8, 16, 6, 5), (2, 8, 16, 12, 12),
+            (1, 3, 8, 37, 29), (2, 3, 8, 5, 2), (1, 3, 8, 6, 3), (2, 3, 8, 3, 4),
+            (1, 8, 16, 3, 3), (2, 8, 16, 17, 30),
+            (2, 16, 64, 20, 20), (2, 5, 12, 9, 7)) + IGEMM_EDGES
 # K3's edge shapes (B, C, O, H, W): each serving-instance kernel at B = 1
 # (both with a ragged last tile), M = H * (W + 2) odd (the 4-byte path) at
 # each instance, a ragged last tile at B = 2, then conv3x3_igemm at the
@@ -411,6 +426,23 @@ def kernel_gate(torch, got, want) -> tuple:
     return d.max().item(), ok
 
 
+def segment_gate(torch, cf, got, x, w1, s1, b1, w2, s2, b2) -> tuple:
+    """(max error, passed) of a stem segment's (pool1, pool2) against the
+    plain versions stage by stage, each with kernel_gate: pool1 against the
+    plain segment's, pool2 against the plain s2 conv and pool applied to the
+    segment's own pool1. In bf16 the two sides may round the stem conv's
+    fp32 sum to different neighbours (their sums run in other orders), and
+    the s2 conv carries that difference on; stage by stage, each conv is
+    held to one rounding of its own input."""
+    p1, p2 = got
+    want1 = cf.stem_s2_segment_flat_plain(x, w1, s1, b1, w2, s2, b2)[0]
+    H2, W2 = p1.shape[1], p1.shape[2]
+    y2 = cf.conv3x3_bn_act_flat_plain(cf.nhwc_to_flat(p1), w2, s2, b2, H=H2, W=W2)
+    gates = [kernel_gate(torch, a, b) for a, b in (
+        (p1, want1), (p2, cf.pool2x2_slab_to_nhwc(y2, H2, W2)))]
+    return max(e for e, _ in gates), all(ok for _, ok in gates)
+
+
 def conv_case(torch, cf, g, dev, B, C, O, H, W, dtype):
     """Seeded inputs of K2 / K3 at one shape: HWIO kernel k (fp32), packed
     weights w in `dtype`, fp32 scale and bias, NHWC x and its slab in
@@ -517,39 +549,50 @@ def kernel_phase(torch, F, cf, dev):
         conv_edges(torch, cf, dev, g, stacked=False, dtype=dtype)
         conv_edges(torch, cf, dev, g, stacked=True, dtype=dtype)
 
-    # the whole stem segment, both forms, against the plain segment and the
-    # NHWC library chain (fp32)
-    x = torch.randn((BATCH, RES, RES, 3), generator=g, device=dev)
-    (k1, w1, s1, b1), (k2, w2, s2, b2) = params[("stem", torch.float32)], params[
-        ("s2", torch.float32)]
-
-    def library_segment(xn):
-        y = F.max_pool2d(cf.conv3x3_bn_act_ref(xn, k1, s1, b1).permute(0, 3, 1, 2), 2)
-        p1 = y.permute(0, 2, 3, 1)
-        y = F.max_pool2d(cf.conv3x3_bn_act_ref(p1, k2, s2, b2).permute(0, 3, 1, 2), 2)
-        return p1, y.permute(0, 2, 3, 1)
-
-    ref = library_segment(x)
+    # the whole stem segment, both forms, both types, against the plain
+    # segment stage by stage (segment_gate: fp32 within ATOL_KERNEL, bf16
+    # within one bf16 rounding), fp32 also end to end against the plain
+    # segment and the NHWC library chain (bf16's chain rounds its conv
+    # before the affine, so that difference is only logged); timed beside
+    # the library chain in the same type
     segment = []
-    for stacked in (False, True):
-        kern = lambda a: cf.stem_s2_segment_flat(a, w1, s1, b1, w2, s2, b2, stacked=stacked)
-        plain = lambda a: cf.stem_s2_segment_flat_plain(a, w1, s1, b1, w2, s2, b2,
-                                                        stacked=stacked)
-        got, want = kern(x), plain(x)
-        torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        lib_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
-        log(f"[kernel] stem_s2_segment_flat stacked={stacked}: max|seg-plain| "
-            f"{err:.3e}, max|seg-library| {lib_err:.3e}")
-        if not err <= ATOL_KERNEL or not lib_err <= ATOL_KERNEL:
-            raise AssertionError(f"segment stacked={stacked} disagrees")
-        copies = [(x.clone(),) for _ in range(n_copies(4 * x.numel()))]
-        segment.append(dict(stacked=stacked, max_abs_err=err,
-                            ms=time_cuda(torch, kern, copies, iters=20),
-                            plain_ms=time_cuda(torch, plain, copies, iters=20),
-                            library_ms=time_cuda(torch, library_segment, copies,
-                                                 iters=20)))
-        log(f"[kernel] segment stacked={stacked}: {json.dumps(segment[-1])}")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        x = torch.randn((BATCH, RES, RES, 3), generator=g, device=dev).to(dtype)
+        (k1, w1, s1, b1), (k2, w2, s2, b2) = params[("stem", dtype)], params[("s2", dtype)]
+
+        def library_segment(xn):
+            y = F.max_pool2d(cf.conv3x3_bn_act_ref(xn, k1, s1, b1).permute(0, 3, 1, 2), 2)
+            p1 = y.permute(0, 2, 3, 1)
+            y = F.max_pool2d(cf.conv3x3_bn_act_ref(p1, k2, s2, b2).permute(0, 3, 1, 2), 2)
+            return p1, y.permute(0, 2, 3, 1)
+
+        ref = library_segment(x)
+        for stacked in (False, True):
+            kern = lambda a: cf.stem_s2_segment_flat(a, w1, s1, b1, w2, s2, b2,
+                                                     stacked=stacked)
+            plain = lambda a: cf.stem_s2_segment_flat_plain(a, w1, s1, b1, w2, s2, b2,
+                                                            stacked=stacked)
+            got, want = kern(x), plain(x)
+            torch.cuda.synchronize()
+            err, ok = segment_gate(torch, cf, got, x, w1, s1, b1, w2, s2, b2)
+            end_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            lib_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+            log(f"[kernel] stem_s2_segment_flat stacked={stacked} {dname}: max|seg-plain| "
+                f"stage by stage {err:.3e}, end to end {end_err:.3e}; max|seg-library| "
+                f"{lib_err:.3e}")
+            if not ok or (dtype == torch.float32
+                          and not max(end_err, lib_err) <= ATOL_KERNEL):
+                raise AssertionError(f"segment stacked={stacked} {dname} disagrees")
+            copies = [(x.clone(),) for _ in range(n_copies(x.element_size() * x.numel()))]
+            segment.append(dict(stacked=stacked, dtype=dname, max_abs_err=err,
+                                end_to_end_max_abs_err=end_err,
+                                library_max_abs_err=lib_err,
+                                ms=time_cuda(torch, kern, copies, iters=20),
+                                plain_ms=time_cuda(torch, plain, copies, iters=20),
+                                library_ms=time_cuda(torch, library_segment, copies,
+                                                     iters=20)))
+            log(f"[kernel] segment stacked={stacked} {dname}: {json.dumps(segment[-1])}")
     return rows, segment
 
 
@@ -581,6 +624,19 @@ def conv_edges(torch, cf, dev, g, stacked: bool, dtype):
             f"{err:.3e}, max|kernel-library| (valid cols) {lib_err:.3e}; {ms * 1e3:.2f} us")
         if not ok or (elem == 4 and not lib_err <= ATOL_KERNEL):
             raise AssertionError(f"{name} disagrees at B={B} {C}->{O} @{H}x{W} {dtype}")
+        if not stacked and (C, O) in ((3, 8), (8, 16)) and (H, W) in ((33, 30), (67, 61)):
+            # the serving instances on a slab that starts one element past a
+            # 16-byte boundary (a contiguous view at an odd offset)
+            off = torch.empty(xf.numel() + 1, device=dev, dtype=dtype)[1:].view_as(xf)
+            off.copy_(xf)
+            got = kern(off)
+            torch.cuda.synchronize()
+            err, ok = kernel_gate(torch, got, cf.conv3x3_bn_act_flat_plain(
+                xf, w, sc, bi, H=H, W=W))
+            log(f"[kernel] {name} edge B={B} {C}->{O} @{H}x{W} {dtype}, slab at an odd "
+                f"element offset: max|kernel-plain| {err:.3e}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees on an offset slab at {C}->{O} {dtype}")
 
 
 def potential_errors(got, want, a, b) -> dict:

@@ -14,30 +14,33 @@
 //
 // Types, as on the TPU: x, w and out are all fp32 (the *_flat / *_stacked
 // entry points) or all bf16 (*_bf16), scale and bias fp32; every kernel
-// sums in fp32 and rounds its output once. The stem instance takes the
-// element type T as a template parameter and converts on load into fp32
-// shared memory; the tensor-core kernels keep bf16 as bf16. In bf16 each
-// load moves half the bytes, and the products are native bf16 tensor-core
-// products (mma.sync m16n8k16, fp32 accumulators): one product per pair of
-// taps and 8 channels, exact products of bf16 inputs, where fp32 needs
-// three TF32 products per tap. The stacked form's streaming instances are
-// fp32 only; in bf16 every stacked shape runs conv3x3_igemm.
+// sums in fp32 and rounds its output once. The fp32 stem instance
+// multiplies on the CUDA cores, every other kernel on the tensor cores:
+// bf16 products are native there (mma.sync m16n8k16, fp32 accumulators,
+// exact products of bf16 inputs) and kept as bf16 in shared memory, where
+// fp32 needs three TF32 products per product. The stacked form's streaming
+// instances are fp32 only; in bf16 every stacked shape runs conv3x3_igemm.
 //
-// What bounds the flat form (K2) on an H100, at the two shapes the serving
-// stem gives it (B = 8): the stem, 3 -> 8 at 256^2, reads 6.4 MB and writes
-// 16.9 MB against 0.12 GFLOP, so it is bound by bytes (~7.0 us at
-// 3.35 TB/s); s2, 8 -> 16 at 128^2, moves 13 MB (~3.8 us) against
+// What bounds the flat form (K2) on an H100 in fp32, at the two shapes the
+// serving stem gives it (B = 8): the stem, 3 -> 8 at 256^2, reads 6.4 MB
+// and writes 16.9 MB against 0.12 GFLOP, so it is bound by bytes (~7.0 us
+// at 3.35 TB/s); s2, 8 -> 16 at 128^2, moves 13 MB (~3.8 us) against
 // 0.31 GFLOP, ~4.6 us of fp32 CUDA-core math at 67 TFLOP/s but ~1.9 us as
 // three TF32 tensor-core products each at 495 TFLOP/s, so on the tensor
-// cores it too is bound by bytes. Each instance has a kernel of its own; C and O are
-// constants there, so every tap and channel loop unrolls. Both copy their
-// (b, strip) tile's inputs, all C channels plus the 2 * (W + 2) + 2 halo,
+// cores it too is bound by bytes. In bf16 the same two shapes move half the
+// bytes, 11.65 MB (3.48 us) and 6.43 MB (1.92 us); the stem's products
+// would take 3.4 us on the CUDA cores even at their full rate, as long as
+// its bytes, so both bf16 instances run on the tensor cores, on one kernel
+// of their own (conv3x3_flat_tc, below: what it does about its bytes, and
+// what was tried and lost). Each fp32 instance has a kernel of its own; C
+// and O are constants there, so every tap and channel loop unrolls. Both
+// copy their (b, strip) tile's inputs, all C channels plus the 2 (W + 2) + 2 halo,
 // into shared memory with cp.async, 4 bytes a thread (a channel row of the
 // slab is L * 4 bytes, not a multiple of 16, so TMA does not fit), and
 // write each output once in the epilogue, after the affine and LeakyReLU.
 //
-// The stem (conv3x3_flat_tiled, CUDA cores): one commit group per channel,
-// all issued at once, so the block starts on channel 0 while the others are
+// The fp32 stem (conv3x3_flat_tiled, CUDA cores): one commit group per
+// channel, all issued at once, so the block starts on channel 0 while the others are
 // in flight. Each thread owns 4 consecutive output columns for all 8
 // outputs: per (input row dy, channel c) it reads the 6 inputs it needs
 // with two 16-byte loads and applies the three dx taps, 96 FFMAs against 2
@@ -46,13 +49,21 @@
 // template parameter, so the 6 values are picked by constant indices. The
 // outputs go out 16 bytes a thread where M = H * (W + 2) is a multiple of 4.
 //
-// s2 (conv3x3_flat_mma, tensor cores): on the CUDA cores the same loop is
-// bound by its shared-memory weight loads (12 us at B = 8), so s2 runs
+// s2 in fp32 (conv3x3_flat_mma, tensor cores): on the CUDA cores the same
+// loop is bound by its shared-memory weight loads (12 us at B = 8), so s2 runs
 // error-compensated TF32 products on the tensor cores instead: O = 16 is
 // the mma's M, each tap one k-step over the 8 channels, the weights split
 // hi + lo in registers for the whole block, and three m16n8k8 products per
 // (tap, 8 columns) that together miss the fp32 product by ~2^-20. Plain
 // TF32 (one product) would miss it by ~1e-3 of each term.
+//
+// The bf16 instances (conv3x3_flat_tc, tensor cores): the strip lands by
+// 16-byte cp.async and stays bf16; lanes read 4-byte pairs of adjacent
+// elements as the mma's A fragments and store 16 bytes of 8 output columns
+// each. On an H100 80GB HBM3 at 700 W (B = 8) the stem takes 6.8-7.0 us and
+// s2 5.3-5.7 us, of which ~3.1-3.4 us is a fixed chain every launch pays (a
+// graph node, a DRAM round trip, the multiply, the store drain: s2 takes
+// 3.2-3.4 us at B = 1); past it each moves its bytes at ~2.8-3.4 TB/s.
 //
 // The stacked form (K3) reads 9 * C pre-shifted rows for every output
 // column: 38.3 MB in and 8.5 MB out at s2 (14.0 us at 3.35 TB/s) against
@@ -125,31 +136,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
 template <typename T>
 __device__ __forceinline__ T from_f(float v) {
   if constexpr (std::is_same_v<T, float>) {
     return v;
   } else {
     return __float2bfloat16_rn(v);
-  }
-}
-
-// four consecutive outputs, 16 bytes (fp32) or 8 (bf16) at p
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float v0, float v1, float v2,
-                                       float v3) {
-  if constexpr (std::is_same_v<T, float>) {
-    *reinterpret_cast<float4*>(p) = make_float4(v0, v1, v2, v3);
-  } else {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v2, v3);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned*>(&lo);
-    u.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
   }
 }
 
@@ -226,13 +218,12 @@ __device__ __forceinline__ void tap_row(const float* xa, const float* w,
 // all issued at once, and the block starts on channel 0 as soon as it has
 // landed. WM = Wp % 4 makes each input row's shift remainder a constant.
 // S: floats per channel row of the strip, a multiple of 4; vec: 4-output
-// stores allowed (M % 4 == 0, out aligned to 4 outputs). A bf16 strip is
-// read with plain loads and widened to fp32 on its way into shared memory.
-template <typename T, int C, int O, int WM>
+// stores allowed (M % 4 == 0, out aligned to 4 outputs).
+template <int C, int O, int WM>
 __global__ void __launch_bounds__(kStemThreads, kStemMinBlocks)
-conv3x3_flat_tiled(const T* __restrict__ x, const T* __restrict__ w,
+conv3x3_flat_tiled(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ scale,
-                   const float* __restrict__ bias, T* __restrict__ out,
+                   const float* __restrict__ bias, float* __restrict__ out,
                    int Wp, int L, int M, int S, int vec, float alpha) {
   static_assert(O % 4 == 0, "outputs go in float4 groups");
   constexpr int kTile = kStemThreads * kCols;
@@ -247,17 +238,15 @@ conv3x3_flat_tiled(const T* __restrict__ x, const T* __restrict__ w,
   const int m0 = blockIdx.x * kTile;
 
   // the strip, one commit group per channel; past the slab's end, zeros
-  const T* xb = x + (size_t)b * C * L + m0;
+  const float* xb = x + (size_t)b * C * L + m0;
   const int n_in = min(S, L - m0);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     for (int i = tid; i < S; i += kStemThreads) {
       if (i >= n_in) {
         xs[c * S + i] = 0.f;
-      } else if constexpr (std::is_same_v<T, float>) {
-        cp_async4(xs + c * S + i, xb + (size_t)c * L + i);
       } else {
-        xs[c * S + i] = to_f(xb[(size_t)c * L + i]);
+        cp_async4(xs + c * S + i, xb + (size_t)c * L + i);
       }
     }
     cp_async_commit();
@@ -265,7 +254,7 @@ conv3x3_flat_tiled(const T* __restrict__ x, const T* __restrict__ w,
   for (int i = tid; i < 9 * C * O; i += kStemThreads) {
     const int o = i % O;
     const int tc = i / O;
-    ws[i] = to_f(w[((tc / C) * O + o) * C + tc % C]);
+    ws[i] = w[((tc / C) * O + o) * C + tc % C];
   }
   for (int i = tid; i < O; i += kStemThreads) {
     ss[i] = scale[i];
@@ -305,22 +294,22 @@ conv3x3_flat_tiled(const T* __restrict__ x, const T* __restrict__ w,
       const float t = acc[j][o] * sc + bi;
       v[j] = t >= 0.f ? t : alpha * t;
     }
-    T* ob = out + ((size_t)b * O + o) * M + m;
+    float* ob = out + ((size_t)b * O + o) * M + m;
     if (vec && m + kCols <= M) {
-      store4(ob, v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(ob) = make_float4(v[0], v[1], v[2], v[3]);
     } else {
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        if (m + j < M) ob[j] = from_f<T>(v[j]);
+        if (m + j < M) ob[j] = v[j];
     }
   }
 }
 
 // Launch the FFMA instance if its strip fits in shared memory; *taken =
 // false (and nothing launched) if not.
-template <typename T, int C, int O>
-cudaError_t launch_tiled(const T* x, const T* w, const float* scale,
-                         const float* bias, T* out, int B, int Wp, int L,
+template <int C, int O>
+cudaError_t launch_tiled(const float* x, const float* w, const float* scale,
+                         const float* bias, float* out, int B, int Wp, int L,
                          int M, float alpha, cudaStream_t stream,
                          bool* taken) {
   constexpr int kTile = kStemThreads * kCols;
@@ -330,21 +319,20 @@ cudaError_t launch_tiled(const T* x, const T* w, const float* scale,
   const size_t smem = sizeof(float) * ((size_t)C * S + 9 * C * O + 2 * O);
   *taken = smem <= 227 * 1024;
   if (!*taken) return cudaSuccess;
-  void (*kernel)(const T*, const T*, const float*, const float*, T*, int,
-                 int, int, int, int, float);
+  void (*kernel)(const float*, const float*, const float*, const float*, float*,
+                 int, int, int, int, int, float);
   switch (Wp & 3) {
-    case 0: kernel = conv3x3_flat_tiled<T, C, O, 0>; break;
-    case 1: kernel = conv3x3_flat_tiled<T, C, O, 1>; break;
-    case 2: kernel = conv3x3_flat_tiled<T, C, O, 2>; break;
-    default: kernel = conv3x3_flat_tiled<T, C, O, 3>; break;
+    case 0: kernel = conv3x3_flat_tiled<C, O, 0>; break;
+    case 1: kernel = conv3x3_flat_tiled<C, O, 1>; break;
+    case 2: kernel = conv3x3_flat_tiled<C, O, 2>; break;
+    default: kernel = conv3x3_flat_tiled<C, O, 3>; break;
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int vec = (M % 4 == 0) &&
-                  (reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0);
+  const int vec = (M % 4 == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
   const dim3 grid((M + kTile - 1) / kTile, B);
   kernel<<<grid, kStemThreads, smem, stream>>>(x, w, scale, bias, out, Wp, L,
                                                M, S, vec, alpha);
@@ -513,132 +501,275 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-constexpr int kTapPairs = 5;  // k = 16 takes two taps of 8 channels; tap 9 is 0
+// cp.async of 16 bytes of which the first n (0..16) come from src and the
+// rest are zeros (n = 0 reads nothing)
+__device__ __forceinline__ void cp_async_16z(void* dst, const void* src, int n) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(n)
+               : "memory");
+}
 
-// C = 8, O = 16, bf16. The block's tiling is conv3x3_flat_mma's (kMmaWarps
-// warps, kMmaTile columns, groups of 8 columns, kMmaInFlight at a time),
-// but one m16n8k16 product takes two taps: its k = 0..7 are tap 2p's 8
-// channels, k = 8..15 tap 2p + 1's, so 5 products cover the 9 taps of a
-// group (the tenth tap's weights are 0). The strip is staged column-major,
-// [S][8] bf16, 16 bytes a column: a B register is the (2 tg, 2 tg + 1)
-// channel pair at one column, one 4-byte shared load, and a warp's 32
-// loads hit 32 consecutive words. Products of bf16 values are exact in
-// fp32; the sums are fp32.
-__global__ void __launch_bounds__(kMmaWarps * 32)
-conv3x3_flat_mma_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ bias, bf16* __restrict__ out,
-                      int Wp, int L, int M, int S, int vec2, float alpha) {
-  constexpr int C = 8, O = 16, NI = kMmaInFlight;
-  extern __shared__ __align__(16) uint4 smem_cols[];  // [S] columns of 8 channels
+// The flat form's two bf16 serving instances, 3 -> 8 (the stem) and 8 -> 16
+// (s2), on the tensor cores. Both are bound by bytes (the output is 73% and
+// 66% of them); what held their first bf16 versions at 3.4x and 4.5x that
+// bound was how the bytes moved: the strip staged by synchronous 2-byte
+// loads (widened to an fp32 strip at the stem, gathered into 16-byte
+// columns at s2), the stem's 0.23 GFLOP as FFMAs (3.4 us at the CUDA cores'
+// full rate), and half-sector stores at s2. Here:
+// - the strip lands by 16-byte cp.async and stays bf16: each channel's row
+//   from the 16-byte aligned address at or before the tile's first column
+//   (a row of the slab is 2 L bytes, 12 mod 16 at both serving shapes, so
+//   rows start 4-byte aligned at best); the row's remainder (0..7 elements)
+//   is applied when a lane addresses a window; past the slab's end the
+//   copies fill zeros;
+// - out (columns x O) = A (columns x K) B (K x O) on mma.sync m16n8k16. K
+//   runs over windows (dy, c): a window's first k pair is its dx = 0, 1
+//   taps, the second its dx = 2 tap and a zero weight, so the two values
+//   of an A register are two adjacent elements of one channel row (a k16
+//   step takes 4 windows; the stem's 9 windows fill 3 steps, 75% of K, s2's
+//   24 fill 6);
+// - the 16 rows of an m16 tile are not 16 consecutive columns: lane
+//   (g, tg)'s rows g and g + 8 of tile j (0..3) are the columns 8 g + 2 j
+//   and 8 g + 2 j + 1 of a 64-column span, so over the span's four tiles a
+//   lane reads the 10 elements 8 g .. 8 g + 9 of its window once (six
+//   4-byte loads; a funnel shift evens out a window that starts on an odd
+//   element) and ends up holding 8 consecutive output columns of each of
+//   its outputs: one 16-byte store each, and a warp's store fills whole
+//   128-byte lines. Round r takes windows 4 r .. 4 r + 3, lane tg the
+//   window 4 r + tg; windows past 3 C read a zero area and have zero
+//   weights. The weights (B fragments) stay in registers for the block;
+// - a block runs NW warps over tiles of NW * NS spans, NS spans a warp,
+//   walking tiles blockIdx.x, blockIdx.x + gridDim.x, ... over (image,
+//   tile) through a ring of NB strips, the next NB - 1 tiles' strips in
+//   flight while one is multiplied and stored.
+// What was tried and lost (bench_k2.py, a, b, b, a, on an H100 80GB HBM3 at
+// 700 W, B = 8 and B = 24): at the stem a grid capped at 4 or 2 blocks an
+// SM walking its tiles through the ring lost (9.3 and 12.9 us against
+// 7.2): too few strips in flight; tiles of 512 columns (4 warps, 7.2 us),
+// 256 (8.7 us: the halo, 2 (W + 2) columns a tile, read again) and 2,048
+// (B = 8 as fast, B = 1 edges 1.7x slower) against 1,024; at s2 512-column
+// tiles (5.6 us, 12.0 at B = 24 against 10.7), 8 warps a tile (5.5), 2
+// warps (5.8), a cap of 2 blocks an SM (6.0); streaming (evict-first)
+// stores changed nothing. S: the strip's elements a channel, a multiple of
+// 8; vec: 16-byte stores allowed.
+template <int C, int O, int NW, int NS, int NB>
+struct TcCfg {
+  static constexpr int kThreads = NW * 32;
+  static constexpr int kTile = NW * NS * 64;        // output columns a tile
+  static constexpr int kRounds = (3 * C + 3) / 4;   // k16 steps
+  static constexpr int kNT = O / 8;                 // n8 tiles
+  static constexpr int kZeroWords = 8;              // the zero area
+  // a window reads up to 11 elements past its lane's first (a row's
+  // remainder and the funnel shift's extra word), the last span starts 64
+  // before the tile's end, and the taps reach 2 Wp past a column
+  static __host__ __device__ int strip(int Wp) { return (kTile + 2 * Wp + 18) / 8 * 8; }
+  static __host__ __device__ int smem_bytes(int Wp) {
+    return NB * C * strip(Wp) * 2 + kZeroWords * 4;
+  }
+};
+
+template <int C, int O, int NW, int NS, int NB>
+__global__ void __launch_bounds__(NW * 32)
+conv3x3_flat_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                const float* __restrict__ scale, const float* __restrict__ bias,
+                bf16* __restrict__ out, int B, int Wp, int L, int M, int S,
+                int vec, float alpha) {
+  using Cfg = TcCfg<C, O, NW, NS, NB>;
+  constexpr int R = Cfg::kRounds, NT = Cfg::kNT, NCOL = Cfg::kTile;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* strips = reinterpret_cast<bf16*>(smem_tc);  // [NB][C][S]
+  unsigned* zero = reinterpret_cast<unsigned*>(strips + NB * C * S);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * kMmaTile;
+  const int tiles = (M + NCOL - 1) / NCOL;
+  const int total = B * tiles;
+  if (tid < Cfg::kZeroWords) zero[tid] = 0u;
 
-  // the strip: each thread gathers the 8 channels of a column (loads
-  // coalesced across the warp, channel by channel) into one 16-byte store;
-  // past the slab's end, zeros
-  const bf16* xb = x + (size_t)b * C * L + m0;
-  const int n_in = min(S, L - m0);
-  for (int i = tid; i < S; i += kMmaWarps * 32) {
-    uint4 col = make_uint4(0u, 0u, 0u, 0u);
-    if (i < n_in) {
-      const bf16* p = xb + i;
-      col.x = pack_bf16(p[0], p[(size_t)L]);
-      col.y = pack_bf16(p[(size_t)2 * L], p[(size_t)3 * L]);
-      col.z = pack_bf16(p[(size_t)4 * L], p[(size_t)5 * L]);
-      col.w = pack_bf16(p[(size_t)6 * L], p[(size_t)7 * L]);
-    }
-    smem_cols[i] = col;
-  }
-
-  // the A fragments of the five tap pairs: rows g, g + 8; k 2 tg, 2 tg + 1
-  // (tap 2p) and 2 tg + 8, 2 tg + 9 (tap 2p + 1)
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  unsigned a[kTapPairs][4];
+  // the strip of tile t into ring slot buf
+  auto stage = [&](int t, int buf) {
+    const int b = t / tiles, m0 = (t % tiles) * NCOL;
+    const int n_in = L - m0;  // slab elements of a row from m0 on
+    bf16* dst = strips + buf * C * S;
+    for (int i = tid; i < C * (S / 8); i += NW * 32) {
+      const int c = i / (S / 8), k = i % (S / 8);
+      const bf16* row = x + ((size_t)b * C + c) * L + m0;
+      const int r = static_cast<int>((reinterpret_cast<uintptr_t>(row) & 15) >> 1);
+      const bf16* src = row - r + 8 * k;  // 16-byte aligned
+      const int valid = n_in - (8 * k - r);  // slab elements from src on
+      bf16* d = dst + c * S + 8 * k;
+      const int before = static_cast<int>(
+          (reinterpret_cast<intptr_t>(x) - reinterpret_cast<intptr_t>(src)) / 2);
+      if (before > 0) {
+        // the slab itself starts unaligned: its first chunk element by element
 #pragma unroll
-  for (int p = 0; p < kTapPairs; ++p) {
+        for (int e = 0; e < 8; ++e)
+          d[e] = e >= before && e < valid ? src[e] : __float2bfloat16_rn(0.f);
+      } else {
+        cp_async_16z(d, src, 2 * max(0, min(8, valid)));
+      }
+    }
+  };
+
+  // the B fragments: round r, n8 tile nt; window q = 4 r + tg, output
+  // o = 8 nt + g; b0 = its (dx = 0, dx = 1) weights, b1 = (dx = 2, 0)
+  unsigned wb[R][NT][2];
+  const bf16 bz = __float2bfloat16_rn(0.f);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int q = 4 * r + tg;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int o = 8 * nt + g;
+      if (q < 3 * C) {
+        const int dy = q / C, c = q % C;
+        const bf16* wq = w + ((3 * dy) * O + o) * C + c;
+        wb[r][nt][0] = pack_bf16(wq[0], wq[O * C]);
+        wb[r][nt][1] = pack_bf16(wq[2 * O * C], bz);
+      } else {
+        wb[r][nt][0] = wb[r][nt][1] = 0u;
+      }
+    }
+  }
+  float sc[NT][2], bi[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int t = 2 * p + h;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int o = g + 8 * r;
-        a[p][2 * h + r] =
-            t < 9 ? pack_bf16(w[(t * O + o) * C + 2 * tg], w[(t * O + o) * C + 2 * tg + 1])
-                  : pack_bf16(zero, zero);
-      }
+      sc[nt][h] = scale[8 * nt + 2 * tg + h];
+      bi[nt][h] = bias[8 * nt + 2 * tg + h];
     }
-  }
-  const float sc0 = scale[g], sc1 = scale[g + 8];
-  const float bi0 = bias[g], bi1 = bias[g + 8];
-  __syncthreads();
 
-  // channel pair (2 tg, 2 tg + 1) of column c: word 4 c + tg of the strip
-  const unsigned* xw = reinterpret_cast<const unsigned*>(smem_cols) + tg;
+#pragma unroll
+  for (int i = 0; i + 1 < NB; ++i) {
+    const int tt = blockIdx.x + i * gridDim.x;
+    if (tt < total) stage(tt, i);
+    cp_async_commit();
+  }
+  int t = blockIdx.x;
 #pragma unroll 1
-  for (int n0 = warp * kMmaGroups; n0 < (warp + 1) * kMmaGroups; n0 += NI) {
-    float d[NI][4];
+  for (int it = 0; t < total; ++it, t += gridDim.x) {
+    const int tn = t + (NB - 1) * gridDim.x;
+    if (tn < total) stage(tn, (it + NB - 1) % NB);
+    cp_async_commit();
+    cp_async_wait(NB - 1);  // this tile's strip has landed (this thread's copies)
+    __syncthreads();        // ... and every thread's, and the zero area
+
+    const int b = t / tiles, m0 = (t % tiles) * NCOL;
+    const bf16* xs = strips + (it % NB) * C * S;
+    // each window's first element for this lane, in 4-byte words of the
+    // strip, and whether it starts on an odd element (the row's remainder
+    // and the tap row's shift decide it)
+    int wofs[R], wodd[R];
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) d[i][r] = 0.f;
-#pragma unroll
-    for (int p = 0; p < kTapPairs; ++p) {
-      const int t0 = 2 * p, t1 = 2 * p + 1;
-      const int off0 = (t0 / 3) * Wp + t0 % 3;
-      const int off1 = (t1 / 3) * Wp + t1 % 3;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int col = (n0 + i) * 8 + g;
-        const unsigned b0 = xw[4 * (col + off0)];
-        const unsigned b1 = t1 < 9 ? xw[4 * (col + off1)] : 0u;
-        mma_bf16(d[i], a[p], b0, b1);
+    for (int r = 0; r < R; ++r) {
+      const int q = 4 * r + tg;
+      if (q < 3 * C) {
+        const int dy = q / C, c = q % C;
+        const bf16* row = x + ((size_t)b * C + c) * L + m0;
+        const int rem = static_cast<int>((reinterpret_cast<uintptr_t>(row) & 15) >> 1);
+        const int e = c * S + rem + dy * Wp + 8 * g;
+        wofs[r] = e >> 1;
+        wodd[r] = (e & 1) * 16;
+      } else {
+        wofs[r] = static_cast<int>(zero - reinterpret_cast<const unsigned*>(xs));
+        wodd[r] = 0;
       }
     }
-    // D: rows (outputs) g, g + 8; columns 2 tg, 2 tg + 1 of the group
+    const unsigned* xw = reinterpret_cast<const unsigned*>(xs);
+
+#pragma unroll 1
+    for (int sp = 0; sp < NS; ++sp) {
+      const int s0 = (sp * NW + warp) * 64;  // the span's first column in the tile
+      if (m0 + s0 >= M) break;
+      float acc[4][NT][4];
 #pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int m = m0 + (n0 + i) * 8 + 2 * tg;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float sc = h ? sc1 : sc0, bi = h ? bi1 : bi0;
-        float v0 = d[i][2 * h] * sc + bi, v1 = d[i][2 * h + 1] * sc + bi;
-        v0 = v0 >= 0.f ? v0 : alpha * v0;
-        v1 = v1 >= 0.f ? v1 : alpha * v1;
-        bf16* ob = out + ((size_t)b * O + g + 8 * h) * M + m;
-        if (vec2 && m + 2 <= M) {
-          *reinterpret_cast<__nv_bfloat162*>(ob) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (m < M) ob[0] = __float2bfloat16_rn(v0);
-          if (m + 1 < M) ob[1] = __float2bfloat16_rn(v1);
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // elements 8 g + 0 .. 9 of window 4 r + tg at the span, as pairs
+        // v[i] = (element 2 i, element 2 i + 1)
+        const unsigned* p = xw + wofs[r] + (4 * r + tg < 3 * C ? s0 / 2 : 0);
+        unsigned u[6], v[5];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) u[i] = p[i];
+#pragma unroll
+        for (int i = 0; i < 5; ++i) v[i] = __funnelshift_r(u[i], u[i + 1], wodd[r]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // rows g, g + 8 of tile j: columns 8 g + 2 j, 8 g + 2 j + 1
+          const unsigned a[4] = {v[j], __byte_perm(v[j], v[j + 1], 0x5432),
+                                 v[j + 1] & 0xffffu, v[j + 1] >> 16};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[j][nt], a, wb[r][nt][0], wb[r][nt][1]);
         }
       }
+      // lane: outputs 8 nt + 2 tg + h, columns 8 g .. 8 g + 7 of the span
+      const int m = m0 + s0 + 8 * g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float y[8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float y0 = acc[j][nt][h] * sc[nt][h] + bi[nt][h];
+            const float y1 = acc[j][nt][2 + h] * sc[nt][h] + bi[nt][h];
+            y[2 * j] = y0 >= 0.f ? y0 : alpha * y0;
+            y[2 * j + 1] = y1 >= 0.f ? y1 : alpha * y1;
+          }
+          bf16* ob = out + ((size_t)b * O + 8 * nt + 2 * tg + h) * M + m;
+          if (vec && m + 8 <= M) {
+            uint4 pk;
+            pk.x = pack_bf16(__float2bfloat16_rn(y[0]), __float2bfloat16_rn(y[1]));
+            pk.y = pack_bf16(__float2bfloat16_rn(y[2]), __float2bfloat16_rn(y[3]));
+            pk.z = pack_bf16(__float2bfloat16_rn(y[4]), __float2bfloat16_rn(y[5]));
+            pk.w = pack_bf16(__float2bfloat16_rn(y[6]), __float2bfloat16_rn(y[7]));
+            *reinterpret_cast<uint4*>(ob) = pk;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              if (m + i < M) ob[i] = __float2bfloat16_rn(y[i]);
+          }
+        }
     }
+    __syncthreads();  // every warp is done with this slot before it is refilled
   }
 }
 
-cudaError_t launch_mma_bf16(const bf16* x, const bf16* w, const float* scale,
-                            const float* bias, bf16* out, int B, int Wp, int L,
-                            int M, float alpha, cudaStream_t stream,
-                            bool* taken) {
-  // reads reach 2 * Wp + 2 + 7 past a group's first column
-  const int S = (kMmaTile + 2 * Wp + 16 + 7) / 8 * 8;
-  const size_t smem = sizeof(uint4) * (size_t)S;
+// Launch a bf16 serving instance if its NB strips fit in shared memory;
+// *taken = false (and nothing launched) if not. The grid covers every
+// (image, tile) once, capped at CAP blocks an SM (0: no cap).
+template <int C, int O, int NW, int NS, int NB, int CAP>
+cudaError_t launch_tc(const bf16* x, const bf16* w, const float* scale,
+                      const float* bias, bf16* out, int B, int Wp, int L, int M,
+                      float alpha, cudaStream_t stream, bool* taken) {
+  using Cfg = TcCfg<C, O, NW, NS, NB>;
+  const size_t smem = Cfg::smem_bytes(Wp);
   *taken = smem <= 227 * 1024;
   if (!*taken) return cudaSuccess;
-  auto kernel = conv3x3_flat_mma_bf16;
+  auto kernel = conv3x3_flat_tc<C, O, NW, NS, NB>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int vec2 = (M % 2 == 0) && (reinterpret_cast<uintptr_t>(out) % 4 == 0);
-  const dim3 grid((M + kMmaTile - 1) / kMmaTile, B);
-  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(x, w, scale, bias, out, Wp,
-                                                 L, M, S, vec2, alpha);
+  int grid = B * ((M + Cfg::kTile - 1) / Cfg::kTile);
+  if (CAP > 0) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    grid = min(grid, CAP * sms);
+  }
+  const int vec = M % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  kernel<<<grid, Cfg::kThreads, smem, stream>>>(x, w, scale, bias, out, B, Wp, L, M,
+                                                Cfg::strip(Wp), vec, alpha);
   return cudaGetLastError();
 }
 
@@ -1198,17 +1329,23 @@ cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
   if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
   bool taken = false;
   cudaError_t e = cudaSuccess;
-  if (C == 3 && O == 8) {
-    // stem: 256 threads, 1024 columns a block
-    e = launch_tiled<T, 3, 8>(x, w, scale, bias, out, B, Wp, L, M, alpha, s,
-                              &taken);
-  } else if (C == 8 && O == 16) {
-    // s2: 4 warps, 256 columns a block (520 blocks at B = 8, 128^2)
-    if constexpr (std::is_same_v<T, float>) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (C == 3 && O == 8) {
+      // stem: 256 threads, 1024 columns a block
+      e = launch_tiled<3, 8>(x, w, scale, bias, out, B, Wp, L, M, alpha, s, &taken);
+    } else if (C == 8 && O == 16) {
+      // s2: 4 warps, 256 columns a block (520 blocks at B = 8, 128^2)
       e = launch_mma(x, w, scale, bias, out, B, Wp, L, M, alpha, s, &taken);
-    } else {
-      e = launch_mma_bf16(x, w, scale, bias, out, B, Wp, L, M, alpha, s,
-                          &taken);
+    }
+  } else {
+    if (C == 3 && O == 8) {
+      // stem: 8 warps, 1,024 columns a tile, one tile a block (520 blocks
+      // at B = 8, 256^2)
+      e = launch_tc<3, 8, 8, 2, 2, 0>(x, w, scale, bias, out, B, Wp, L, M, alpha, s, &taken);
+    } else if (C == 8 && O == 16) {
+      // s2: 4 warps, 256 columns a tile, a ring of 3 strips, at most 4
+      // blocks an SM (520 tiles at B = 8, 128^2: one a block; 1,560 at 24)
+      e = launch_tc<8, 16, 4, 1, 3, 4>(x, w, scale, bias, out, B, Wp, L, M, alpha, s, &taken);
     }
   }
   if (taken || e != cudaSuccess) return e;

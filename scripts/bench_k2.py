@@ -17,11 +17,16 @@ DarkNet variants' stems and DarkNet-19's 32->64, every shape
 conv3x3_igemm serves on the main path) and at chip_smoke's K2 and
 K3 edge shapes, then timed by CUDA-graph replay, inputs cycled past the L2
 as in chip_smoke.time_cuda, the sources in turn and back (a, b, b, a): K2
-and K3 in both types at all of those shapes, and the fp32 serving-stem
-segment (`stem_s2_segment_flat`: conv, pool, conv, pool) in both forms
-built on that source's kernels; the flat segment's device kernels are then
-listed (torch.profiler). The serving and variant rows carry their bounds
-(chip_smoke.k2_bound / k3_bound). `--sweep` also times K2 and K3 at the
+and K3 in both types at all of those shapes, K2 also at the serving shapes
+at the eval batch (B = 24), and the serving-stem segment
+(`stem_s2_segment_flat`: conv, pool, conv, pool) in both forms and both
+types built on that source's kernels; the flat fp32 segment's device
+kernels are then listed (torch.profiler). The serving, eval-batch and
+variant rows carry their bounds (chip_smoke.k2_bound / k3_bound). `--only`
+keeps the cases and segments whose key holds one of its words (e.g.
+`--only "K2 bfloat16 stem" "K2 bfloat16 s2"` gates and times the bf16
+serving instances and their eval batch). The segments are held to the
+plain versions stage by stage (chip_smoke.segment_gate). `--sweep` also times K2 and K3 at the
 serving shapes at B = 1, 2, 4, 8 and one tiny graph node (a block's
 latency against throughput); `--sass` prints the opcode counts of the
 serving-instance kernels and conv3x3_igemm's instances (cuobjdump). Prints
@@ -92,6 +97,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="also time K2 and K3 at B = 1, 2, 4, 8 (per-block latency "
                          "against throughput)")
+    ap.add_argument("--only", nargs="+", default=None,
+                    help="keep only the cases and segments whose key holds one of these")
     args = ap.parse_args(argv)
 
     import torch
@@ -144,9 +151,14 @@ def main(argv=None) -> int:
         _, w, sc, bi, _, xf = cs.conv_case(torch, cf, g, dev, B, C, O, H, W, dtype)
         return xf, w, sc, bi
 
-    B, R = cs.BATCH, cs.RES
+    B, R, BE = cs.BATCH, cs.RES, cs.EVAL_BATCH
     shapes = {"stem": (B, 3, 8, R, R), "s2": (B, 8, 16, R // 2, R // 2)}
     shapes.update({tag: (B, C, O, H, H) for tag, C, O, H in cs.VARIANT_SHAPES})
+    # K2 at the eval batch, where the evaluators run the eval-mode stem
+    eval_shapes = {f"stem B={BE}": (BE, 3, 8, R, R), f"s2 B={BE}": (BE, 8, 16, R // 2, R // 2)}
+
+    def kept(key):
+        return args.only is None or any(word in key for word in args.only)
     # (key, shape, flat input, weights, scale, bias, kernel input) of K2 and
     # K3 in both types at the serving and variant shapes, then at their edge
     # shapes
@@ -156,17 +168,29 @@ def main(argv=None) -> int:
         elem = 2 if dtype == torch.bfloat16 else 4
         for form, edges, bound in (("K2", cs.K2_EDGES, cs.k2_bound),
                                    ("K3", cs.K3_EDGES, cs.k3_bound)):
-            named = [(t, shapes[t], conv_inputs(*shapes[t], dtype)) for t in shapes]
-            named += [(f"B={e[0]} {e[1]}->{e[2]} @{e[3]}x{e[4]}", e, conv_inputs(*e, dtype))
-                      for e in edges]
-            for tag, s, (xf, w, sc, bi) in named:
-                inp = xf if form == "K2" else cf.stack_taps(xf, s[3], s[4])
+            named = dict(shapes, **eval_shapes) if form == "K2" else dict(shapes)
+            named.update({f"B={e[0]} {e[1]}->{e[2]} @{e[3]}x{e[4]}": e for e in edges})
+            for tag, s in named.items():
                 key = f"{form} {dname} {tag}"
+                if not kept(key):
+                    continue
+                xf, w, sc, bi = conv_inputs(*s, dtype)
+                inp = xf if form == "K2" else cf.stack_taps(xf, s[3], s[4])
                 cases.append((key, s, xf, w, sc, bi, inp))
-                if tag in shapes:
+                if tag in shapes or tag in eval_shapes:
                     bounds[key] = dict(zip(("bound_ms", "bound_by"), bound(*s, elem=elem)))
-    seg_x = torch.randn((B, R, R, 3), generator=g, device=dev)
-    seg_p = conv_inputs(*shapes["stem"])[1:] + conv_inputs(*shapes["s2"])[1:]
+    # the segment in each form and type: key -> (stacked, input, parameters)
+    segments = {}
+    for dtype, suffix_ in ((torch.float32, ""), (torch.bfloat16, " bfloat16")):
+        forms = [(key + suffix_, stacked) for key, stacked in
+                 (("segment", False), ("segment stacked", True)) if kept(key + suffix_)]
+        if not forms:
+            continue
+        seg_x = torch.randn((B, R, R, 3), generator=g, device=dev).to(dtype)
+        seg_p = (conv_inputs(*shapes["stem"], dtype)[1:]
+                 + conv_inputs(*shapes["s2"], dtype)[1:])
+        for key, stacked in forms:
+            segments[key] = (stacked, seg_x, seg_p)
 
     result = {"card": cs.gpu_name_and_power(), "shapes": shapes, "bounds": bounds,
               "sources": {}}
@@ -187,9 +211,15 @@ def main(argv=None) -> int:
             want = cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=s[3], W=s[4])
             gate[key], ok = cs.kernel_gate(torch, got, want)
             agrees = agrees and ok
+        for key, (stacked, seg_x, seg_p) in segments.items():
+            fn, st = flat_fn(lib), stacked_fn(lib)
+            got = cf._segment(seg_x, *seg_p, 0.1, stacked, True, fn, st)
+            torch.cuda.synchronize()
+            gate[key], ok = cs.segment_gate(torch, cf, got, seg_x, *seg_p)
+            agrees = agrees and ok
         result["sources"][name] = dict(
             agrees=agrees, max_abs_err=gate,
-            ms={k: [] for k in [c[0] for c in cases] + ["segment", "segment stacked"]})
+            ms={k: [] for k in [c[0] for c in cases] + list(segments)})
         print(f"[gate] {name}: agrees {agrees}; {gate}", flush=True)
 
     if args.sass:
@@ -218,7 +248,7 @@ def main(argv=None) -> int:
                 f" (bound {bd['bound_ms'] * 1e3:.2f} us by {bd['bound_by']})" if bd else ""),
                 flush=True)
         fn, st = flat_fn(lib), stacked_fn(lib)
-        for key, stacked in (("segment", False), ("segment stacked", True)):
+        for key, (stacked, seg_x, seg_p) in segments.items():
             seg = lambda a: cf._segment(a, *seg_p, 0.1, stacked, True, fn, st)
             ms = cs.time_cuda(torch, seg, copies(seg_x), iters=20)
             result["sources"][name]["ms"][key].append(ms)
@@ -242,7 +272,10 @@ def main(argv=None) -> int:
                                                   for k, v in sweep.items()), flush=True)
     for name, lib in libs.items():
         # the flat segment's device kernels, eager, under torch.profiler
+        if "segment" not in segments:
+            break
         fn = flat_fn(lib)
+        _, seg_x, seg_p = segments["segment"]
         prof = cs.profile_request(torch, lambda: cf._segment(seg_x, *seg_p, 0.1, False, True, fn, None))
         result["sources"][name]["segment_profile"] = prof
         print(f"[profile] {name} segment: {prof['device_kernels']} kernels, busy "

@@ -201,3 +201,21 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
         T.conv3x3_bn_act_flat(xf, w[:, :, :2], s, b, H=8, W=8)  # weight shape
     with pytest.raises(ValueError):
         T.conv3x3_bn_act_stacked(xf[:, None], w, s, b)          # not 9 taps
+
+
+@pytest.mark.parametrize("B, C, O, H, elem, want_ms", [
+    (8, 3, 8, 256, 2, 0.00347755463), (8, 8, 16, 128, 2, 0.00191812776),
+    (24, 3, 8, 256, 2, 0.01043236776), (24, 8, 16, 128, 2, 0.00575293134)])
+def test_k2_bound_at_the_bf16_serving_shapes(B, C, O, H, elem, want_ms):
+    """The yardstick the bf16 serving instances are timed against on the
+    card: chip_smoke.k2_bound at the stem (3 -> 8 @256²) and s2 (8 -> 16
+    @128²), at the serving batch and the eval batch. Both are bound by
+    bytes: the bf16 slab read once, the bf16 output written once, over the
+    H100's 3.35 TB/s."""
+    import chip_smoke
+
+    ms, by, nbytes, _ = chip_smoke.k2_bound(B, C, O, H, H, elem=elem)
+    Wp = H + 2
+    assert nbytes == 2 * B * C * ((H + 2) * Wp + 2) + 2 * 9 * O * C + 8 * O + 2 * B * O * H * Wp
+    assert by == "bytes"
+    assert ms == pytest.approx(want_ms, rel=1e-8)

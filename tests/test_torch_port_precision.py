@@ -113,10 +113,18 @@ def stats_tree(flat, variables):
         [flat[jax.tree_util.keystr(p)] for p, _ in leaves])
 
 
+# the last six are the edges of the bf16 serving instances' tiling (spans of
+# 64 columns; tiles of 1,024 at the stem, 256 at s2): at the stem a ragged
+# second tile with M = 1,147 odd and B = 1 (W + 2 = 31, 3 mod 4) and the
+# other residues of W + 2 mod 4 (0, 1, 2); at s2 a map narrower than one
+# span (M = 15, odd, B = 1) and a ragged third tile (M = 544)
 @pytest.mark.parametrize("B, C, O, H, W", [(1, 3, 8, 8, 8), (2, 8, 16, 6, 5),
                                            (1, 12, 8, 4, 6), (1, 16, 32, 5, 5),
                                            (1, 3, 32, 8, 8), (1, 32, 64, 6, 6),
-                                           (1, 20, 72, 5, 7)])
+                                           (1, 20, 72, 5, 7),
+                                           (1, 3, 8, 37, 29), (2, 3, 8, 5, 2),
+                                           (1, 3, 8, 6, 3), (2, 3, 8, 3, 4),
+                                           (1, 8, 16, 3, 3), (2, 8, 16, 17, 30)])
 @pytest.mark.parametrize("form", ["flat", "stacked"])
 def test_bf16_plain_versions_match_pallas_interpret(B, C, O, H, W, form):
     """K2's and K3's plain versions on bf16 slabs against the Pallas kernels
