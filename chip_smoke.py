@@ -8,6 +8,7 @@ card: the quickest proof that the port builds, starts and answers on the GPU.
     python3 chip_smoke.py --phases cli     # the training entry point's path only
     python3 chip_smoke.py --phases export  # frame endpoint, artifacts, int8 PTQ
     python3 chip_smoke.py --phases zebra   # the dense binary-code head
+    python3 chip_smoke.py --phases bop     # the BOP host pipeline under the CLIs
 
 Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
@@ -183,6 +184,35 @@ Phases:
            within 0.1 deg, T within 0.5 mm (the pose phase's gates); the
            dense and the corner postprocess timed per B=8 batch (median of
            5), one dense postprocess profiled.
+  bop      the BOP host pipeline under the CLIs at full width (darknet_tiny_h,
+           FPN 128, P6/P7, 15 classes, 256² crops). (a) make_bop_dataset
+           writes a tree of 64 train and 48 test 640x480 frames, single class
+           0 (as configs/ape.yaml), timed; every PNG read back through
+           data/png.py bit-equal to the array written; png_unfilter (the data
+           plane, built with g++) against its numpy version on random rows at
+           1-8 bytes a pixel. (b) BOPPoseDataset on the tree, slow and fast,
+           train and eval: the sample contract (shapes, dtypes, -1 padding),
+           every eval crop's remapped GT pose against scene_gt.json (R within
+           1e-5, T within 1e-3 mm: the internal frame is the raw frame),
+           train crops finite with the object in the mask; PrefetchLoader
+           images/s at B=16 with 1, 2 and 4 threads, slow and fast, frames
+           decoded and cached (logged only). Then the live bf16 step
+           (train_kd's defaults, the darknet53 teacher BN-folded) through
+           engine/loop.train on BOP batches from 4 loader threads beside the
+           same step on synthetic host batches, 10 steps each (K1 once per
+           step, median ms), and one profiled BOP step (idle share). (c)
+           train_kd.main --data bop at its defaults (bf16, the teacher from
+           a temporary teacher.pt with its BN folded, the tree's config.yaml,
+           --num_workers 4, B=16) to 6 steps: K1 once per step, finite
+           losses with loss_kd > 0, the five files, the teacher's sanity
+           evaluation and one student evaluation at step 6 on the 48 test
+           crops with the bf16 K2 once per chunk at each stem shape, no
+           loader thread left; then again to 8: "resumed from ... @ step 6".
+           (d) evaluate.main --data bop on the run's final.ckpt, once with
+           --test_file and once with --fast_pipeline: every tensor loaded,
+           the table printed, 48 predictions, the bf16 K2 once per chunk of
+           24. (e) export_model --data bop --check at B=8: the round trip
+           passes, the bf16 K2 once per shape in each request.
 
 TF32 is off for matmuls and convolutions throughout, so the fp32
 comparisons are fp32 against fp32 (the serving network, one KD step and
@@ -271,6 +301,18 @@ ZEBRA_PER_CALL = 5
 ZEBRA_EVAL = 16
 ZEBRA_TIMED = 10
 ZEBRA_POST_RUNS = 5
+# the bop phase: make_bop_dataset's tree (train and test frames, single class
+# 0 of 15, as configs/ape.yaml), the loader's batch, threads and timed
+# batches, the live steps timed, train_kd's loader threads and its runs (to
+# 6 steps, then resumed to 8)
+BOP_TRAIN_FRAMES = 64
+BOP_TEST_FRAMES = 48
+BOP_BATCH = 16
+BOP_THREADS = (1, 2, 4)
+BOP_LOADER_BATCHES = 4
+BOP_TIMED_STEPS = 10
+BOP_WORKERS = 4
+BOP_STEPS = (6, 8)
 # the edges of conv3x3_igemm's mapping (B, C, O, H, W), each in both forms:
 # a partial channel octet (C = 5, O = 12, M = 23 * 31 odd, B = 1); C = 20
 # (a partial third octet) with O = 72 (past 64: the 128-output tiling); C =
@@ -1757,6 +1799,323 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
 
 
 # ---------------------------------------------------------------------------
+# bop phase
+# ---------------------------------------------------------------------------
+
+def bop_tree_phase(png, native, make_bop_dataset, root):
+    """(a) The tree: make_bop_dataset's frames and masks written, each PNG
+    re-read bit-equal to the array that was written, png_unfilter against
+    its numpy version on random rows. Returns (config path, summary)."""
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+
+    t0 = time.perf_counter()
+    yaml_path = make_bop_dataset.write_dataset(root, BOP_TRAIN_FRAMES, BOP_TEST_FRAMES,
+                                               n_fg=15, single_class=0, seed=0)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    ds = SyntheticPoseDataset(n_fg=15, single_class=0, seed=0)
+    frame_s = mask_s = 0.0
+    for split, n, base in (("train", BOP_TRAIN_FRAMES, 1000), ("test", BOP_TEST_FRAMES, 0)):
+        scene = os.path.join(root, split, "000001")
+        for j in range(n):
+            s = ds.sample_internal(base + j)
+            t0 = time.perf_counter()
+            img = png.read(os.path.join(scene, "rgb", f"{j:06d}.png"))
+            t1 = time.perf_counter()
+            mask = png.read(os.path.join(scene, "mask_visib", f"{j:06d}_000000.png"))
+            frame_s += t1 - t0
+            mask_s += time.perf_counter() - t1
+            if not (np.array_equal(img, s["img"][:, :, ::-1]) and np.array_equal(mask, s["mask"])):
+                raise AssertionError(f"{split} frame {j}: the PNG read back differs from the "
+                                     "array written")
+    rng = np.random.default_rng(0)
+    for bpp in (1, 2, 3, 4, 6, 8):
+        rows, stride = 64, 97 * bpp
+        raw = rng.integers(0, 256, (rows, stride + 1), dtype=np.uint8)
+        raw[:, 0] = rng.integers(0, 5, rows)
+        if not np.array_equal(native.png_unfilter(raw, rows, stride, bpp),
+                              png.unfilter_plain(raw, rows, stride, bpp)):
+            raise AssertionError(f"png_unfilter at {bpp} bytes a pixel differs from its "
+                                 "numpy version")
+    n = BOP_TRAIN_FRAMES + BOP_TEST_FRAMES
+    log(f"[bop] (a) make_bop_dataset: {BOP_TRAIN_FRAMES} train + {BOP_TEST_FRAMES} test "
+        f"640x480 frames, {nbytes / 2**20:.1f} MiB, in {write_s:.1f} s; every frame and mask "
+        f"read back bit-equal, {1e3 * frame_s / n:.2f} ms a frame, {1e3 * mask_s / n:.2f} ms "
+        f"a mask; png_unfilter equals its numpy version at 1-8 bytes a pixel")
+    return yaml_path, dict(write_s=write_s, mib=nbytes / 2**20,
+                           frame_read_ms=1e3 * frame_s / n, mask_read_ms=1e3 * mask_s / n)
+
+
+def bop_samples_phase(cfg, yaml_path):
+    """(b) BOPPoseDataset slow and fast, train and eval: the sample
+    contract; eval crops' GT poses against scene_gt.json; the loader's
+    images/s at B = 16 with 1, 2 and 4 threads (warm decode cache)."""
+    import dataclasses
+
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch.data import bop
+    from kd6d_pose_adlp_tpu_torch.data.pipeline import BOPPoseDataset, PrefetchLoader
+
+    res, G = cfg.model.input_res, cfg.solver.max_objs
+    with open(os.path.join(os.path.dirname(cfg.data.test_list), "test", "000001",
+                           "scene_gt.json")) as f:
+        scene_gt = json.load(f)
+    worst_r = worst_t = 0.0
+    rates = {}
+    for fast in (False, True):
+        c = cfg.replace(data=dataclasses.replace(cfg.data, fast_pipeline=fast))
+        tag = "fast" if fast else "slow"
+        for train in (False, True):
+            ds = BOPPoseDataset(c, c.data.train_list if train else c.data.test_list, train)
+            items = ds.eval_items() if not train else [(i, None) for i in range(16)]
+            if not train and len(items) != BOP_TEST_FRAMES:
+                raise AssertionError(f"{len(items)} eval items for {BOP_TEST_FRAMES} frames")
+            for i, obj in items:
+                s = ds.sample(i, seed=1, focus_obj=obj)
+                if s is None:
+                    raise AssertionError(f"{tag} {'train' if train else 'eval'} sample {i} "
+                                         "dropped")
+                want = ((res, res, 3), np.uint8), ((res, res), np.int32), ((G,), np.int32), \
+                    ((G, 3, 3), np.float32), ((G, 3), np.float32), ((2, 3), np.float32)
+                for k, (shape, dt) in zip(("image", "mask", "class_ids", "rotations",
+                                           "translations", "bbox_trans"), want):
+                    if s[k].shape != shape or s[k].dtype != dt:
+                        raise AssertionError(f"sample {k}: {s[k].shape} {s[k].dtype}")
+                if list(s["class_ids"]) != [0] + [-1] * (G - 1):
+                    raise AssertionError(f"class ids {s['class_ids']}")
+                if not all(np.isfinite(s[k]).all() for k in ("rotations", "translations",
+                                                              "bbox_trans")):
+                    raise AssertionError("non-finite pose or crop affine")
+                if not (s["mask"] == 1).any():
+                    raise AssertionError(f"{tag} sample {i}: the object's mask is empty")
+                if not train:
+                    gt = scene_gt[str(i)][0]
+                    worst_r = max(worst_r, float(np.abs(
+                        s["rotations"][0] - np.reshape(gt["cam_R_m2c"], (3, 3))).max()))
+                    worst_t = max(worst_t, float(np.abs(
+                        s["translations"][0] - np.asarray(gt["cam_t_m2c"])).max()))
+            if train:
+                for p in ds.images:             # every frame decoded into the cache
+                    bop.read_image(p)
+                    bop.get_single_bop_annotation(p, ds.obj2cls)
+                for n_threads in BOP_THREADS:
+                    it = iter(PrefetchLoader(ds, BOP_BATCH, train=True, num_threads=n_threads,
+                                             seed=n_threads))
+                    next(it)
+                    t0 = time.perf_counter()
+                    for _ in range(BOP_LOADER_BATCHES):
+                        next(it)
+                    rates[f"{tag}_{n_threads}"] = (BOP_LOADER_BATCHES * BOP_BATCH
+                                                   / (time.perf_counter() - t0))
+                    it.close()
+    log(f"[bop] (b) samples slow and fast, train and eval: contract held; eval crops' GT "
+        f"poses against scene_gt.json: R max |diff| {worst_r:.2e} (gate 1e-5), T "
+        f"{worst_t:.2e} mm (gate 1e-3)")
+    log(f"[bop] (b) PrefetchLoader images/s at B={BOP_BATCH}, frames decoded and cached: "
+        + ", ".join(f"{k} threads {v:.1f}" for k, v in rates.items())
+        + f" (host: {os.cpu_count()} cores)")
+    if not (worst_r <= 1e-5 and worst_t <= 1e-3):
+        raise AssertionError("the eval crops' remapped GT poses miss scene_gt.json")
+    return dict(gt_rot_max_abs=worst_r, gt_trans_max_abs_mm=worst_t, loader_images_per_s=rates)
+
+
+def bop_phase(torch, sf, cf, dev):
+    """The BOP host pipeline on the card at full width: (a) a tree written by
+    make_bop_dataset; (b) samples and the loader; the live bf16 BOP step
+    beside the live synthetic step, one profiled BOP step; (c)
+    train_kd.main --data bop to 6 steps and resumed to 8; (d)
+    evaluate.main --data bop with --test_file and with --fast_pipeline;
+    (e) export_model --data bop --check. Returns (summary, K1 launches, K2
+    launches by batch)."""
+    import contextlib
+    import dataclasses
+    import io
+    import statistics
+    import threading
+
+    from kd6d_pose_adlp_tpu_torch import evaluate, export_model, make_bop_dataset, train_kd
+    from kd6d_pose_adlp_tpu_torch.config import load_yaml_config
+    from kd6d_pose_adlp_tpu_torch.data import loaders, native, png
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.engine.loop import train
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.utils.fold_bn import fold_batchnorm
+
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "tree")
+    yaml_path, tree = bop_tree_phase(png, native, make_bop_dataset, root)
+    cfg = load_yaml_config(yaml_path)
+    _, cfg_t = train_configs()
+    cfg_t = cfg_t.replace(data=cfg.data)
+    n_fg, B = cfg.data.n_fg, cfg.solver.ims_per_batch
+    if (n_fg, B, cfg.model.input_res, cfg.model.backbone) != (15, BOP_BATCH, RES,
+                                                               "darknet_tiny_h"):
+        raise AssertionError("the tree's config is not the full-width one")
+    samples = bop_samples_phase(cfg, yaml_path)
+    k1_key = ("sinkhorn_potentials", cfg.solver.max_pos, cfg.kd.max_teacher_cells)
+    shapes = ((3, 8), (8, 16))
+
+    # the live bf16 step (train_kd's defaults) on BOP batches from the loader
+    # beside the same step on synthetic batches rendered beforehand (host
+    # tensors, as the loader's), one profiled BOP step
+    c, c_t = bf16_configs(cfg.replace(solver=dataclasses.replace(
+        cfg.solver, max_iter=BOP_TIMED_STEPS)), cfg_t)
+    teacher = init_pose_net(PoseNet(cfg_t.model, n_fg=n_fg), torch.Generator().manual_seed(1))
+    teacher_sd = teacher.state_dict()
+    folded_sd = fold_batchnorm(teacher_sd)
+    data = loaders.build(c, kind="bop", device=dev)
+    syn = SyntheticPoseDataset(n_fg=n_fg, input_res=RES, single_class=0, seed=0)
+    syn_batches = [syn.batch(range(B * i, B * (i + 1))) for i in range(BOP_TIMED_STEPS)]
+    live, k1_live = {}, 0
+    for tag in ("bop", "synthetic"):
+        sf.reset_launch_counts()
+        it = data.train_iter(BOP_WORKERS) if tag == "bop" else iter(syn_batches)
+        consts = data.consts if tag == "bop" else syn.consts(device=dev)
+        with tempfile.TemporaryDirectory() as wd:
+            state, hist = train(c, consts, it, cfg_t=c_t, teacher_state_dict=folded_sd,
+                                device=dev, log_every=1, working_dir=wd, verbose=False)
+        if tag == "bop":
+            it.close()
+            bop_state = state
+        k1 = sf.launches.get(k1_key, 0)
+        k1_live += k1
+        if k1 != BOP_TIMED_STEPS or not all(
+                math.isfinite(v) for h in hist for v in h.values()) or hist[-1]["loss_kd"] <= 0:
+            raise AssertionError(f"live {tag} steps: K1 {k1}, last {hist[-1]}")
+        ms = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+        live[tag] = dict(step_ms=[h["step_ms"] for h in hist], median_ms=statistics.median(ms))
+    it = data.train_iter(BOP_WORKERS)
+    batch = next(it).to(dev)
+    it.close()
+    teacher_dev = PoseNet(c_t.model, n_fg=n_fg)
+    teacher_dev.load_state_dict(folded_sd, strict=True)
+    step = steps.build_train_step(c, c_t, data.consts, bop_state.net,
+                                  teacher_dev.to(dev).eval(), steps.make_optimizer(c))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sf.reset_launch_counts()
+    prof = profile_request(torch, lambda: step(bop_state, batch, generator=gen))
+    k1_live += sf.launches.get(k1_key, 0)
+    idle = 1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+    log(f"[bop] live bf16 step, B={B}, on {gpu_name_and_power()}: BOP batches from "
+        f"{BOP_WORKERS} loader threads median {live['bop']['median_ms']:.2f} ms "
+        f"({1e3 * B / live['bop']['median_ms']:.1f} images/s), synthetic host batches "
+        f"{live['synthetic']['median_ms']:.2f} ms, steps {TRAIN_WARMUP + 1}-"
+        f"{BOP_TIMED_STEPS}; profiled BOP step: {prof['device_kernels']} device kernels, busy "
+        f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms (idle share {idle:.3f})")
+
+    # (c) the training CLI at its defaults on the tree, then its resume
+    wd = os.path.join(tmp.name, "run")
+    wf = os.path.join(tmp.name, "teacher.pt")
+    torch.save(teacher_sd, wf)
+    args = ["--config_file", yaml_path, "--data", "bop", "--num_workers", str(BOP_WORKERS),
+            "--weight_file_t", wf, "--working_dir", wd]
+    n_chunks = -(-BOP_TEST_FRAMES // cfg.test.ims_per_batch)
+    k2_launches = {cfg.test.ims_per_batch: {}, EVAL_BATCH: {}, BATCH: {}}
+
+    def add(b):
+        for key, v in cf.launches.items():
+            k2_launches[b][key] = k2_launches[b].get(key, 0) + v
+
+    runs, k1_cli = {}, 0
+    for max_iters in BOP_STEPS:
+        sf.reset_launch_counts()
+        cf.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            st, h = train_kd.main(args + ["--max_iters", str(max_iters)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        printed = buf.getvalue()
+        k1 = sf.launches.get(k1_key, 0)
+        k1_cli += k1
+        k2 = {f"{a}->{o}": cf.launches.get(("conv3x3_bn_act_flat", a, o, "bfloat16"), 0)
+              for a, o in shapes}
+        add(cfg.test.ims_per_batch)
+        first = max_iters == BOP_STEPS[0]
+        n_steps = max_iters - (0 if first else BOP_STEPS[0])
+        log(f"[bop] (c) train_kd.main --data bop --max_iters {max_iters} ({secs:.1f} s): "
+            f"step {st.step}, K1 {k1}, K2 {k2}; "
+            + "; ".join(f"step {x['step']}: loss_total {x['loss_total']:.4f} (kd "
+                        f"{x['loss_kd']:.5f})" for x in h) + "; printed: "
+            + " | ".join(line for line in printed.splitlines()
+                         if line.startswith(("teacher", "resumed", "[valid"))))
+        want_resume = f"resumed from {os.path.join(wd, 'latest.ckpt')} @ step {BOP_STEPS[0]}"
+        if not (st.step == max_iters and k1 == n_steps and sum(sf.launches.values()) == n_steps
+                and set(k2.values()) == {n_chunks} and sum(cf.launches.values()) == 2 * n_chunks
+                and all(math.isfinite(v) for x in h for v in x.values())
+                and all(x["loss_kd"] > 0 for x in h)
+                and printed.count("[valid @ step") == 2
+                and f"[valid @ step {max_iters}]" in printed
+                and "teacher: BN folded into conv weights" in printed
+                and (first or want_resume in printed)):
+            raise AssertionError(f"train_kd.main --data bop --max_iters {max_iters}: steps, "
+                                 "launches, losses, evaluations or resume not as expected")
+        missing = [f for f in ("latest.ckpt", "final.ckpt", "cfg.json", "info.txt",
+                               "scalars.jsonl") if not os.path.exists(os.path.join(wd, f))]
+        if missing:
+            raise AssertionError(f"train_kd.main --data bop did not write {missing}")
+        if [t.name for t in threading.enumerate() if "(producer)" in t.name]:
+            raise AssertionError("the BOP loader's threads outlived train_kd.main")
+        runs[max_iters] = dict(seconds=secs, k1=k1, k2=k2, history=h)
+
+    # (d) the evaluation CLI on the run's final.ckpt
+    n_tensors = len(PoseNet(cfg.model, n_fg=n_fg).state_dict())
+    n_eval_chunks = -(-BOP_TEST_FRAMES // EVAL_BATCH)
+    evals = {}
+    for extra in (["--test_file", cfg.data.test_list], ["--fast_pipeline"]):
+        cf.reset_launch_counts()
+        ewd = os.path.join(tmp.name, "eval")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ev = evaluate.main(["--config_file", yaml_path, "--weight_file",
+                                os.path.join(wd, "final.ckpt"), "--data", "bop",
+                                "--ims_per_batch", str(EVAL_BATCH), "--working_dir", ewd,
+                                *extra])
+        secs = time.perf_counter() - t0
+        printed = buf.getvalue()
+        with open(os.path.join(ewd, "preds.json")) as f:
+            n_preds = len(json.load(f))
+        k2 = dict(cf.launches)
+        add(EVAL_BATCH)
+        log(f"[bop] (d) evaluate.main --data bop {' '.join(extra)} ({secs:.1f} s): "
+            f"{printed.splitlines()[0]}; {n_preds} predictions; K2 {k2}")
+        if not (printed.startswith(f"loaded {n_tensors} tensors from") and ev["table"] in printed
+                and n_preds == BOP_TEST_FRAMES
+                and k2 == {("conv3x3_bn_act_flat", a, o, "bfloat16"): n_eval_chunks
+                           for a, o in shapes}):
+            raise AssertionError(f"evaluate.main --data bop {extra}: tensors, table, "
+                                 "predictions or K2 launches not as expected")
+        evals[extra[0]] = dict(seconds=secs, predictions=n_preds)
+
+    # (e) the export CLI with the tree's task constants
+    cf.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        meta = export_model.main(["--weight_file", os.path.join(wd, "final.ckpt"),
+                                  "--config_file", yaml_path, "--data", "bop",
+                                  "--batch_size", str(BATCH), "--check",
+                                  "--out", os.path.join(tmp.name, "student.pt2")])
+    printed = buf.getvalue()
+    add(BATCH)
+    log(f"[bop] (e) export_model --data bop --check: {meta['bytes']} bytes, K2 "
+        f"{dict(cf.launches)}; " + " | ".join(line for line in printed.splitlines()
+                                              if line.startswith(("loaded", "round-trip"))))
+    if not ("round-trip check OK" in printed and set(cf.launches.values()) == {2}):
+        raise AssertionError("export_model --data bop --check failed")
+    tmp.cleanup()
+    return dict(tree=tree, samples=samples, live=live, profile=prof, device_idle_share=idle,
+                train_kd=runs, evaluate=evals, export_bytes=meta["bytes"]), \
+        k1_live + k1_cli, k2_launches
+
+
+# ---------------------------------------------------------------------------
 # export phase
 # ---------------------------------------------------------------------------
 
@@ -2639,7 +2998,7 @@ def zebra_phase(torch, cf, dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,export,cli,zebra")
+    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,export,cli,zebra,bop")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2704,6 +3063,10 @@ def main(argv=None) -> int:
     if "zebra" in phases:
         result["zebra"], k2_zebra = zebra_phase(torch, cf, dev)
         add_launches(k2_zebra)
+    if "bop" in phases:
+        result["bop"], k1_bop, k2_bop = bop_phase(torch, sf, cf, dev)
+        k1_launches = (k1_launches or 0) + k1_bop
+        add_launches(k2_bop)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2714,8 +3077,9 @@ def main(argv=None) -> int:
                          f"B={r['B']} {r['dtype']}]")
         kernels.append({k: r[k] for k in keys})
     if k1_row is not None:
-        # K1's launches are those of the train phase's run and the cli
-        # phase's pooled runs (loop.train, train_kd.main and its resume)
+        # K1's launches are those of the train phase's run, the cli
+        # phase's pooled runs (loop.train, train_kd.main and its resume) and
+        # the bop phase's live steps and train_kd.main runs
         k1_row["launches"] = k1_launches
         kernels.append({k: k1_row[k] for k in keys}
                        | {"name": f"sinkhorn_potentials[{k1_row['shape']}]"})

@@ -1,0 +1,162 @@
+"""BOP dataset parsing on the host (port of `kd6d_pose_adlp_tpu/data/bop.py`).
+
+The reference's annotation flow (`libs/utils.py:238-301`,
+`libs/dataset.py:27-183`): image list -> per-image (K, merged instance mask,
+class ids, R, T) from scene_camera.json / scene_gt.json / mask_visib PNGs.
+JSON files are cached per path; decoded frames and annotations go through a
+byte-budgeted LRU (`KD6D_DECODE_CACHE_MB`, 2048 by default, 0 disables).
+PNGs are read by `data/png.py`, not an image library; JPEG frames (BOP's
+PBR renders) raise, as the port has no JPEG decoder (ROADMAP Queue 1
+item 8).
+"""
+from __future__ import annotations
+
+import collections
+import functools
+import json
+import os
+import threading
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from . import png
+
+JPEG_SUFFIXES = (".jpg", ".jpeg")
+
+
+@functools.lru_cache(maxsize=256)
+def _load_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+class _ByteLRU:
+    """Thread-safe byte-budgeted LRU for decoded frames and annotations. A
+    training run re-reads each image tens of times, so decoded arrays are
+    kept and returned SHARED and write-protected; the pipeline only ever
+    warps or copies them."""
+
+    def __init__(self, budget_bytes: int):
+        self._d: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.budget = budget_bytes
+        self.nbytes = 0
+
+    def get(self, key):
+        with self._lock:
+            hit = self._d.get(key)
+            if hit is None:
+                return None
+            self._d.move_to_end(key)
+            return hit[0]
+
+    def put(self, key, value, nbytes: int):
+        if nbytes > self.budget:
+            return
+        with self._lock:
+            if key in self._d:
+                return
+            self._d[key] = (value, nbytes)
+            self.nbytes += nbytes
+            while self.nbytes > self.budget and self._d:
+                _, (_, ob) = self._d.popitem(last=False)
+                self.nbytes -= ob
+
+
+_DECODE_CACHE = _ByteLRU(
+    int(float(os.environ.get("KD6D_DECODE_CACHE_MB", "2048")) * 2**20))
+
+
+def check_png(path: str) -> None:
+    """Raise ValueError for a frame the port cannot decode (JPEG)."""
+    if path.strip().lower().endswith(JPEG_SUFFIXES):
+        raise ValueError(f"{path}: JPEG frames are not supported, the port decodes PNG "
+                         "only (ROADMAP Queue 1 item 8)")
+
+
+def read_image(path: str) -> np.ndarray:
+    """BGR uint8 image with the reference's normalizations
+    (libs/dataset.py:59-90): uint16 -> uint8, gray -> 3ch, alpha -> white bg.
+    Decoded frames are LRU-cached and returned write-protected; callers
+    must copy before mutating."""
+    cached = _DECODE_CACHE.get(path)
+    if cached is not None:
+        return cached
+    check_png(path)
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    img = png.read(path)
+    if img.dtype == np.uint16:
+        img = (img / 256).astype(np.uint8)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, -1)
+    if img.shape[2] == 4:
+        alpha = img[:, :, 3:4].astype(np.float32) / 255.0
+        img = (img[:, :, :3].astype(np.float32) * alpha
+               + 255.0 * (1 - alpha)).astype(np.uint8)
+    img.setflags(write=False)
+    _DECODE_CACHE.put(path, img, img.nbytes)
+    return img
+
+
+def get_single_bop_annotation(img_path: str, obj2cls: Dict[str, int]
+                              ) -> Tuple[np.ndarray, np.ndarray, List[int],
+                                         List[np.ndarray], List[np.ndarray]]:
+    """(K, merged_mask(int32), class_ids, Rs, Ts) — reference libs/utils.py:238-301.
+
+    The whole annotation (mask PNGs decoded + merged) is LRU-cached per
+    image path; arrays come back write-protected and shared. A missing mask
+    file skips its instance, as a failed cv2.imread does in the JAX package."""
+    img_path = img_path.strip()
+    ckey = (img_path, tuple(sorted(obj2cls.items())))
+    cached = _DECODE_CACHE.get(ckey)
+    if cached is not None:
+        K, merged, class_ids, Rs, Ts = cached
+        return K, merged, list(class_ids), list(Rs), list(Ts)
+    gt_dir, tmp, img_name = img_path.rsplit("/", 2)
+    if tmp != "rgb":
+        raise ValueError(f"{img_path}: a BOP frame lives in <scene>/rgb/")
+    base = os.path.splitext(img_name)[0]
+    cam_json = _load_json(os.path.join(gt_dir, "scene_camera.json"))
+    gt_json = _load_json(os.path.join(gt_dir, "scene_gt.json"))
+    im_id = str(int(base)) if str(int(base)) in cam_json else base
+    annot_cam = cam_json[im_id]
+    annot_poses = gt_json[im_id]
+
+    K = np.asarray(annot_cam["cam_K"], np.float32).reshape(3, 3)
+    class_ids, Rs, Ts = [], [], []
+    merged = None
+    inst = 1
+    for i, pose in enumerate(annot_poses):
+        mask_file = os.path.join(gt_dir, "mask_visib", f"{base}_{i:06d}.png")
+        if not os.path.exists(mask_file):
+            continue
+        mv = png.read(mask_file)
+        if merged is None:
+            merged = np.zeros(mv.shape[:2], np.int32)
+        obj_id = str(pose["obj_id"])
+        if obj_id not in obj2cls:
+            continue
+        class_ids.append(obj2cls[obj_id])
+        Rs.append(np.asarray(pose["cam_R_m2c"], np.float32).reshape(3, 3))
+        Ts.append(np.asarray(pose["cam_t_m2c"], np.float32).reshape(3))
+        merged[mv == 255] = inst
+        inst += 1
+    if merged is None:
+        merged = np.zeros((480, 640), np.int32)
+    K.setflags(write=False)
+    merged.setflags(write=False)
+    for a in Rs + Ts:
+        a.setflags(write=False)
+    _DECODE_CACHE.put(ckey, (K, merged, tuple(class_ids), tuple(Rs), tuple(Ts)),
+                      K.nbytes + merged.nbytes + sum(a.nbytes for a in Rs + Ts))
+    return K, merged, list(class_ids), list(Rs), list(Ts)
+
+
+def read_image_list(list_file: str) -> List[str]:
+    """The list's frame paths, relative entries taken from its directory."""
+    root = os.path.dirname(os.path.abspath(list_file))
+    with open(list_file) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    return [ln if os.path.isabs(ln) else os.path.join(root, ln) for ln in lines]

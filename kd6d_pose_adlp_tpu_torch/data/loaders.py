@@ -1,11 +1,13 @@
 """Unified data access for the CLIs (port of `kd6d_pose_adlp_tpu/data/
-loaders.py:19-92`, the synthetic source).
+loaders.py`): BOP trees on disk or procedural synthetic scenes.
 
 `build(cfg, kind)` returns a DataBundle with the same interface for every
-source, so the evaluation and training entry points are source-agnostic. Only
-`kind="synthetic"` is ported; the BOP-on-disk source waits for the BOP host
-pipeline, and the per-process shards of multi-process runs for the port of
-`parallel/mesh`.
+source, so the evaluation and training entry points are source-agnostic.
+A BOP bundle's `train_iter(num_threads, shard=None)` and
+`eval_batches(shard=None)` take a data shard `(rank, count)` only when it is
+given; the JAX package also takes one from its process group, which waits
+here for the port of `parallel/mesh` (ROADMAP Queue 1 item 6b), so under an
+initialized torch.distributed group of more than one rank they raise.
 """
 from __future__ import annotations
 
@@ -35,10 +37,23 @@ def build(cfg: Config, kind: str = "bop", eval_limit: Optional[int] = None,
     if kind == "synthetic":
         return _build_synthetic(cfg, eval_limit or 64, device)
     if kind == "bop":
-        raise NotImplementedError(
-            "data kind 'bop' (the BOP host pipeline) is not ported yet "
-            "(ROADMAP Queue 1 item 6); use kind='synthetic'")
+        return _build_bop(cfg, eval_limit, device)
     raise ValueError(f"unknown data kind {kind!r}")
+
+
+def _process_shard(shard) -> Optional[tuple]:
+    """`shard` when given; None in a single process. The JAX package reads
+    the shard of a multi-process run from its process group; that waits for
+    the port of `parallel/mesh`, so a group of more than one rank raises."""
+    if shard is not None:
+        return shard
+    import torch
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "multi-process data sharding is not ported yet (ROADMAP Queue 1 item 6b); "
+            "pass shard=(rank, count)")
+    return None
 
 
 def _build_synthetic(cfg: Config, eval_n: int, device) -> DataBundle:
@@ -80,3 +95,46 @@ def _build_synthetic(cfg: Config, eval_n: int, device) -> DataBundle:
 
     return DataBundle(consts=consts, meshes=meshes, train_iter=train_iter,
                       eval_batches=eval_batches, cfg=cfg_d)
+
+
+def _build_bop(cfg: Config, eval_limit: Optional[int], device) -> DataBundle:
+    from .pipeline import BOPPoseDataset, PrefetchLoader, collate
+    train_ds = BOPPoseDataset(cfg, cfg.data.train_list, train=True)
+    valid_ds = BOPPoseDataset(cfg, cfg.data.valid_list or cfg.data.test_list, train=False)
+    consts = train_ds.consts(device=device)
+
+    def train_iter(num_threads: int = 2, shard=None):
+        """Training batches forever; closing the generator stops the
+        loader's threads."""
+        loader = iter(PrefetchLoader(train_ds, cfg.solver.ims_per_batch, train=True,
+                                     num_threads=num_threads, seed=cfg.solver.seed,
+                                     shard=_process_shard(shard)))
+        try:
+            for batch, _ in loader:
+                yield batch
+        finally:
+            loader.close()
+
+    def eval_batches(shard=None):
+        # one eval sample per (image, object): reference dzi_test_mobj
+        items = valid_ds.eval_items()
+        if eval_limit is not None:
+            items = items[:eval_limit]
+        sh = _process_shard(shard)
+        if sh is not None:
+            items = items[sh[0]::sh[1]]  # disjoint per-process eval shard
+        tb = cfg.test.ims_per_batch
+        for start in range(0, len(items), tb):
+            samples = []
+            for img_i, obj_j in items[start:start + tb]:
+                s = valid_ds.sample(img_i, seed=0, focus_obj=obj_j)
+                if s is not None:
+                    samples.append(s)
+            if not samples:
+                continue
+            while len(samples) < tb:  # static shapes: pad with a duplicate
+                samples.append(samples[-1])
+            yield collate(samples), [s["meta"] for s in samples]
+
+    return DataBundle(consts=consts, meshes=train_ds.meshes,
+                      train_iter=train_iter, eval_batches=eval_batches)

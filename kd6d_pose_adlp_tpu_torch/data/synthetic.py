@@ -1,6 +1,7 @@
 """Procedural BOP-style scenes (port of `kd6d_pose_adlp_tpu/data/
 synthetic.py:68-231`, the same numpy RNG stream sample for sample,
-`single_class` and `classes` included).
+`single_class` and `classes` included, and the full 640x480 frames that
+`make_bop_dataset` writes as a BOP tree).
 
 No LINEMOD data ships with the repo, so training batches, serving requests
 and task constants for smoke runs come from here: a painted cuboid per
@@ -168,6 +169,49 @@ class SyntheticPoseDataset:
                     rotations=rotations, translations=translations,
                     bbox_trans=M,
                     meta=dict(K=self.K, width=W, height=H, cls=cls, R=R, T=T))
+
+    def sample_internal(self, index: int):
+        """Full internal-frame (640x480) rendering of one scene: the raw frame
+        a BOP dataset stores on disk (`make_bop_dataset` writes these with
+        scene_gt / scene_camera JSONs, so the BOP host pipeline runs without
+        LINEMOD). dict(img uint8 (H, W, 3) RGB, mask uint8 (0 / 255), cls,
+        R, T), bit-equal to the JAX package's for the same seed and index."""
+        rng = np.random.default_rng((self.seed * 1_000_003 + index) & 0x7FFFFFFF)
+        W, H = self.internal_wh
+        if self.single_class is not None:
+            cls = self.single_class
+        elif self.classes is not None:
+            cls = int(self.classes[int(rng.integers(0, len(self.classes)))])
+        else:
+            cls = int(rng.integers(0, self.n_fg))
+        R = geo.quaternion2rotation(rng.normal(size=4)).astype(np.float32)
+        z = rng.uniform(650, 1100)
+        x = rng.uniform(-0.25, 0.25) * z * W / self.K[0, 0] / 2
+        y = rng.uniform(-0.25, 0.25) * z * H / self.K[1, 1] / 2
+        T = np.array([x + rng.uniform(-30, 30), y + rng.uniform(-30, 30), z],
+                     np.float32)
+        corners = self.kp3d[cls]
+        kp = geo.project_points(self.K, R, T, corners)       # (8,2) internal
+
+        mask = np.zeros((H, W), np.int32)
+        _fill_convex(mask, kp, 1)
+        img = rng.uniform(0, 0.15, size=(H, W, 3)).astype(np.float32)
+        cam = (R @ corners.T + T[:, None]).T
+        base = np.array([0.25 + 0.045 * cls, 0.85 - 0.04 * cls, 0.5], np.float32)
+        face_colors = np.stack([np.roll(base, k) * (0.45 + 0.11 * k)
+                                for k in range(6)]).astype(np.float32)
+        faces = [(0, 1, 3, 2), (4, 5, 7, 6), (0, 1, 5, 4),
+                 (2, 3, 7, 6), (0, 2, 6, 4), (1, 3, 7, 5)]
+        depth = [cam[list(f), 2].mean() for f in faces]
+        fimg = np.zeros((H, W), np.int32)
+        for fi in np.argsort(depth)[::-1]:
+            _fill_convex(fimg, kp[list(faces[fi])], fi + 1)
+        painted = fimg > 0
+        img[painted] = face_colors[fimg[painted] - 1]
+        img = np.clip(img + rng.normal(0, 0.02, img.shape).astype(np.float32), 0, 1)
+        return dict(img=(img * 255).astype(np.uint8),
+                    mask=(mask * 255).astype(np.uint8),
+                    cls=cls, R=R, T=T)
 
     def batch(self, indices, train: bool = True) -> Batch:
         """A training Batch of CPU tensors (the JAX dataset's numpy leaves,

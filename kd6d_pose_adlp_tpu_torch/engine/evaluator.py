@@ -33,29 +33,19 @@ from ..data.batch import TaskConsts
 from ..utils import geometry as geo
 from ..utils import metrics as M
 from ..utils.logging_utils import ScalarLogger
+from ..utils.pnp import solve_pnp_epnp
 
 
 def remap_pose_host(src_K: np.ndarray, R: np.ndarray, T: np.ndarray,
                     pt3d: np.ndarray, dst_K: np.ndarray):
     """Re-fit (R, T) under a different K by reprojecting the 8 corners and
-    solving PnP (reference libs/utils.py:504-526). Uses cv2 EPnP when present,
-    else the port's EPnP (on the CPU, in float32)."""
+    solving PnP (reference libs/utils.py:504-526) with the port's float64
+    EPnP, which follows cv2's SOLVEPNP_EPNP (`utils/pnp`). (R (3, 3), T (3, 1))."""
     M3 = dst_K @ np.linalg.inv(src_K)
     pts = M3 @ (src_K @ (R @ pt3d.T + T.reshape(3, 1)))
     xy2d = (pts[:2] / (pts[2:] + 1e-8)).T.astype(np.float64)
-    try:
-        import cv2
-        ok, rvec, tvec = cv2.solvePnP(
-            pt3d.reshape(-1, 1, 3).astype(np.float64), xy2d.reshape(-1, 1, 2),
-            dst_K.astype(np.float64), None, flags=cv2.SOLVEPNP_EPNP)
-        if ok:
-            return cv2.Rodrigues(rvec)[0], tvec.reshape(3, 1)
-    except ImportError:
-        pass
-    from ..ops.epnp import epnp
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-    Rh, Th = epnp(f32(pt3d), f32(xy2d), f32(dst_K), torch.ones(len(pt3d)))
-    return Rh.numpy().astype(np.float64), Th.numpy().astype(np.float64).reshape(3, 1)
+    R_new, T_new = solve_pnp_epnp(pt3d, xy2d, dst_K)
+    return R_new, T_new.reshape(3, 1)
 
 
 def check_single_process():

@@ -3,6 +3,8 @@
 
     python -m kd6d_pose_adlp_tpu_torch.evaluate --data synthetic --weight_file W.pt
     python -m kd6d_pose_adlp_tpu_torch.evaluate --data synthetic --weight_file W.pt --cpu
+    python -m kd6d_pose_adlp_tpu_torch.evaluate --config_file TREE/config.yaml \\
+        --weight_file W.pt --test_file TREE/test_list.txt [--fast_pipeline]
 
 Loads a PoseNet weight file loosely (`utils/checkpoint.load_params_loose`):
 a `torch.save`d state_dict, such as the port's `final.ckpt`, or a JAX
@@ -11,10 +13,11 @@ the weights on the configured split, prints
 `loaded N tensors from ...` and the per-class ADD/ADI/AUC/REP table, and
 writes preds.json into --working_dir. The network computes in
 --compute_dtype, bfloat16 by default as in `test.py:23`, or float32. Runs
-on the card unless --cpu is given. Only --data synthetic (its 64-image
-eval split) is ported: --data bop raises, as the BOP host pipeline is
-ROADMAP Queue 1 item 6, and test.py's --test_file and --fast_pipeline,
-which select BOP inputs, wait with it.
+on the card unless --cpu is given. --data bop (the default) evaluates one
+crop per (image, object) of the config's test list, or of --test_file,
+which replaces the config's TEST and VALID lists as in `test.py:59-61`;
+--fast_pipeline takes the host pipeline's one-warp path. --data synthetic
+evaluates the 64-image synthetic split.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="reference-format YAML; '' = the built-in defaults")
     p.add_argument("--backbone", type=str, default="darknet_tiny_h")
     p.add_argument("--weight_file", type=str, required=True)
+    p.add_argument("--test_file", type=str, default="",
+                   help="image list that replaces the config's TEST and VALID lists")
     p.add_argument("--working_dir", type=str, default="./outputs/eval/")
     p.add_argument("--data", type=str, default="bop", choices=["bop", "synthetic"])
     p.add_argument("--ims_per_batch", type=int, default=24)  # reference test.py:114
@@ -42,6 +47,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--eval_all_classes", action="store_true",
                    help="also run detection-style eval over every class "
                         "(recovery rate / false positives / ADI rate)")
+    p.add_argument("--fast_pipeline", action="store_true",
+                   help="the host pipeline's one-warp path (--data bop)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     return p.parse_args(argv)
@@ -70,8 +77,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            if args.config_file else
            Config().replace(model=dataclasses.replace(Config().model,
                                                       backbone=args.backbone)))
+    if args.test_file:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, test_list=args.test_file,
+                                                   valid_list=args.test_file))
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, ims_per_batch=args.ims_per_batch),
-                      model=dataclasses.replace(cfg.model, compute_dtype=args.compute_dtype))
+                      model=dataclasses.replace(cfg.model, compute_dtype=args.compute_dtype),
+                      data=dataclasses.replace(cfg.data, fast_pipeline=args.fast_pipeline))
 
     data = loaders.build(cfg, kind=args.data, device=device)
     if data.cfg is not None:

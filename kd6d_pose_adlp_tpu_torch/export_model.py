@@ -6,7 +6,7 @@ counterpart of the JAX package's `scripts/export_model.py`:
     python -m kd6d_pose_adlp_tpu_torch.export_model --weight_file W --cpu \\
         --input_res 64 --batch_size 2 --fold_bn --quant --check
 
-Builds the config and the synthetic task constants, loads the weights
+Builds the config and the task constants, loads the weights
 loosely (a `torch.save`d PoseNet state_dict, such as the port's final.ckpt,
 or a JAX package checkpoint, as `evaluate` reads them), optionally folds BN
 (`--fold_bn`, checked against the unfolded network's logits) and
@@ -17,8 +17,10 @@ int8-quantizes (`--quant`, after `--fold_bn`, calibrated on
 the eager endpoint on random inputs, seed 7 (rtol 1e-5, atol 1e-5; JAX's
 check). The network computes in float32 with `--cpu` and in bfloat16 on
 the card, as the JAX script does. Runs on the card unless --cpu is given;
-the artifact serves on the device it was exported on. Only --data
-synthetic is ported: --data bop raises (ROADMAP Queue 1 item 6).
+the artifact serves on the device it was exported on. `--data` names the
+source of the task constants (camera K, 3D keypoints) and of the
+calibration batches: the synthetic scenes (the default), or with `--data
+bop` the BOP tree that `--config_file` names.
 """
 from __future__ import annotations
 

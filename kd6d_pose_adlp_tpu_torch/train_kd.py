@@ -3,12 +3,17 @@ JAX package's `train_kd.py`:
 
     python -m kd6d_pose_adlp_tpu_torch.train_kd --config_file configs/smoke.yaml \\
         --data synthetic --max_iters 3 --working_dir D --cpu
+    python -m kd6d_pose_adlp_tpu_torch.train_kd --config_file TREE/config.yaml \\
+        --data bop --weight_file_t teacher.pt --num_workers 4 --working_dir D
     python -m kd6d_pose_adlp_tpu_torch.train_kd --config_file '' --data synthetic \\
         --weight_file_t teacher.pt --device_pool 4 --steps_per_dispatch 5 \\
         --cache_teacher --working_dir D
 
 It takes `train_kd.py`'s flags with the same meaning: it builds the
-configs and the synthetic data, the teacher from `--weight_file_t` (a
+configs and the data (`--data bop`, the default: the BOP tree the config's
+lists name, read through the host pipeline with `--num_workers` loader
+threads, `--fast_pipeline` for its one-warp path; or `--data synthetic`),
+the teacher from `--weight_file_t` (a
 `torch.save`d state_dict or a JAX checkpoint, read loosely) with its BN
 folded into its convolutions (`--fold_teacher_bn`, on by default, as in
 `train_kd.py:190-198`) and, with `--quant_teacher` (which requires the
@@ -110,12 +115,10 @@ def get_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raises NotImplementedError on a flag whose module is not ported yet,
-    naming its ROADMAP Queue 1 item: the BOP host data and distribution
-    (item 6): `--data bop`, `--fast_pipeline`, `--n_devices` > 1,
-    `--distributed` and `--vis_every` > 0 (the KD cloud plots)."""
+    naming its ROADMAP Queue 1 item: distribution and the tools (item 6):
+    `--n_devices` > 1, `--distributed` and `--vis_every` > 0 (the KD cloud
+    plots)."""
     unported = (
-        (args.data == "bop", "--data bop (the BOP host pipeline)", 6),
-        (args.fast_pipeline, "--fast_pipeline", 6),
         (args.n_devices > 1, f"--n_devices {args.n_devices} (the data mesh)", 6),
         (args.distributed, "--distributed", 6),
         (args.vis_every > 0, f"--vis_every {args.vis_every} (KD cloud plots)", 6),
@@ -275,7 +278,8 @@ def main(argv: Optional[Sequence[str]] = None):
         print(f"device pool: {args.device_pool} batches x {pool.images.shape[1]} images",
               flush=True)
     else:
-        train_iter = data.train_iter()
+        train_iter = (data.train_iter(args.num_workers) if args.data == "bop"
+                      else data.train_iter())
 
     try:
         return train(cfg, consts, train_iter, cfg_t=cfg_t,
@@ -286,6 +290,8 @@ def main(argv: Optional[Sequence[str]] = None):
                      cache_teacher=args.cache_teacher,
                      backbone_init=args.backbone_init or None, vis_every=args.vis_every)
     finally:
+        if train_iter is not None:
+            train_iter.close()      # the BOP loader's threads stop here
         eval_logger.close()
 
 

@@ -1,8 +1,8 @@
 """Host-side NumPy geometry helpers (copy of the parts of
 `kd6d_pose_adlp_tpu/utils/geometry.py` that synthetic scenes, the evaluators
 and the tests need): projection, 2x3 affines, quaternions, general Euler
-angles and symmetry canonicalization, the DZI crop affine and corner
-boxes."""
+angles and symmetry canonicalization, the augmentation and DZI crop
+affines and corner boxes."""
 from __future__ import annotations
 
 import math
@@ -162,6 +162,28 @@ def pose_symmetry_handling(R: np.ndarray, sym_spec: Sequence) -> np.ndarray:
         ai = 0.0 if mod == 0 else math.fmod(ai, mod)
         R = euler2mat(ai, aj, ak, axes=seq)
     return R.astype(np.float32)
+
+
+def rotation_matrix_2d(center: Tuple[float, float], angle_deg: float, scale: float) -> np.ndarray:
+    """2x3 rotation+scale about a center (same convention as cv2.getRotationMatrix2D)."""
+    a = math.radians(angle_deg)
+    alpha = scale * math.cos(a)
+    beta = scale * math.sin(a)
+    cx, cy = center
+    return np.array([
+        [alpha, beta, (1 - alpha) * cx - beta * cy],
+        [-beta, alpha, beta * cx + (1 - alpha) * cy],
+    ], dtype=np.float64)
+
+
+def shift_scale_rotate_matrix(shift_x: float, shift_y: float, angle_deg: float,
+                              scale: float, width: int, height: int) -> np.ndarray:
+    """3x3 combined shift -> (rotate+scale about image center) matrix
+    (reference libs/utils.py:161-179; randomness is supplied by the caller)."""
+    shiftM = np.array([[1.0, 0.0, -shift_x], [0.0, 1.0, -shift_y], [0.0, 0.0, 1.0]])
+    rs = rotation_matrix_2d((width / 2.0, height / 2.0), angle_deg, scale)
+    rsM = np.concatenate([rs, [[0.0, 0.0, 1.0]]], axis=0)
+    return (rsM @ shiftM).astype(np.float32)
 
 
 def dzi_affine(center: np.ndarray, scale: float, output_size: int,

@@ -1,7 +1,8 @@
 """PyTorch port, the training CLI (`kd6d_pose_adlp_tpu_torch/train_kd.py`)
 and what it drives of `engine/loop.train`: the run's files, resume, the
 device pool with the cached teacher, the evaluation CLI on the run's
-final.ckpt, and the flags of modules not ported yet, at the CLIs' default
+final.ckpt, the flags of modules not ported yet and the BOP flags reaching
+the BOP reader, at the CLIs' default
 flags (bfloat16), on the CPU with
 `configs/smoke.yaml` (darknet_tiny_h student at 64², B=2). As the JAX
 package's tests/test_train_loop.py, without distillation (--kd_weight 0):
@@ -110,8 +111,6 @@ def test_defaults_that_differ_from_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--data", "bop"], 6),
-    (["--fast_pipeline"], 6),
     (["--n_devices", "2"], 6),
     (["--distributed"], 6),
     (["--vis_every", "1000"], 6),
@@ -120,4 +119,15 @@ def test_unported_flags_raise(tmp_path, flags, item):
     args = _args(tmp_path, 1, *flags)          # a later --data overrides synthetic
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         train_kd.main(args)
+    assert not os.path.exists(tmp_path / "cfg.json")
+
+
+@pytest.mark.parametrize("flags", [["--data", "bop"], ["--data", "bop", "--fast_pipeline"]],
+                         ids=["bop", "fast_pipeline"])
+def test_bop_flags_reach_the_bop_reader(tmp_path, flags):
+    """--data bop and --fast_pipeline are ported: smoke.yaml names no image
+    list, so the BOP reader raises FileNotFoundError on it, not
+    NotImplementedError."""
+    with pytest.raises(FileNotFoundError):
+        train_kd.main(_args(tmp_path, 1, *flags))
     assert not os.path.exists(tmp_path / "cfg.json")

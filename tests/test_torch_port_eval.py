@@ -29,7 +29,8 @@ Tolerances, with the largest difference measured on this CPU beside them:
                           score               atol 1e-5   (0)
                           valid, classes, table equal
   remap, port vs JAX host remap               R atol 1e-4, T rtol 1e-4
-                                              (no cv2: 6.6e-7, 1.5e-6; cv2: 0, 0)
+                                              (JAX without cv2: 6.2e-7, 2.2e-6;
+                                               with cv2: 5.3e-15, 2.1e-14)
   scan refit vs host remap                    R atol 5e-3, T rtol 2e-3 + 0.5 mm
                                               (no cv2: 3.2e-6 / 8.5e-4 mm;
                                                cv2: 1.4e-6 / 6.9e-4 mm)
@@ -426,9 +427,10 @@ def test_streaming_valid_matches_jax(env):
 
 @pytest.mark.parametrize("cv2_present", [False, True])
 def test_remap_path(env, monkeypatch, cv2_present):
-    """A different native K on every image: the port's host remap against
-    JAX's (the same branch on both sides), and the scan path's batched
-    EPnP refit against the port's host remap."""
+    """A different native K on every image: the port's host remap (its
+    float64 EPnP, `utils/pnp`, with or without cv2 installed) against JAX's
+    cv2 branch and against its branch without cv2, and the scan path's
+    batched EPnP refit against the port's host remap."""
     if cv2_present:
         pytest.importorskip("cv2")
     else:
@@ -562,8 +564,9 @@ def test_real_network_valid_matches_jax(env, real_net):
 # 10-12: loaders, loose loading and the CLI, the train loop's eval hook
 # ---------------------------------------------------------------------------
 
-def test_synthetic_loader_matches_jax():
+def test_synthetic_loader_matches_jax(tmp_path):
     from kd6d_pose_adlp_tpu.data import loaders as jloaders
+    from kd6d_pose_adlp_tpu_torch import make_bop_dataset
     from kd6d_pose_adlp_tpu_torch.data import loaders
     jc, tc = _cfgs()
     jc = jc.replace(test=dataclasses.replace(jc.test, ims_per_batch=4))
@@ -586,8 +589,21 @@ def test_synthetic_loader_matches_jax():
     assert n == 2       # 6 images, the second chunk padded by wrapping
     tt, jt = next(td.train_iter()), next(jd.train_iter())
     np.testing.assert_array_equal(tt.class_ids.numpy(), jt.class_ids)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        loaders.build(tc, kind="bop", device="cpu")
+    # the BOP source on a tree the port's make_bop_dataset writes: JAX's
+    # task constants and eval batches (3 (image, object) items, one chunk)
+    yaml_path = make_bop_dataset.write_dataset(str(tmp_path / "bop"), n_train=2, n_test=3,
+                                               n_fg=N_FG, single_class=None, seed=2)
+    jd = jloaders.build(jcfg.load_yaml_config(yaml_path).replace(
+        model=jc.model, solver=jc.solver, test=jc.test), kind="bop", eval_limit=6)
+    td = loaders.build(tcfg.load_yaml_config(yaml_path).replace(
+        model=tc.model, solver=tc.solver, test=tc.test), kind="bop", eval_limit=6,
+        device="cpu")
+    np.testing.assert_array_equal(td.consts.kp3d.numpy(), np.asarray(jd.consts.kp3d))
+    (tb, tm), = td.eval_batches()
+    (jb, jm), = jd.eval_batches()
+    for f in JBatch._fields:
+        np.testing.assert_array_equal(getattr(tb, f).numpy(), getattr(jb, f), err_msg=f)
+    assert [m["filename"] for m in tm] == [m["filename"] for m in jm]
     # the single_class / classes fields draw from the JAX stream
     for kw in (dict(single_class=1), dict(classes=(0, 2))):
         t_ds = SyntheticPoseDataset(n_fg=N_FG, input_res=RES, max_objs=2, seed=7, **kw)
@@ -645,8 +661,16 @@ def test_load_params_loose_and_the_cli(tmp_path, capsys, monkeypatch):
     assert evaluate.parse_args(["--weight_file", "w"]).compute_dtype == "bfloat16"
     with pytest.raises(SystemExit):
         evaluate.parse_args(["--weight_file", "w", "--compute_dtype", "float16"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        evaluate.main(args[:4] + ["--data", "bop", "--cpu"])
+    # --data bop on a tree the port's make_bop_dataset writes (3 classes, 2
+    # test images), the same weights
+    from test_torch_port_bop_cli import write_smoke_tree
+    bop_yaml = write_smoke_tree(str(tmp_path / "bop"), n_train=2, n_test=2, n_fg=N_FG)
+    r3 = evaluate.main(["--config_file", bop_yaml] + args[2:] + ["--data", "bop"])
+    out = capsys.readouterr().out
+    assert f"loaded {len(keys)} tensors from" in out and r3["table"] in out
+    with open(tmp_path / "eval" / "preds.json") as f:
+        assert sorted(json.load(f)) == [str(tmp_path / "bop" / "test" / "000001" / "rgb" /
+                                            f"{i:06d}.png#obj0") for i in range(2)]
     assert evaluate.parse_args(["--weight_file", "w"]).device == "cuda"
 
 

@@ -258,14 +258,22 @@ def test_quant_export_roundtrip(setup, tmp_path):
                                                                               seed=3))
 
 
+@pytest.fixture(scope="module")
+def bop_yaml(tmp_path_factory):
+    """The smoke config of a BOP tree of the 15 synthetic classes, 2 test
+    images."""
+    from test_torch_port_bop_cli import write_smoke_tree
+    return write_smoke_tree(str(tmp_path_factory.mktemp("bop")), n_train=1, n_test=2, n_fg=15)
+
+
 @pytest.mark.parametrize("extra", [[], ["--fold_bn", "--quant", "--quant_calib_batches", "1"],
                                    ["--batch_size", "0"]],
                          ids=["float", "int8", "symbolic"])
-def test_export_model_cli_with_check(setup, tmp_path, capsys, extra):
+def test_export_model_cli_with_check(setup, bop_yaml, tmp_path, capsys, extra):
     """`export_model.main --cpu --check` (configs/smoke.yaml: 64², no P6/P7)
     on a torch.save'd state_dict: the
     artifact and its metadata written, the round trip against the eager
-    endpoint passes; --data bop raises (ROADMAP Queue 1 item 6)."""
+    endpoint passes; again with --data bop on a small BOP tree."""
     cfg, _, net = setup
     weights = tmp_path / "w.pt"
     torch.save(net.state_dict(), weights)
@@ -283,7 +291,12 @@ def test_export_model_cli_with_check(setup, tmp_path, capsys, extra):
         assert "int8-quantized (1 calib batches)" in text and "fold_bn: max output" in text
     if "--batch_size" in extra[:1]:
         assert meta["batch_size"] == "symbolic"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        export_model.main(args + ["--data", "bop"])
+    # --data bop: the task constants and calibration batches of a BOP tree
+    bop_args = [bop_yaml if a == smoke else a for a in args]
+    meta_bop = export_model.main(bop_args + ["--data", "bop", "--out", str(tmp_path / "b.pt2")])
+    text = capsys.readouterr().out
+    assert "round-trip check OK" in text and meta_bop["n_fg"] == 15
+    if "--quant" in extra:
+        assert "int8-quantized (1 calib batches)" in text
     with pytest.raises(SystemExit, match="requires --fold_bn"):
         export_model.main([a for a in args if a != "--fold_bn"] + ["--quant"])
