@@ -9,6 +9,7 @@ card: the quickest proof that the port builds, starts and answers on the GPU.
     python3 chip_smoke.py --phases export  # frame endpoint, artifacts, int8 PTQ
     python3 chip_smoke.py --phases zebra   # the dense binary-code head
     python3 chip_smoke.py --phases bop     # the BOP host pipeline under the CLIs
+    python3 chip_smoke.py --phases dist    # data parallelism over a process group
 
 Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
@@ -213,6 +214,35 @@ Phases:
            the table printed, 48 predictions, the bf16 K2 once per chunk of
            24. (e) export_model --data bop --check at B=8: the round trip
            passes, the bf16 K2 once per shape in each request.
+  dist     data parallelism (parallel/mesh) at full width. (a) two ranks on
+           the one card, spawned by parallel/mesh.spawn, with gloo on CUDA
+           tensors (NCCL refuses two ranks on one device), through the
+           engine API: the darknet_tiny_h student and the BN-folded darknet53
+           teacher (head prior 0.5) at 256², B=8 a rank and 16 in all, 2
+           fp32 KD steps held against the one-process fp32 step on the
+           concatenated batches on the same card, both with the LR divided by
+           2, at the bounds of tests/test_torch_port_dist.py (metrics rtol
+           5e-3, num_pos equal; after the first step every parameter within 2
+           lr and < 0.5% of its elements off by more than 1e-6; after the
+           last within 2 * sum(lr), the difference's norm <= 0.15 of the
+           update's, BN statistics within 5e-3 of their largest entry), the
+           first step's 2 lr plus the parameter's float32 spacing
+           (dist_steps_agree says why). Two steps, not the CPU test's three:
+           on the card grad_norm at a third step moves 2.3e-3 between runs
+           of one process (cuDNN's nondeterministic sums through the first
+           update's flipped signs) and read 4.8e-3-7.4e-3 from the 2-rank
+           step; at the second 5.0e-4-5.2e-4. Then
+           2 bf16 steps (train_kd's default pair): finite losses; the ranks'
+           state dicts bit-equal; K1 once a step on each rank. Then a 2-rank
+           ScanEvaluator over 96 synthetic images, each rank its 48 (2 chunks
+           of 24, K2 once a chunk at each stem shape), each image with its
+           own draws: the merged table equals the one-process table of the
+           96. Step times are logged, labelled: two processes share one card,
+           so they say nothing of scaling. (b) train_kd --distributed under a
+           1-rank NCCL group from torchrun's variables, set by the phase: 3
+           synthetic steps at its defaults (bf16) and a scan evaluation (K1
+           once a step, the bf16 K2 once a chunk at each shape), its files
+           written, the group destroyed on return.
 
 TF32 is off for matmuls and convolutions throughout, so the fp32
 comparisons are fp32 against fp32 (the serving network, one KD step and
@@ -313,6 +343,15 @@ BOP_LOADER_BATCHES = 4
 BOP_TIMED_STEPS = 10
 BOP_WORKERS = 4
 BOP_STEPS = (6, 8)
+# the dist phase: ranks on the one card, the batch a rank, the fp32 and bf16
+# steps, the eval images (a multiple of 2 chunks of EVAL_BATCH) and
+# train_kd --distributed's steps
+DIST_RANKS = 2
+DIST_BATCH = 8
+DIST_STEPS = 2
+DIST_BF16_STEPS = 2
+DIST_EVAL_IMAGES = 96
+DIST_CLI_STEPS = 3
 # the edges of conv3x3_igemm's mapping (B, C, O, H, W), each in both forms:
 # a partial channel octet (C = 5, O = 12, M = 23 * 31 odd, B = 1); C = 20
 # (a partial third octet) with O = 72 (past 64: the 128-output tiling); C =
@@ -2996,9 +3035,326 @@ def zebra_phase(torch, cf, dev):
     return summary, {BATCH: k2_b}
 
 
+# ---------------------------------------------------------------------------
+# dist: data parallelism (parallel/mesh) on the card
+# ---------------------------------------------------------------------------
+
+def dist_configs():
+    """The dist phase's configs: train_configs' fp32 student at a global
+    batch of DIST_RANKS * DIST_BATCH, its darknet53 teacher with the BN
+    folded (the teacher train_kd builds from a weight file), and the
+    evaluated student (head prior 0.5, so its random cells vote) at the
+    evaluators' chunk."""
+    import dataclasses
+    cfg, cfg_t = train_configs()
+    cfg = cfg.replace(solver=dataclasses.replace(
+        cfg.solver, ims_per_batch=DIST_RANKS * DIST_BATCH, max_iter=50))
+    cfg_t = cfg_t.replace(model=dataclasses.replace(cfg_t.model, bn_folded=True))
+    cfg_e = cfg.replace(model=dataclasses.replace(cfg.model, prior=0.5),
+                        test=dataclasses.replace(cfg.test, ims_per_batch=EVAL_BATCH))
+    return cfg, cfg_t, cfg_e
+
+
+def dist_steps(torch, inp, mesh, dtype: str, n: int, dev):
+    """`n` KD steps from `inp`'s weights and configs with make_optimizer(
+    n_devices=DIST_RANKS), in `dtype` (bf16: train_kd's default pair):
+    this rank's rows of each global batch and draw under `mesh`, the whole
+    of them without one. [(metrics, state_dict on the CPU)] a step (in
+    bf16 the last step's state only) and the host-clock ms of each
+    synchronized step."""
+    from kd6d_pose_adlp_tpu_torch.data.batch import TaskConsts
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet
+    from kd6d_pose_adlp_tpu_torch.parallel.mesh import shard_batch
+
+    cfg, cfg_t, _ = inp["cfgs"]
+    if dtype == "bfloat16":
+        cfg, cfg_t = bf16_configs(cfg, cfg_t)
+    n_fg = cfg.data.n_fg
+    consts = TaskConsts.create(*inp["consts"], device=dev)
+    net, teacher = PoseNet(cfg.model, n_fg=n_fg), PoseNet(cfg_t.model, n_fg=n_fg)
+    net.load_state_dict(inp["student"], strict=True)
+    teacher.load_state_dict(inp["teacher"], strict=True)
+    opt = steps.make_optimizer(cfg, n_devices=DIST_RANKS)
+    state = steps.create_train_state(cfg, net.to(dev), opt)
+    step = steps.build_train_step(cfg, cfg_t, consts, net, teacher.to(dev).eval(), opt,
+                                  mesh=mesh)
+    out, ms = [], []
+    for b, u in list(zip(inp["batches"], inp["uniforms"]))[:n]:
+        if mesh is None:
+            b, u = b.to(dev), u.to(dev)
+        else:
+            b, u = shard_batch(b, mesh), shard_batch(u, mesh)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b, uniform=u)
+        m = {k: float(v) for k, v in m.items()}        # synchronizes
+        ms.append(1e3 * (time.perf_counter() - t0))
+        keep = dtype == "float32" or len(out) == n - 1
+        out.append((m, {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+                    if keep else None))
+    return out, ms
+
+
+def dist_eval(torch, inp, dev, rank: int = 0, size: int = 1):
+    """ScanEvaluator.run over this process's shard of the synthetic eval
+    images that `inp["gumbel"]` draws for (the group's shard under a
+    group), each image with its own RANSAC draws: the result and the K2
+    launches of the run."""
+    from kd6d_pose_adlp_tpu_torch.data import loaders
+    from kd6d_pose_adlp_tpu_torch.engine.eval_scan import ScanEvaluator
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet
+    from kd6d_pose_adlp_tpu_torch.ops import conv_fused as cf
+
+    cfg = inp["cfgs"][2]
+    n_images, chunk = len(inp["gumbel"]), cfg.test.ims_per_batch
+    data = loaders.build(cfg, "synthetic", eval_limit=n_images, device=dev)
+    net = PoseNet(data.cfg.model, n_fg=data.cfg.data.n_fg)
+    net.load_state_dict(inp["eval_net"], strict=True)
+    net.to(dev).eval()
+    mine = list(range(n_images))[rank::size]
+    sev = ScanEvaluator(data.cfg, data.consts, net, data.meshes).prepare(data.eval_batches())
+    cf.reset_launch_counts()
+    res = sev.run(gumbel_fn=lambda i: inp["gumbel"][mine[i * chunk:(i + 1) * chunk]],
+                  verbose=False)
+    sync(torch, dev)
+    return dict(table=res["table"], preds=res["predictions"], k2=dict(cf.launches))
+
+
+def dist_rank(inp):
+    """One of the DIST_RANKS ranks on the one card (`parallel/mesh.spawn`),
+    on `inp["device"]`: gloo on CUDA tensors, since NCCL refuses two ranks
+    on one device. The fp32 steps, the bf16 steps, the sharded scan
+    evaluation, each rank's K1 and K2 launches (counts zeroed just before,
+    read just after). Everything it sizes by comes in `inp`."""
+    import torch
+
+    from kd6d_pose_adlp_tpu_torch.ops import sinkhorn_fused as sf
+    from kd6d_pose_adlp_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pmesh.init_from_env(device=inp["device"], backend="gloo")
+    try:
+        dev = mesh.device
+        sf.reset_launch_counts()
+        fp32, fp32_ms = dist_steps(torch, inp, mesh, "float32", len(inp["batches"]), dev)
+        bf16, bf16_ms = dist_steps(torch, inp, mesh, "bfloat16", inp["bf16_steps"], dev)
+        k1 = dict(sf.launches)
+        ev = dist_eval(torch, inp, dev, mesh.rank, mesh.size)
+        return dict(rank=mesh.rank, fp32=fp32, fp32_ms=fp32_ms, bf16=bf16, bf16_ms=bf16_ms,
+                    k1=k1, eval=ev)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dist_steps_agree(torch, got, want, start, lrs) -> dict:
+    """CPU test (ii)'s bounds (tests/test_torch_port_dist.py): metrics rtol
+    5e-3 and num_pos exact each step; after the first step every parameter
+    within 2 lr and < 0.5% of its elements off by more than 1e-6; after
+    the last, within 2 * sum(lr), the difference's norm <= 0.15 of the
+    update's, BN statistics within 5e-3 of their largest entry. The first
+    step's 2 lr (Adam's first update is lr * g / |g|, which a near-zero
+    gradient's flipped sign turns around) takes the float32 spacing of the
+    parameter on top: the update of a BatchNorm scale near 1 rounds to
+    1.2e-7, which 2 lr * 1.001 (4e-8 over 2 lr at lr 2e-5) does not hold."""
+    stat = ("running_mean", "running_var")
+    par = lambda sd: {k: v for k, v in sd.items()  # noqa: E731
+                      if not k.endswith(("num_batches_tracked",) + stat)}
+    metric_rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                     for (g, _), (w, _) in zip(got, want) for k in w)
+    num_pos = all(g["num_pos"] == w["num_pos"] for (g, _), (w, _) in zip(got, want))
+    d1 = torch.cat([(got[0][1][k] - v).abs().reshape(-1) for k, v in par(want[0][1]).items()])
+    w1 = torch.cat([v.abs().reshape(-1) for v in par(want[0][1]).values()])
+    over = float((d1 - torch.nextafter(w1, torch.full_like(w1, math.inf)) + w1).max())
+    g, w, s = par(got[-1][1]), par(want[-1][1]), par(start)
+    d = torch.cat([(g[k] - w[k]).reshape(-1) for k in w])
+    upd = torch.cat([(w[k] - s[k]).reshape(-1) for k in w])
+    bn = max(float((got[-1][1][k] - v).abs().max() / v.abs().max().clamp_min(1e-12))
+             for k, v in want[-1][1].items() if k.endswith(stat))
+    r = dict(metric_rel=metric_rel, num_pos_equal=num_pos, step1_max=float(d1.max()),
+             step1_max_less_spacing=over,
+             step1_frac=float((d1 > 1e-6).float().mean()), last_max=float(d.abs().max()),
+             last_rel=float(d.norm() / upd.norm()), bn_rel=bn,
+             two_lr=2 * lrs[0], two_sum_lr=2 * sum(lrs))
+    r["ok"] = bool(metric_rel <= 5e-3 and num_pos and over <= 2 * lrs[0] * 1.001
+                   and r["step1_frac"] < 5e-3 and r["last_max"] <= 2 * sum(lrs)
+                   and r["last_rel"] <= 0.15 and bn <= 5e-3)
+    return r
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_phase(torch, sf, cf, dev):
+    import contextlib
+    import dataclasses
+    import io
+
+    from kd6d_pose_adlp_tpu_torch import train_kd
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.parallel import mesh as pmesh
+    from kd6d_pose_adlp_tpu_torch.utils.fold_bn import fold_batchnorm
+
+    cfg, cfg_t, cfg_e = dist_configs()
+    n_fg, G = cfg.data.n_fg, DIST_RANKS * DIST_BATCH
+    ds = SyntheticPoseDataset(n_fg=n_fg, input_res=RES, seed=0)
+    c = ds.consts(device="cpu")
+    g = torch.Generator().manual_seed(3)
+    unfolded = cfg_t.replace(model=dataclasses.replace(cfg_t.model, bn_folded=False))
+    teacher = init_pose_net(PoseNet(unfolded.model, n_fg=n_fg), torch.Generator().manual_seed(1))
+    u = torch.rand((DIST_EVAL_IMAGES, cfg_e.test.ransac_iters, cfg_e.test.max_votes * 8),
+                   generator=g)
+    inp = dict(
+        cfgs=(cfg, cfg_t, cfg_e), device=str(dev), bf16_steps=DIST_BF16_STEPS,
+        consts=[c.K.numpy(), c.kp3d.numpy(), c.diameters.numpy()],
+        student=init_pose_net(PoseNet(cfg.model, n_fg=n_fg),
+                              torch.Generator().manual_seed(2)).state_dict(),
+        teacher=fold_batchnorm(teacher.eval()),
+        batches=[ds.batch(range(G * i, G * (i + 1))) for i in range(DIST_STEPS)],
+        uniforms=[torch.rand((G, cfg.model.num_cells, ds.max_objs), generator=g)
+                  for _ in range(DIST_STEPS)],
+        eval_net=init_pose_net(PoseNet(cfg_e.model, n_fg=n_fg),
+                               torch.Generator().manual_seed(4)).state_dict(),
+        gumbel=-torch.log(-torch.log(u.clamp(1e-7, 1 - 1e-7))))
+    log(f"[dist] (a) {DIST_RANKS} ranks on one card (gloo on CUDA tensors): "
+        f"{cfg.model.backbone} student, BN-folded {cfg_t.model.backbone} teacher, "
+        f"{RES}², B={DIST_BATCH} a rank, {G} in all, {DIST_STEPS} fp32 steps, "
+        f"{DIST_BF16_STEPS} bf16 steps, a scan evaluation of {DIST_EVAL_IMAGES} images")
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(dist_rank, DIST_RANKS, args=(inp,))
+    spawn_s = time.perf_counter() - t0
+
+    # the one-process fp32 step on the concatenated batches, on this card
+    one, one_ms = dist_steps(torch, inp, None, "float32", DIST_STEPS, dev)
+    lrs = [steps.make_optimizer(cfg, n_devices=DIST_RANKS).lr_schedule(i)
+           for i in range(DIST_STEPS)]
+    agree = dist_steps_agree(torch, ranks[0]["fp32"], one, inp["student"], lrs)
+    log(f"[dist] fp32, rank 0 vs one process on the {G} images: {agree}")
+    for i, ((m, _), (w, _)) in enumerate(zip(ranks[0]["fp32"], one)):
+        log(f"[dist] step {i + 1}: ranks {m} / one process {w}")
+    same = lambda a, b: all(torch.equal(a[k], b[k]) for k in a)  # noqa: E731
+    bit_equal = (all(same(a[1], b[1]) and a[0] == b[0]
+                     for a, b in zip(ranks[0]["fp32"], ranks[1]["fp32"]))
+                 and same(ranks[0]["bf16"][-1][1], ranks[1]["bf16"][-1][1]))
+    bf16_finite = all(math.isfinite(v) for r in ranks for m, _ in r["bf16"] for v in m.values())
+    for r in ranks:
+        log(f"[dist] rank {r['rank']}: fp32 step ms {[round(x, 2) for x in r['fp32_ms']]}, "
+            f"bf16 step ms {[round(x, 2) for x in r['bf16_ms']]} (two processes share one "
+            f"card: no scaling figure), bf16 metrics {r['bf16'][-1][0]}; K1 launches "
+            f"{r['k1']}, K2 launches in its evaluation {r['eval']['k2']}")
+    log(f"[dist] one process, fp32 step ms {[round(x, 2) for x in one_ms]}; ranks "
+        f"bit-equal: {bit_equal}; bf16 finite: {bf16_finite}; spawn to join {spawn_s:.1f} s")
+    if not (agree["ok"] and bit_equal and bf16_finite):
+        raise AssertionError("the 2-rank step misses the one-process step, the ranks "
+                             "differ, or a bf16 loss is not finite")
+    k1_key = ("sinkhorn_potentials", cfg.solver.max_pos, cfg.kd.max_teacher_cells)
+    n_chunks = -(-DIST_EVAL_IMAGES // (DIST_RANKS * cfg_e.test.ims_per_batch))
+    shapes = ((3, 8), (8, 16))
+    for r in ranks:
+        if r["k1"] != {k1_key: DIST_STEPS + DIST_BF16_STEPS}:
+            raise AssertionError(f"rank {r['rank']}: K1 launched {r['k1']}, not once a step")
+        k2 = r["eval"]["k2"]
+        if {k2.get(("conv3x3_bn_act_flat", ci, co, "float32"), 0) for ci, co in shapes} \
+                != {n_chunks} or sum(k2.values()) != 2 * n_chunks:
+            raise AssertionError(f"rank {r['rank']}: K2 launched {k2}, not once a chunk "
+                                 "at each stem shape")
+
+    # the one-process evaluation of the whole set
+    one_ev = dist_eval(torch, inp, dev)
+    tables = [r["eval"]["table"] for r in ranks]
+    keys_equal = all(set(r["eval"]["preds"]) == set(one_ev["preds"]) for r in ranks)
+    n_valid = sum(bool(e["pred"]) for e in one_ev["preds"].values())
+    log(f"[dist] scan evaluation: {len(one_ev['preds'])} predictions, {n_valid} with a "
+        f"pose; merged tables equal the one-process table: "
+        f"{all(t == one_ev['table'] for t in tables)}; keys equal: {keys_equal}")
+    if not (keys_equal and all(t == one_ev["table"] for t in tables)
+            and len(one_ev["preds"]) == DIST_EVAL_IMAGES):
+        raise AssertionError("the 2-rank evaluation does not merge to the one-process one")
+
+    # (b) train_kd --distributed under a 1-rank NCCL group from torchrun's
+    # variables, set here
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(pmesh.free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    tmp = tempfile.TemporaryDirectory()
+    wd = tmp.name
+    buf = io.StringIO()
+    os.environ.update(env)
+    sf.reset_launch_counts()
+    cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            st, hist = train_kd.main(["--config_file", CLI_CONFIG_FILE, "--data", "synthetic",
+                                      "--max_iters", str(DIST_CLI_STEPS), "--working_dir", wd,
+                                      "--distributed"])
+        sync(torch, dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    cli_s = time.perf_counter() - t0
+    printed = buf.getvalue()
+    k1_cli = sf.launches.get(k1_key, 0)
+    k2_cli = dict(cf.launches)
+    files = sorted(os.listdir(wd))
+    tmp.cleanup()
+    test_batch = train_kd.build_configs(train_kd.get_argparser().parse_args(
+        ["--config_file", CLI_CONFIG_FILE]))[0].test.ims_per_batch
+    cli_chunks = -(-CLI_EVAL_IMAGES // test_batch)
+    log(f"[dist] (b) train_kd --distributed, 1-rank NCCL group ({cli_s:.1f} s): step "
+        f"{st.step}, K1 {k1_cli} launches, K2 {k2_cli}, files {files}; printed:\n"
+        + "\n".join(line for line in printed.splitlines()
+                    if not line.startswith(("ADI", "REP", "AUC", "metric"))))
+    if not (st.step == DIST_CLI_STEPS and k1_cli == DIST_CLI_STEPS
+            and {k2_cli.get(("conv3x3_bn_act_flat", ci, co, "bfloat16"), 0)
+                 for ci, co in shapes} == {cli_chunks}
+            and f"[valid @ step {DIST_CLI_STEPS}]" in printed
+            and "devices: 1 x" in printed
+            and not torch.distributed.is_initialized()
+            and {"cfg.json", "final.ckpt", "info.txt", "latest.ckpt", "preds.json",
+                 "scalars.jsonl", "eval_scalars.jsonl"} <= set(files)
+            and all(math.isfinite(v) for h in hist for v in h.values())):
+        raise AssertionError("train_kd --distributed: steps, launches, evaluation or files "
+                             "not as expected")
+
+    k1_total = sum(sum(r["k1"].values()) for r in ranks) + k1_cli
+    eval_batch = cfg_e.test.ims_per_batch
+    k2_by_batch = {eval_batch: {}, test_batch: {}}
+    for r in ranks:
+        for key, v in r["eval"]["k2"].items():
+            k2_by_batch[eval_batch][key] = k2_by_batch[eval_batch].get(key, 0) + v
+    for key, v in k2_cli.items():
+        k2_by_batch[test_batch][key] = k2_by_batch[test_batch].get(key, 0) + v
+    return dict(
+        ranks=DIST_RANKS, batch_per_rank=DIST_BATCH, steps=DIST_STEPS,
+        bf16_steps=DIST_BF16_STEPS, eval_images=DIST_EVAL_IMAGES, agree=agree,
+        ranks_bit_equal=bit_equal, spawn_s=spawn_s, one_process_step_ms=one_ms,
+        rank_step_ms={r["rank"]: dict(fp32=r["fp32_ms"], bf16=r["bf16_ms"]) for r in ranks},
+        rank_metrics={r["rank"]: dict(fp32=[m for m, _ in r["fp32"]],
+                                      bf16=[m for m, _ in r["bf16"]]) for r in ranks},
+        one_process_metrics=[m for m, _ in one],
+        k1_by_rank={r["rank"]: sum(r["k1"].values()) for r in ranks},
+        k2_by_rank={r["rank"]: {f"{n}:{ci}->{co}:{t}": v
+                                for (n, ci, co, t), v in r["eval"]["k2"].items()}
+                    for r in ranks},
+        eval_table=one_ev["table"], eval_valid=n_valid,
+        cli=dict(seconds=cli_s, step=st.step, k1=k1_cli,
+                 k2={f"{n}:{ci}->{co}:{t}": v for (n, ci, co, t), v in k2_cli.items()},
+                 files=files, history=hist)), k1_total, k2_by_batch
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernel,serving,pose,train,eval,export,cli,zebra,bop")
+    ap.add_argument("--phases",
+                    default="kernel,serving,pose,train,eval,export,cli,zebra,bop,dist")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3067,6 +3423,10 @@ def main(argv=None) -> int:
         result["bop"], k1_bop, k2_bop = bop_phase(torch, sf, cf, dev)
         k1_launches = (k1_launches or 0) + k1_bop
         add_launches(k2_bop)
+    if "dist" in phases:
+        result["dist"], k1_dist, k2_dist = dist_phase(torch, sf, cf, dev)
+        k1_launches = (k1_launches or 0) + k1_dist
+        add_launches(k2_dist)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3078,8 +3438,9 @@ def main(argv=None) -> int:
         kernels.append({k: r[k] for k in keys})
     if k1_row is not None:
         # K1's launches are those of the train phase's run, the cli
-        # phase's pooled runs (loop.train, train_kd.main and its resume) and
-        # the bop phase's live steps and train_kd.main runs
+        # phase's pooled runs (loop.train, train_kd.main and its resume),
+        # the bop phase's live steps and train_kd.main runs, and the dist
+        # phase's ranks and train_kd --distributed
         k1_row["launches"] = k1_launches
         kernels.append({k: k1_row[k] for k in keys}
                        | {"name": f"sinkhorn_potentials[{k1_row['shape']}]"})

@@ -20,7 +20,9 @@ msgpack checkpoints, backbone init, the device pool with K steps per call,
 the cached teacher, the `train_kd` CLI); bf16, the variants and the
 folded teacher; the raw-frame endpoint, `torch.export` and int8 PTQ; the
 dense binary-code (zebra) head (`ops/binary_code.py`, `engine/zebra.py`,
-the `train_zebra` CLI).
+the `train_zebra` CLI); the BOP host pipeline (`data/`); data parallelism
+over a torch.distributed group, one process a device (`parallel/mesh.py`,
+`train_kd --n_devices` / `--distributed`).
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU; on CPU tensors each kernel wrapper runs its plain PyTorch version.

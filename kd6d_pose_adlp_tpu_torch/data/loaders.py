@@ -3,11 +3,10 @@ loaders.py`): BOP trees on disk or procedural synthetic scenes.
 
 `build(cfg, kind)` returns a DataBundle with the same interface for every
 source, so the evaluation and training entry points are source-agnostic.
-A BOP bundle's `train_iter(num_threads, shard=None)` and
-`eval_batches(shard=None)` take a data shard `(rank, count)` only when it is
-given; the JAX package also takes one from its process group, which waits
-here for the port of `parallel/mesh` (ROADMAP Queue 1 item 6b), so under an
-initialized torch.distributed group of more than one rank they raise.
+Each bundle's `train_iter(..., shard=None)` and `eval_batches(shard=None)`
+read this process's data shard `(rank, count)` from the torch.distributed
+group when none is given (`_process_shard`), as the JAX package's read
+its process group: disjoint training streams and strided eval shards.
 """
 from __future__ import annotations
 
@@ -42,17 +41,15 @@ def build(cfg: Config, kind: str = "bop", eval_limit: Optional[int] = None,
 
 
 def _process_shard(shard) -> Optional[tuple]:
-    """`shard` when given; None in a single process. The JAX package reads
-    the shard of a multi-process run from its process group; that waits for
-    the port of `parallel/mesh`, so a group of more than one rank raises."""
+    """(rank, count) for multi-process data sharding, the reference's
+    DistributedSampler split (libs/distributed.py:109-151): `shard` when
+    given (tests), else this process's rank and the size of its
+    torch.distributed group; None (no slicing) in a single process."""
     if shard is not None:
         return shard
-    import torch
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process data sharding is not ported yet (ROADMAP Queue 1 item 6b); "
-            "pass shard=(rank, count)")
+    from ..parallel.mesh import process_count, process_index
+    if process_count() > 1:
+        return (process_index(), process_count())
     return None
 
 
@@ -71,13 +68,20 @@ def _build_synthetic(cfg: Config, eval_n: int, device) -> DataBundle:
         cfg, data=dataclasses.replace(
             cfg.data, mesh_diameters=tuple(np.asarray(ds.diameters))))
 
-    def train_iter():
+    def train_iter(shard=None):
+        rank, count = _process_shard(shard) or (0, 1)
         for step in itertools.count():
-            yield ds.batch(range(1000 + step * bs, 1000 + (step + 1) * bs), train=True)
+            # disjoint per-process index windows: global stream position
+            # step * count + rank
+            g = step * count + rank
+            yield ds.batch(range(1000 + g * bs, 1000 + (g + 1) * bs), train=True)
 
-    def eval_batches():
+    def eval_batches(shard=None):
         tb = cfg.test.ims_per_batch
         all_idx = list(range(eval_n))
+        sh = _process_shard(shard)
+        if sh is not None:
+            all_idx = all_idx[sh[0]::sh[1]]  # disjoint per-process shard
         for start in range(0, len(all_idx), tb):
             idx = all_idx[start:start + tb]
             while len(idx) < tb:  # static shapes: pad by wrapping

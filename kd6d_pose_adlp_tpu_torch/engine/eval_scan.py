@@ -15,6 +15,11 @@ predictions and the metric table are the same. Both draw the RANSAC Gumbel
 noise chunk by chunk, in the same order, from one generator seeded with
 `seed` (or take `gumbel_fn(chunk_idx)`). The JAX module's host-metric
 option (`device_metrics=False`) has no caller and is not ported.
+
+Under a torch.distributed group of more than one process each process
+prepares and runs its own shard of the eval set; `run` merges the
+predictions across processes before scoring (`evaluator.merge_predictions`,
+JAX `eval_scan.py:404-413`).
 """
 from __future__ import annotations
 
@@ -30,8 +35,7 @@ from ..ops.epnp import epnp
 from ..utils import metrics as M
 from ..utils.logging_utils import ScalarLogger
 from ..utils.precision import full_fp32
-from .evaluator import (_generator, check_single_process, prediction_entry,
-                        score_and_report)
+from .evaluator import _generator, merge_predictions, prediction_entry, score_and_report
 from .postprocess import _make_class_solver
 from .serving import network_fn
 
@@ -373,7 +377,6 @@ class ScanEvaluator:
             raise RuntimeError("call prepare(eval_batches) first")
         if net is not None:
             self.net = net
-        check_single_process()
         st = self._staged
         cfg = self.cfg
         gen = _generator(self.device, seed, gumbel_fn)
@@ -382,8 +385,8 @@ class ScanEvaluator:
                             gumbel_fn=gumbel_fn, timings=timings)
         t0 = time.perf_counter()
         out = to_host_once(flat)
-        preds = {meta["filename"]: prediction_entry(out, i, meta, self.sym)
-                 for i, meta in enumerate(st["flat_metas"])}
+        preds = merge_predictions({meta["filename"]: prediction_entry(out, i, meta, self.sym)
+                                   for i, meta in enumerate(st["flat_metas"])})
         t1 = time.perf_counter()
 
         results = score_and_report(

@@ -15,9 +15,14 @@ remote tunnel) and `_host_key_splitter` (JAX PRNG keys split on the host)
 have no counterpart: neither problem exists with a local card and a
 torch.Generator.
 
-Not ported: the multi-process gather of predictions (`parallel/mesh`), which
-raises under a multi-process `torch.distributed` group, and the
-accuracy-per-depth PNG (`tools/visualizer`), which is skipped.
+Under a torch.distributed group of more than one process each process
+evaluates its own shard of the eval set (`data/loaders`); the predictions
+are merged across processes (`merge_predictions`, the JAX package's
+`parallel/mesh.gather_host_objects`) before scoring, process 0 alone writes
+preds.json and prints, and every process scores the merged predictions.
+
+Not ported: the accuracy-per-depth PNG (`tools/visualizer`), which is
+skipped.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 
 from ..config import Config
 from ..data.batch import TaskConsts
+from ..parallel.mesh import gather_host_objects, process_count, process_index
 from ..utils import geometry as geo
 from ..utils import metrics as M
 from ..utils.logging_utils import ScalarLogger
@@ -48,15 +54,16 @@ def remap_pose_host(src_K: np.ndarray, R: np.ndarray, T: np.ndarray,
     return R_new, T_new.reshape(3, 1)
 
 
-def check_single_process():
-    """Multi-process evaluation would gather every process's predictions
-    before scoring (the JAX package's `parallel/mesh.gather_host_objects`);
-    that gather is not ported, so a multi-process group is refused."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process evaluation (the prediction gather) is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+def merge_predictions(preds: Dict[str, Dict]) -> Dict[str, Dict]:
+    """Every process's predictions in one dict, keyed by filename (each
+    process evaluated its own shard; JAX `evaluator.py:197-205`); the
+    identity on a single process."""
+    if process_count() == 1:
+        return preds
+    merged: Dict[str, Dict] = {}
+    for shard in gather_host_objects(preds):
+        merged.update(shard)
+    return merged
 
 
 def prediction_entry(out: Dict[str, np.ndarray], i: int, meta: Dict,
@@ -100,8 +107,11 @@ def score_and_report(cfg: Config, preds: Dict[str, Dict], evaluate: Callable,
                      step: int, working_dir: Optional[str],
                      logger: Optional[ScalarLogger], verbose: bool) -> Dict:
     """Write preds.json, score it with `evaluate(preds)`, print the table and
-    log the ADI / REP scalars; the tail shared by both evaluators."""
-    if working_dir:
+    log the ADI / REP scalars; the tail shared by both evaluators. `preds`
+    are the merged predictions: every process scores them, process 0 alone
+    writes preds.json and prints."""
+    verbose = verbose and process_index() == 0
+    if working_dir and process_index() == 0:
         os.makedirs(working_dir, exist_ok=True)
         with open(os.path.join(working_dir, "preds.json"), "w") as f:
             json.dump(preds, f)
@@ -179,7 +189,6 @@ def valid(cfg: Config, consts: TaskConsts, forward_fn: Callable, postprocess_fn:
 
     Returns the metric structures of `evaluate_pose_predictions` plus the
     per-class table string ("table") and the predictions."""
-    check_single_process()
     device = consts.K.device
     gen = _generator(device, seed, gumbel_fn)
     sym = cfg.data.symmetry_dict()
@@ -210,7 +219,7 @@ def valid(cfg: Config, consts: TaskConsts, forward_fn: Callable, postprocess_fn:
         consume(_finish_copy(pending[0]), pending[1])
 
     return score_and_report(
-        cfg, preds,
+        cfg, merge_predictions(preds),
         lambda p: M.evaluate_pose_predictions(p, cfg.data.n_class, meshes,
                                               list(cfg.data.mesh_diameters), sym),
         step, working_dir, logger, verbose)
@@ -227,14 +236,14 @@ def detection_stats(cfg: Config, consts: TaskConsts, forward_fn: Callable,
     the GT-class ADD/ADI<0.1d rate. The ground truth is the Batch's (B, G)
     class table. `gumbel_fn(batch_idx)` -> (n_fg, B, ransac_iters,
     max_votes * 8) injects the draws; otherwise a generator seeded with
-    `seed` gives them."""
+    `seed` gives them. Under a group of more than one process the counts
+    are summed over the processes' shards."""
     from .postprocess import build_postprocess_multi
 
     def add_err(Rp, Tp, Rg, Tg, pts):
         return float(np.linalg.norm((pts @ Rp.T + Tp) - (pts @ Rg.T + Tg),
                                     axis=-1).mean())
 
-    check_single_process()
     device = consts.K.device
     gen = _generator(device, seed, gumbel_fn)
     predict = build_postprocess_multi(cfg, consts, n_fg)
@@ -282,6 +291,8 @@ def detection_stats(cfg: Config, consts: TaskConsts, forward_fn: Callable,
         pending = (copy, batch)
     if pending is not None:
         consume(_finish_copy(pending[0]), pending[1])
+    n_gt, n_rec, n_img, n_fp, n_adi = np.sum(
+        gather_host_objects((n_gt, n_rec, n_img, n_fp, n_adi)), axis=0).tolist()
 
     stats = {
         "gt_objects": n_gt,
@@ -290,6 +301,6 @@ def detection_stats(cfg: Config, consts: TaskConsts, forward_fn: Callable,
         "false_pos_per_image": round(n_fp / max(n_img, 1), 3),
         "images": n_img,
     }
-    if verbose:
+    if verbose and process_index() == 0:
         print(f"[detection mode] {stats}", flush=True)
     return stats

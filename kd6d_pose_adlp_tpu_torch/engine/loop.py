@@ -14,9 +14,12 @@ then `latest.ckpt`. At the end: `final.ckpt` (the student's state_dict),
 `info.txt`; `cfg.json` at the start; metrics and images/s to
 `scalars.jsonl`. All files go to `working_dir`.
 
-Not ported yet, and raising `NotImplementedError` when asked for: the data
-mesh (`mesh`) and cloud visualization (`vis_every`), both ROADMAP Queue 1
-item 6.
+Under a data mesh (`mesh`, `parallel/mesh.DataMesh`), every rank runs this
+loop on its own part of each global batch and the ranks take JAX's global
+step together (`engine/steps`); rank 0 alone writes the files.
+
+Not ported yet, and raising `NotImplementedError` when asked for: cloud
+visualization (`vis_every`, ROADMAP Queue 1 item 6c).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from ..config import Config
 from ..data.batch import Batch, TaskConsts
 from ..models.pose_net import PoseNet, init_pose_net
+from ..parallel.mesh import DataMesh, barrier, replicate
 from ..utils.checkpoint import (config_hash, load_backbone_init, restore_checkpoint,
                                 save_checkpoint, save_params)
 from ..utils.logging_utils import ScalarLogger, Throughput
@@ -47,7 +51,7 @@ def train(cfg: Config,
           log_every: int = 10,
           eval_fn: Optional[Callable] = None,
           working_dir: Optional[str] = None,
-          mesh=None,
+          mesh: Optional[DataMesh] = None,
           resume: bool = True,
           vis_every: int = 0,
           pool: Optional[Batch] = None,
@@ -76,22 +80,33 @@ def train(cfg: Config,
     - `eval_fn(state, step)` (e.g. a `ScanEvaluator` over `state.net`) is
       called when step % cfg.solver.val_freq == 0 and at the last step
       (JAX `engine/loop.py:241-243`); its time is not in `step_ms`.
+    - `mesh`: every rank of the data mesh calls `train`, on `mesh.device`
+      (`device` is not read), with its own part of each global batch
+      (`train_iter`, or its part of every pool batch). The LR is divided
+      by the mesh's size (`make_optimizer`); rank 0's state is broadcast
+      after the initialization, the resume or the backbone init; each rank
+      draws SSC from its own generator, seeded from (seed, rank); images/s
+      counts the global batch. Rank 0 alone writes `cfg.json`, the
+      checkpoints, `info.txt` and the scalars, and the ranks meet at a
+      barrier after each write; the other ranks print nothing.
     """
-    for name, asked in (("mesh", mesh is not None), ("vis_every", vis_every > 0)):
-        if asked:
-            raise NotImplementedError(
-                f"train({name}=...) is not ported yet (ROADMAP Queue 1 item 6)")
+    if vis_every > 0:
+        raise NotImplementedError(
+            "train(vis_every=...) is not ported yet (ROADMAP Queue 1 item 6c)")
     if pool is not None and steps_per_dispatch < 1:
         raise ValueError(
             f"steps_per_dispatch must be >= 1 with a device pool "
             f"(got {steps_per_dispatch}); pass pool=None for per-step dispatch")
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
+    rank, n_ranks = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    writer = rank == 0
+    verbose = verbose and writer
     working_dir = working_dir or cfg.working_dir
     os.makedirs(working_dir, exist_ok=True)
     n_fg = cfg.data.n_fg
 
     net = PoseNet(cfg.model, n_fg=n_fg)
-    optimizer = make_optimizer(cfg)
+    optimizer = make_optimizer(cfg, n_devices=n_ranks)
     init_pose_net(net, torch.Generator().manual_seed(cfg.solver.seed))
     state = create_train_state(cfg, net.to(device), optimizer)
 
@@ -105,6 +120,8 @@ def train(cfg: Config,
         n = load_backbone_init(backbone_init, state.net)
         if verbose:
             print(f"backbone init: {n} tensors from {backbone_init}", flush=True)
+    if mesh is not None:
+        state = replicate(state, mesh)
 
     distill = teacher_state_dict is not None and cfg.kd.weight > 0.0
     teacher_net = None
@@ -117,17 +134,17 @@ def train(cfg: Config,
 
     consts = consts.to(device)
     gen = torch.Generator(device=device)
-    gen.manual_seed(cfg.solver.seed)
+    gen.manual_seed(cfg.solver.seed + 7919 * rank)   # rank 0: the seed itself
     if pool is None:
         step_fn = build_train_step(cfg, cfg_t, consts, state.net, teacher_net,
-                                   optimizer, distill=distill)
+                                   optimizer, distill=distill, mesh=mesh)
     else:
         pool = pool.to(device)
         pool_size = int(pool.images.shape[0])
         cache_teacher = cache_teacher and distill
         multi_fn = build_multi_step(cfg, cfg_t, consts, state.net, teacher_net, optimizer,
                                     distill=distill, pool_size=pool_size,
-                                    cached_votes=cache_teacher)
+                                    cached_votes=cache_teacher, mesh=mesh)
         teacher_arg = None
         if cache_teacher:
             t0 = time.perf_counter()
@@ -138,9 +155,11 @@ def train(cfg: Config,
                 print(f"teacher knowledge cached for {pool_size} pool batches "
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
-    logger = ScalarLogger(working_dir)
-    with open(os.path.join(working_dir, "cfg.json"), "w") as f:
-        f.write(cfg.to_json())
+    logger = None
+    if writer:
+        logger = ScalarLogger(working_dir)
+        with open(os.path.join(working_dir, "cfg.json"), "w") as f:
+            f.write(cfg.to_json())
     history: List[Dict[str, float]] = []
     meter = Throughput()
 
@@ -149,7 +168,9 @@ def train(cfg: Config,
         m.update(step=state.step, images_per_sec=meter.images_per_sec,
                  step_ms=1e3 / meter.steps_per_sec)
         history.append(m)
-        logger.log(state.step, {f"training/{k}": v for k, v in m.items() if k != "step"})
+        if logger is not None:
+            logger.log(state.step,
+                       {f"training/{k}": v for k, v in m.items() if k != "step"})
         meter.reset()
         if verbose and (state.step % every_print == 0 or state.step == cfg.solver.max_iter):
             print(f"step {state.step}/{cfg.solver.max_iter} "
@@ -161,7 +182,10 @@ def train(cfg: Config,
         if state.step % cfg.solver.val_freq == 0 or state.step == cfg.solver.max_iter:
             if eval_fn is not None:
                 eval_fn(state, state.step)
-            save_checkpoint(latest, state, state.step, cfg_hash=cfg_h)
+            if writer:
+                save_checkpoint(latest, state, state.step, cfg_hash=cfg_h)
+            if mesh is not None:
+                barrier(mesh)
             meter.reset()
 
     it = iter(train_iter) if pool is None else None
@@ -169,7 +193,7 @@ def train(cfg: Config,
         if pool is None:
             batch = next(it).to(device)
             state, metrics = step_fn(state, batch, generator=gen)
-            meter.update(int(batch.images.shape[0]))
+            meter.update(int(batch.images.shape[0]) * n_ranks)
             if state.step % log_every == 0 or state.step == cfg.solver.max_iter:
                 log(metrics, log_every)
         else:
@@ -180,13 +204,16 @@ def train(cfg: Config,
             state, metrics = multi_fn(state, teacher_arg, pool, state.step % pool_size, k,
                                       generator=gen)
             for _ in range(k):
-                meter.update(int(pool.images.shape[1]))
+                meter.update(int(pool.images.shape[1]) * n_ranks)
             log(metrics, 1)
         boundary()
 
-    save_params(os.path.join(working_dir, "final.ckpt"), state.net.state_dict())
-    with open(os.path.join(working_dir, "info.txt"), "w") as f:
-        f.write(f"finished at: {time.strftime('%Y%m%d_%H%M%S')}\n"
-                f"working_dir: {working_dir}\ncommands: {' '.join(sys.argv)}\n")
-    logger.close()
+    if writer:
+        save_params(os.path.join(working_dir, "final.ckpt"), state.net.state_dict())
+        with open(os.path.join(working_dir, "info.txt"), "w") as f:
+            f.write(f"finished at: {time.strftime('%Y%m%d_%H%M%S')}\n"
+                    f"working_dir: {working_dir}\ncommands: {' '.join(sys.argv)}\n")
+        logger.close()
+    if mesh is not None:
+        barrier(mesh)
     return state, history

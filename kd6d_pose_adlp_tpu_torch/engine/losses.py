@@ -2,7 +2,9 @@
 (port of `kd6d_pose_adlp_tpu/engine/losses.py:28-187`).
 
 All terms are unnormalized sums like the reference; the train step applies
-the loss weights (cls 0.1, reg 1, kd `kd.weight`).
+the loss weights (cls 0.1, reg 1, kd `kd.weight`). Under a data mesh each
+rank's terms are its local parts of the global batch's sums: the OT loss
+divides by the global count of valid images (`kd_ot_loss`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ..ops.focal import sigmoid_focal_loss
 from ..ops.object_space import image_space_loss, object_space_loss, select_class_pred
 from ..ops.sinkhorn import batched_samples_loss
 from ..ops.voting import Votes
+from ..parallel.mesh import DataMesh, all_reduce_
 
 
 class Targets(NamedTuple):
@@ -71,7 +74,8 @@ def pose_losses(cls_logits: torch.Tensor,   # (B, A, n_fg)
                 batch: Batch, consts: TaskConsts, cfg: Config,
                 teacher: Optional[tuple] = None,  # (Votes, w_img, h_img)
                 uniform: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> LossOut:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[DataMesh] = None) -> LossOut:
     m, s = cfg.model, cfg.solver
     tgt = prepare_targets(batch, consts, cfg, uniform=uniform, generator=generator)
 
@@ -95,7 +99,8 @@ def pose_losses(cls_logits: torch.Tensor,   # (B, A, n_fg)
     loss_kd = torch.zeros((), device=cls_logits.device)
     if teacher is not None:
         votes, w_img, h_img = teacher
-        loss_kd = kd_ot_loss(cls_logits, pred_xy, tgt, votes, cfg, w=w_img, h=h_img)
+        loss_kd = kd_ot_loss(cls_logits, pred_xy, tgt, votes, cfg, w=w_img, h=h_img,
+                             mesh=mesh)
     return LossOut(loss_cls=loss_cls, loss_reg=loss_reg, loss_kd=loss_kd,
                    num_pos=tgt.pos_mask.sum())
 
@@ -148,7 +153,8 @@ def build_kd_clouds(cls_logits, pred_xy, tgt: Targets, votes: Votes, cfg: Config
 
 
 def kd_ot_loss(cls_logits, pred_xy, tgt: Targets, votes: Votes, cfg: Config,
-               w: float = 640.0, h: float = 480.0) -> torch.Tensor:
+               w: float = 640.0, h: float = 480.0,
+               mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """Distribution-alignment OT loss: per image and keypoint index k, a
     weighted Sinkhorn divergence between the student's positive-cell
     keypoint cloud and the teacher's voted-cell cloud, in the normalized
@@ -157,7 +163,12 @@ def kd_ot_loss(cls_logits, pred_xy, tgt: Targets, votes: Votes, cfg: Config,
 
     With gtype="sinkhorn" the potentials are always solved by K1's wrapper
     (`ops/sinkhorn_fused.solve_potentials`): the CUDA kernel on the card,
-    its plain version on the CPU, whatever `kd.use_pallas` says."""
+    its plain version on the CPU, whatever `kd.use_pallas` says.
+
+    Under a `mesh` of more than one rank the mean is over the global batch's
+    valid images: their count is summed over the ranks (a count, no
+    gradient), and each rank returns its own images' part of the global
+    mean."""
     kd = cfg.kd
     x, y, a, b, img_valid = build_kd_clouds(cls_logits, pred_xy, tgt, votes,
                                             cfg, w=w, h=h)
@@ -166,5 +177,8 @@ def kd_ot_loss(cls_logits, pred_xy, tgt: Targets, votes: Votes, cfg: Config,
         scaling=kd.scaling, reach=kd.reach, diameter=2.0,
         solve=sinkhorn_fused.solve_potentials)                     # (B,8)
     per_img = per_k.sum(-1)
-    n_valid = img_valid.sum().clamp_min(1)
+    n_valid = img_valid.sum()
+    if mesh is not None:
+        all_reduce_([n_valid], mesh)
+    n_valid = n_valid.clamp_min(1)
     return (per_img * img_valid).sum() / n_valid

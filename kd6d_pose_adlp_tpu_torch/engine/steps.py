@@ -22,6 +22,14 @@ again when the backward needs its activations. The re-run forward is the
 same function, but its train-mode BatchNorms would update their running
 statistics a second time (JAX's functional BN updates them once), so the
 re-run goes under `blocks.frozen_batch_stats()`.
+
+Under a data mesh (`parallel/mesh.DataMesh`, one rank a device) the W
+ranks take together the step JAX takes under `Mesh('data')` on the
+concatenation of their batches: BatchNorm statistics over the global batch
+(`blocks.global_batch_stats`), each rank's losses its local part of the
+global sums, then one flat all-reduce (sum) of the gradients, so the clip,
+`grad_norm` and the update are the global ones and the same on every rank.
+`make_optimizer(cfg, n_devices=W)` divides the LR by W, as JAX's does.
 """
 from __future__ import annotations
 
@@ -34,10 +42,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..data.batch import Batch, TaskConsts
-from ..models.blocks import frozen_batch_stats
+from ..models.blocks import frozen_batch_stats, global_batch_stats
 from ..models.pose_net import PoseNet, init_pose_net
 from ..ops.object_space import select_class_pred
 from ..ops.voting import Votes, vote_cells, votes_to_internal_frame
+from ..parallel.mesh import DataMesh, all_reduce_
 from ..utils.precision import full_fp32
 from .losses import pose_losses
 from .schedule import onecycle_linear_lr
@@ -175,7 +184,7 @@ def _remat_contexts():
 def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
                      net: PoseNet, teacher_net: Optional[PoseNet],
                      optimizer: AdamW, distill: bool = True,
-                     cached_votes: bool = False):
+                     cached_votes: bool = False, mesh: Optional[DataMesh] = None):
     """Returns step_fn(state, batch, uniform=None, generator=None,
     votes=None) -> (state, metrics), metrics a dict of 0-dim tensors on the
     device.
@@ -185,7 +194,13 @@ def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
     is skipped and loss_kd is 0. With cached_votes=True the step takes the
     batch's precomputed teacher `votes` (`precompute_pool_votes`) in place
     of running the teacher. The whole step, backward included, runs with
-    TF32 off; with cfg.model.remat the student forward is rematerialized."""
+    TF32 off; with cfg.model.remat the student forward is rematerialized.
+
+    With a `mesh` of more than one rank, each rank passes its own part of
+    the global batch (and of `uniform`) and every rank must call the step:
+    it takes the global step (module docstring), and the metrics are the
+    global batch's (the losses and num_pos summed over the ranks, loss_kd
+    the global mean), the same on every rank."""
     w_img, h_img = float(cfg.data.internal_width), float(cfg.data.internal_height)
     params = list(net.parameters())
 
@@ -208,22 +223,31 @@ def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
         net.train()
         for p in params:
             p.grad = None
-        if cfg.model.remat:
-            cls_logits, pred_reg = checkpoint(net, batch.images, use_reentrant=False,
-                                              context_fn=_remat_contexts)
-        else:
-            cls_logits, pred_reg = net(batch.images)
-        out = pose_losses(cls_logits, pred_reg, batch, consts, cfg,
-                          teacher=teacher, uniform=uniform, generator=generator)
-        total = (cfg.solver.loss_weight_cls * out.loss_cls
-                 + cfg.solver.loss_weight_reg * out.loss_reg)
-        if teacher is not None and cfg.kd.weight > 0:
-            total = total + cfg.kd.weight * out.loss_kd
-        total.backward()
+        # the backward runs inside too: remat's re-run forward takes the
+        # global statistics again, its collectives in the same order on
+        # every rank
+        with global_batch_stats(net, mesh):
+            if cfg.model.remat:
+                cls_logits, pred_reg = checkpoint(net, batch.images, use_reentrant=False,
+                                                  context_fn=_remat_contexts)
+            else:
+                cls_logits, pred_reg = net(batch.images)
+            out = pose_losses(cls_logits, pred_reg, batch, consts, cfg,
+                              teacher=teacher, uniform=uniform, generator=generator,
+                              mesh=mesh)
+            total = (cfg.solver.loss_weight_cls * out.loss_cls
+                     + cfg.solver.loss_weight_reg * out.loss_reg)
+            if teacher is not None and cfg.kd.weight > 0:
+                total = total + cfg.kd.weight * out.loss_kd
+            total.backward()
         # a parameter the loss does not reach (a head scale past num_levels)
         # has a zero gradient in JAX, and weight decay still applies to it
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if mesh is not None:
+            # the gradient of the global loss: the sum of the ranks' (JAX's
+            # psum; DDP's mean would be 1/W of it)
+            all_reduce_(grads, mesh)
         opt_state, g_norm = optimizer.update(params, grads, state.opt_state)
         metrics: Dict[str, torch.Tensor] = {
             "loss_total": total.detach(),
@@ -233,6 +257,11 @@ def build_train_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
             "num_pos": out.num_pos,
             "grad_norm": g_norm,
         }
+        if mesh is not None and mesh.distributed:
+            summed = [k for k in metrics if k != "grad_norm"]
+            vec = torch.stack([metrics[k].double() for k in summed])
+            all_reduce_([vec], mesh)
+            metrics.update({k: vec[i].to(metrics[k].dtype) for i, k in enumerate(summed)})
         return TrainState(step=state.step + 1, net=net, opt_state=opt_state), metrics
 
     return step_fn
@@ -254,7 +283,7 @@ def precompute_pool_votes(cfg: Config, cfg_t: Config, teacher_net: PoseNet,
 def build_multi_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
                      net: PoseNet, teacher_net: Optional[PoseNet],
                      optimizer: AdamW, distill: bool, pool_size: int,
-                     cached_votes: bool = False):
+                     cached_votes: bool = False, mesh: Optional[DataMesh] = None):
     """K train steps per call over a device pool (a `Batch.stack`, leading
     axis pool_size): step i takes pool.take((start + i) % pool_size), the order
     `itertools.cycle` gives. Returns multi_fn(state, teacher_arg, pool,
@@ -267,9 +296,11 @@ def build_multi_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
     - `start` and `k` are host ints; the call enqueues its k steps without
       a host sync.
     - metrics are the per-step means, except num_pos, the last step's, all
-      device tensors (JAX `steps.py:224-228`)."""
+      device tensors (JAX `steps.py:224-228`).
+    - Under a `mesh`, each rank's pool holds its part of every batch, and
+      the steps are `build_train_step`'s global steps."""
     step_fn = build_train_step(cfg, cfg_t, consts, net, teacher_net, optimizer,
-                               distill=distill, cached_votes=cached_votes)
+                               distill=distill, cached_votes=cached_votes, mesh=mesh)
 
     def multi_fn(state: TrainState, teacher_arg: Optional[Votes], pool: Batch,
                  start: int, k: int, generator: Optional[torch.Generator] = None,

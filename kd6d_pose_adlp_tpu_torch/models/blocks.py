@@ -13,20 +13,45 @@ that dtype; BatchNorm and GroupNorm keep their statistics in float32
 the compute dtype once. The casts are explicit: `torch.autocast` keeps
 BN and GN in float32 and casts elsewhere, a different function from
 flax's bfloat16.
+
+Under a data mesh of more than one rank (`global_batch_stats`), a
+train-mode BatchNorm2d takes its statistics over the global batch, as
+flax's BatchNorm does under JAX's `Mesh('data')`.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import DataMesh, all_reduce_sum
+
 # set while torch.utils.checkpoint re-runs a forward in the backward pass
 # (`engine/steps.py`, remat): the recomputed BatchNorm must not update its
 # running statistics a second time
 _FROZEN_STATS = [False]
+
+
+@contextlib.contextmanager
+def global_batch_stats(module: nn.Module, mesh: Optional[DataMesh]):
+    """Inside, every train-mode BatchNorm2d of `module` normalizes with the
+    statistics of the global batch of `mesh` (one all-reduce each forward,
+    differentiable) when the mesh has more than one rank; outside, and on
+    one rank, each takes its own batch's."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    if mesh is None or not mesh.distributed:
+        yield
+        return
+    for m in bns:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.mesh = None
 
 
 @contextlib.contextmanager
@@ -60,11 +85,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     A bfloat16 input is normalized with float32 statistics and parameters
     in float32 and rounded to bfloat16 once (PyTorch's mixed-type batch
     norm), as flax computes `(x - mean) * rsqrt(var + eps) * scale + bias`
-    with float32 mean and var."""
+    with float32 mean and var.
+
+    With `mesh` set (`global_batch_stats`), train mode takes the global
+    batch's statistics instead (`_forward_global`)."""
+
+    mesh: Optional[DataMesh] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None:
+            return self._forward_global(x)
         y, mean, invstd, _, _ = torch._batch_norm_impl_index(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps,
             torch.backends.cudnn.enabled)
@@ -75,6 +107,30 @@ class BatchNorm2d(nn.BatchNorm2d):
                                        self.momentum)
                 self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN over the mesh's global batch, flax's arithmetic: the
+        per-channel [sum x, sum x^2, count] in float32, summed over the
+        ranks by one differentiable all-reduce, then mean = E[x] and the
+        fast variance max(E[x^2] - E[x]^2, 0); y = (x - mean) *
+        (rsqrt(var + eps) * weight) + bias in float32, rounded to x's dtype
+        once. The running statistics take the biased global variance."""
+        C = x.shape[1]
+        xf = x.float()
+        stats = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // C)])
+        stats = all_reduce_sum(stats, self.mesh)
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = torch.clamp_min(stats[C:2 * C] / n - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        if not _FROZEN_STATS[0]:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):

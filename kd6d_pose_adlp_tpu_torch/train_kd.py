@@ -8,6 +8,8 @@ JAX package's `train_kd.py`:
     python -m kd6d_pose_adlp_tpu_torch.train_kd --config_file '' --data synthetic \\
         --weight_file_t teacher.pt --device_pool 4 --steps_per_dispatch 5 \\
         --cache_teacher --working_dir D
+    python -m kd6d_pose_adlp_tpu_torch.train_kd --n_devices 4 ...    # 4 cards, one host
+    torchrun --nproc_per_node 4 -m kd6d_pose_adlp_tpu_torch.train_kd --distributed ...
 
 It takes `train_kd.py`'s flags with the same meaning: it builds the
 configs and the data (`--data bop`, the default: the BOP tree the config's
@@ -30,9 +32,26 @@ the other choice), and `--remat` rematerializes the student forward in
 the backward pass. Runs on the card unless --cpu is given.
 `--config_file ''` takes the built-in defaults.
 
-Defaults that differ from `train_kd.py`, because the JAX default asks for
-a module that is not ported: `--vis_every 0` (1000); `--n_devices 0` means
-one device, not all of them. See `check_ported` for the flags that raise.
+Data parallelism, one process a device (`parallel/mesh`), the ranks taking
+JAX's global step together (`engine/steps`):
+- `--n_devices N` (0, the default: every visible card; one process under
+  --cpu) runs N ranks on this host, started by this command, which
+  together take one batch of `ims_per_batch` a step, JAX's single-host
+  meaning: each rank loads `ims_per_batch / N` from its own shard of the
+  data (so N must divide it), with NCCL on the cards and gloo under --cpu.
+  More ranks than visible cards raises, where JAX's `devs[:n]` takes
+  fewer.
+- `--distributed` runs as one rank of a group that torchrun started
+  (its RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT): each
+  process loads `ims_per_batch` from its own shard, as JAX's processes do.
+In both, the LR is divided by the number of ranks, every rank evaluates its
+shard of the eval set and scores the merged predictions, and rank 0 alone
+writes the files and prints. `main` returns each rank's `(step, history)`
+when it started the ranks.
+
+The default that differs from `train_kd.py`, because the JAX default asks
+for a module that is not ported: `--vis_every 0` (1000). See
+`check_ported` for the flag that raises.
 """
 from __future__ import annotations
 
@@ -83,7 +102,9 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--fast_pipeline", action="store_true")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize the student forward in the backward pass")
-    p.add_argument("--n_devices", type=int, default=0, help="0 = one device")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="ranks on this host, one a device (0 = every visible card; "
+                        "one process under --cpu)")
     p.add_argument("--device_pool", type=int, default=0,
                    help="synthetic only: render N batches, keep them on the device "
                         "and run --steps_per_dispatch steps per call, cycling them")
@@ -108,25 +129,35 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval_mode", type=str, default="scan", choices=["scan", "stream"],
                    help="scan = the device-resident one-pass evaluator "
                         "(engine/eval_scan); stream = the per-batch evaluator.valid")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="run as one rank of torchrun's process group")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     return p
 
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raises NotImplementedError on a flag whose module is not ported yet,
-    naming its ROADMAP Queue 1 item: distribution and the tools (item 6):
-    `--n_devices` > 1, `--distributed` and `--vis_every` > 0 (the KD cloud
-    plots)."""
-    unported = (
-        (args.n_devices > 1, f"--n_devices {args.n_devices} (the data mesh)", 6),
-        (args.distributed, "--distributed", 6),
-        (args.vis_every > 0, f"--vis_every {args.vis_every} (KD cloud plots)", 6),
-    )
-    for asked, what, item in unported:
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+    naming its ROADMAP Queue 1 item: `--vis_every` > 0 (the KD cloud plots,
+    item 6c)."""
+    if args.vis_every > 0:
+        raise NotImplementedError(f"--vis_every {args.vis_every} (KD cloud plots) is not "
+                                  "ported yet (ROADMAP Queue 1 item 6c)")
+
+
+def n_ranks(args: argparse.Namespace) -> int:
+    """The ranks `--n_devices` asks this command to start: N, or every
+    visible card for 0 (one process under --cpu, or on a host without a
+    card, where the run then fails on its first card tensor). More ranks
+    than visible cards raises, naming both counts."""
+    if args.cpu:
+        return args.n_devices or 1
+    import torch
+    n_cards = torch.cuda.device_count()
+    n = args.n_devices or max(n_cards, 1)
+    if n > 1 and n > n_cards:
+        raise ValueError(f"--n_devices {n} asks for {n} ranks, one a card, but "
+                         f"{n_cards} cards are visible")
+    return n
 
 
 def build_configs(args: argparse.Namespace):
@@ -159,9 +190,49 @@ def build_configs(args: argparse.Namespace):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Trains; returns (TrainState, history) of `engine/loop.train`."""
+    """Trains; returns (TrainState, history) of `engine/loop.train`, or each
+    rank's (step, history) when `--n_devices` > 1 started the ranks."""
     args = get_argparser().parse_args(argv)
     check_ported(args)
+    from .parallel import mesh as pmesh
+
+    if args.distributed:
+        mesh = pmesh.init_from_env(cpu=args.cpu)
+        try:
+            pmesh.make_mesh(args.n_devices, mesh.device)   # 0 or the group's size
+            return _train(args, mesh, split=1)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    n = n_ranks(args)
+    if n == 1:
+        return _train(args, None, split=1)
+    B = build_configs(args)[0].solver.ims_per_batch
+    if B % n:
+        raise ValueError(f"--n_devices {n} does not divide the batch of {B} images "
+                         "(SOLVER.IMS_PER_BATCH)")
+    import torch
+    # the CPU's threads shared among the ranks
+    threads = max(torch.get_num_threads() // n, 1) if args.cpu else None
+    return pmesh.spawn(_rank, n, args=(args, n), num_threads=threads)
+
+
+def _rank(args: argparse.Namespace, n: int):
+    """One of the `n` ranks `main` started (`parallel/mesh.spawn`)."""
+    import torch.distributed as dist
+
+    from .parallel import mesh as pmesh
+    mesh = pmesh.init_from_env(cpu=args.cpu)
+    try:
+        state, history = _train(args, mesh, split=n)
+        return state.step, history
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, mesh, split: int):
+    """The run on this process's rank of `mesh` (None: a single process),
+    each rank loading `ims_per_batch / split` images a step."""
     import torch
 
     from .data import loaders
@@ -176,18 +247,32 @@ def main(argv: Optional[Sequence[str]] = None):
     from .utils.fold_bn import fold_batchnorm
     from .utils.logging_utils import ScalarLogger
 
-    device = torch.device("cpu" if args.cpu else "cuda")
+    if mesh is None:
+        device = torch.device("cpu" if args.cpu else "cuda")
+    else:
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     cfg, cfg_t = build_configs(args)
     # distillation needs a positive weight and a teacher; synthetic data
     # allows an untrained (random) teacher for pipeline exercises
     distill = args.kd_weight > 0.0 and (args.weight_file_t != "" or args.data == "synthetic")
 
-    data = loaders.build(cfg, kind=args.data, device=device)
+    # each rank loads its part of the global batch; the config keeps the
+    # global batch (cfg.json, the config hash)
+    rank_cfg = cfg.replace(solver=dataclasses.replace(
+        cfg.solver, ims_per_batch=cfg.solver.ims_per_batch // split))
+    data = loaders.build(rank_cfg, kind=args.data, device=device)
     if data.cfg is not None:
-        cfg = data.cfg  # synthetic mesh diameters replace the yaml's LINEMOD ones
+        # synthetic mesh diameters replace the yaml's LINEMOD ones
+        cfg = data.cfg.replace(solver=cfg.solver)
     consts = data.consts
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"devices: 1 x {name}", flush=True)
+    say(f"devices: {1 if mesh is None else mesh.size} x {name}")
 
     # the teacher stays on the host but for its sanity gate: loop.train
     # builds the device copy that trains against
@@ -197,7 +282,7 @@ def main(argv: Optional[Sequence[str]] = None):
                                     torch.Generator().manual_seed(1)).eval()
         if args.weight_file_t:
             n = load_params_loose(args.weight_file_t, teacher_net)
-            print(f"teacher: loaded {n} tensors from {args.weight_file_t}", flush=True)
+            say(f"teacher: loaded {n} tensors from {args.weight_file_t}")
             if args.fold_teacher_bn:
                 # the frozen eval-mode teacher's BN is a constant affine:
                 # fold it into the conv weights once and rebuild the teacher
@@ -207,17 +292,18 @@ def main(argv: Optional[Sequence[str]] = None):
                                                                 bn_folded=True))
                 teacher_net = PoseNet(cfg_t.model, n_fg=cfg.data.n_fg).eval()
                 teacher_net.load_state_dict(folded, strict=True)
-                print("teacher: BN folded into conv weights", flush=True)
+                say("teacher: BN folded into conv weights")
             if args.quant_teacher:
                 if not args.fold_teacher_bn:
                     raise SystemExit("--quant_teacher requires --fold_teacher_bn")
                 # int8 PTQ of the frozen teacher: calibrate the activation
                 # ranges on the first eval batches, on the device, then
                 # rebuild it as the quant_mode="quant" model (JAX
-                # train_kd.py:200-217)
+                # train_kd.py:200-217); the unsharded batches, so that every
+                # rank quantizes the same teacher
                 from .utils.quant import quantize_posenet
                 calib = []
-                for b, _ in data.eval_batches():
+                for b, _ in data.eval_batches(shard=(0, 1)):
                     calib.append(b.images.to(device))
                     if len(calib) >= args.quant_calib_batches:
                         break
@@ -226,15 +312,15 @@ def main(argv: Optional[Sequence[str]] = None):
                 teacher_net.cpu()
                 cfg_t = cfg_t.replace(model=dataclasses.replace(cfg_t.model,
                                                                 quant_mode="quant"))
-                print(f"teacher: int8-quantized ({len(calib)} calib batches)", flush=True)
+                say(f"teacher: int8-quantized ({len(calib)} calib batches)")
 
     # model-size comparison (reference train_kd.py:76-78)
     n_student = sum(p.numel() for p in PoseNet(cfg.model, n_fg=cfg.data.n_fg).parameters())
     if teacher_net is not None:
         n_teacher = sum(p.numel() for p in teacher_net.parameters())
-        print(f"Model size: Student VS Teacher: {n_student:d} vs {n_teacher:d}", flush=True)
+        say(f"Model size: Student VS Teacher: {n_student:d} vs {n_teacher:d}")
     else:
-        print(f"Model size: {n_student:d} params", flush=True)
+        say(f"Model size: {n_student:d} params")
 
     scan_eval = None
     if args.eval_mode == "scan":
@@ -245,7 +331,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
     if distill and args.weight_file_t:
         # teacher sanity gate (reference train_kd.py:85-86)
-        print("--- evaluate teacher ---", flush=True)
+        say("--- evaluate teacher ---")
         t_cfg = dataclasses.replace(cfg_t, test=cfg.test, data=cfg.data)
         teacher_net.to(device)
         if scan_eval is not None:
@@ -257,7 +343,8 @@ def main(argv: Optional[Sequence[str]] = None):
                             data.meshes, step=0, working_dir=args.working_dir)
         teacher_net.cpu()    # give its device memory back before training
 
-    eval_logger = ScalarLogger(args.working_dir, filename="eval_scalars.jsonl")
+    eval_logger = (ScalarLogger(args.working_dir, filename="eval_scalars.jsonl")
+                   if lead else None)
 
     def eval_fn(state, step):
         if scan_eval is not None:
@@ -275,8 +362,7 @@ def main(argv: Optional[Sequence[str]] = None):
             raise SystemExit("--device_pool requires --data synthetic")
         it = data.train_iter()
         pool = Batch.stack([next(it) for _ in range(args.device_pool)]).to(device)
-        print(f"device pool: {args.device_pool} batches x {pool.images.shape[1]} images",
-              flush=True)
+        say(f"device pool: {args.device_pool} batches x {pool.images.shape[1]} images")
     else:
         train_iter = (data.train_iter(args.num_workers) if args.data == "bop"
                       else data.train_iter())
@@ -288,11 +374,13 @@ def main(argv: Optional[Sequence[str]] = None):
                      device=device, eval_fn=eval_fn, working_dir=args.working_dir,
                      pool=pool, steps_per_dispatch=args.steps_per_dispatch,
                      cache_teacher=args.cache_teacher,
-                     backbone_init=args.backbone_init or None, vis_every=args.vis_every)
+                     backbone_init=args.backbone_init or None, vis_every=args.vis_every,
+                     mesh=mesh)
     finally:
         if train_iter is not None:
             train_iter.close()      # the BOP loader's threads stop here
-        eval_logger.close()
+        if eval_logger is not None:
+            eval_logger.close()
 
 
 if __name__ == "__main__":

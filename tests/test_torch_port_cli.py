@@ -4,7 +4,8 @@ device pool with the cached teacher, the evaluation CLI on the run's
 final.ckpt, the flags of modules not ported yet and the BOP flags reaching
 the BOP reader, at the CLIs' default
 flags (bfloat16), on the CPU with
-`configs/smoke.yaml` (darknet_tiny_h student at 64², B=2). As the JAX
+`configs/smoke.yaml` (darknet_tiny_h student at 64², B=2), and the errors
+of the distribution flags. As the JAX
 package's tests/test_train_loop.py, without distillation (--kd_weight 0):
 a run to 3 steps writes latest.ckpt,
 final.ckpt, cfg.json, info.txt and scalars.jsonl; a run to 5 in the same
@@ -111,14 +112,35 @@ def test_defaults_that_differ_from_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--n_devices", "2"], 6),
-    (["--distributed"], 6),
     (["--vis_every", "1000"], 6),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     args = _args(tmp_path, 1, *flags)          # a later --data overrides synthetic
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         train_kd.main(args)
+    assert not os.path.exists(tmp_path / "cfg.json")
+
+
+@pytest.mark.parametrize("flag", ["--n_devices", "--distributed"])
+def test_distribution_flags_raise_their_errors(tmp_path, monkeypatch, flag):
+    """The data mesh is ported (test_torch_port_dist_cli.py): on the card
+    (no --cpu) more ranks than visible cards raises naming both counts, and
+    --distributed outside torchrun names the variables it lacks."""
+    from kd6d_pose_adlp_tpu_torch.parallel.mesh import TORCHRUN_ENV
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    if flag == "--n_devices":
+        cards = torch.cuda.device_count()
+        n = max(cards + 1, 2)
+        flags, error = [flag, str(n)], ValueError
+        words = (f"--n_devices {n}", f"{cards} cards are visible")
+    else:
+        flags, error = [flag], RuntimeError
+        words = ("RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT not set",)
+    args = [a for a in _args(tmp_path, 1, *flags) if a != "--cpu"]
+    with pytest.raises(error) as e:
+        train_kd.main(args)
+    assert all(w in str(e.value) for w in words), str(e.value)
     assert not os.path.exists(tmp_path / "cfg.json")
 
 

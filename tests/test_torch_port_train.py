@@ -44,6 +44,7 @@ from kd6d_pose_adlp_tpu_torch.engine import schedule as tsched
 from kd6d_pose_adlp_tpu_torch.engine import steps as tsteps
 from kd6d_pose_adlp_tpu_torch.engine.loop import train
 from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet
+from kd6d_pose_adlp_tpu_torch.parallel.mesh import make_mesh
 from kd6d_pose_adlp_tpu_torch.utils.convert import from_jax_variables
 
 RES = 64
@@ -212,18 +213,19 @@ def test_loop_trains_three_steps_on_cpu(tmp_path):
 @pytest.mark.parametrize("option", ["pool", "mesh", "cache_teacher", "vis_every",
                                     "eval_fn", "resume"])
 def test_loop_raises_on_unported_options(option, tmp_path):
-    """mesh and vis_every still raise; pool, cache_teacher, resume and
-    eval_fn are ported and accepted (test_torch_port_pool.py and
-    test_torch_port_cli.py hold what they do)."""
+    """vis_every still raises (item 6c); pool, cache_teacher, resume, eval_fn
+    and mesh (a one-rank data mesh here) are ported and accepted
+    (test_torch_port_pool.py, test_torch_port_cli.py and
+    test_torch_port_dist.py hold what they do)."""
     _, _, tcf, _ = _cfgs()
-    if option in ("mesh", "vis_every"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            train(tcf, None, iter(()), device="cpu", working_dir=str(tmp_path),
-                  **{option: {"mesh": object(), "vis_every": 5}[option]})
+    if option == "vis_every":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
+            train(tcf, None, iter(()), device="cpu", working_dir=str(tmp_path), vis_every=5)
         return
     ds = SyntheticPoseDataset(input_res=RES)
     value = {"pool": Batch.stack([ds.batch(range(B)), ds.batch(range(B, 2 * B))]),
-             "cache_teacher": True, "eval_fn": lambda *a: None, "resume": True}[option]
+             "cache_teacher": True, "eval_fn": lambda *a: None, "resume": True,
+             "mesh": make_mesh(device="cpu")}[option]
     tcf = tcf.replace(solver=dataclasses.replace(tcf.solver, max_iter=0))
     state, hist = train(tcf, ds.consts(device="cpu"), iter(()), device="cpu",
                         working_dir=str(tmp_path), **{option: value})
