@@ -10,6 +10,7 @@ card: the quickest proof that the port builds, starts and answers on the GPU.
     python3 chip_smoke.py --phases zebra   # the dense binary-code head
     python3 chip_smoke.py --phases bop     # the BOP host pipeline under the CLIs
     python3 chip_smoke.py --phases dist    # data parallelism over a process group
+    python3 chip_smoke.py --phases tools   # reference checkpoints, the plots, a trace
 
 Phases:
   set-up   builds the CUDA kernels from kd6d_pose_adlp_tpu_torch/csrc/ with
@@ -149,9 +150,11 @@ Phases:
            4 timed calls of 5 cached steps (median step ms, images/s), peak
            memory, one profiled step (kernels, busy ms, idle share). (c) the
            live and the cached multi-step from the same weights and draws, 4
-           steps over a 3-batch pool: metrics rtol 1e-4, parameters
-           max|diff| < 5e-3, BN statistics rtol 1e-3 / atol 1e-4 (JAX's
-           tests/test_cache_teacher.py). (a)-(c) run in fp32. (d)
+           steps over a 3-batch pool, under deterministic algorithms: the
+           metrics and the state dicts bit-equal (stricter than JAX's
+           tests/test_cache_teacher.py bounds, metrics rtol 1e-4,
+           parameters max|diff| < 5e-3, BN statistics rtol 1e-3 / atol
+           1e-4, whose readings are logged). (a)-(c) run in fp32. (d)
            train_kd.main at its defaults (bf16, the teacher from a temporary
            teacher.pt with its BN folded; --config_file '', --device_pool 4
            --steps_per_dispatch 5 --cache_teacher) to 6 steps: K1 once per
@@ -214,35 +217,78 @@ Phases:
            the table printed, 48 predictions, the bf16 K2 once per chunk of
            24. (e) export_model --data bop --check at B=8: the round trip
            passes, the bf16 K2 once per shape in each request.
+  tools    reference checkpoints and the tools on the training entry
+           point's path at full width (darknet_tiny_h, FPN 128, P6/P7, a
+           darknet53 teacher, 256², B=16). (a) a reference-layout file
+           ({"model": {"module." + k: v}, "steps", "optim", "sched"}) of a
+           seeded darknet53 teacher: every tensor loads, and the loaded
+           net's B=16 outputs equal the source net's bit for bit; a
+           pytorchcv / imgclsmob zip of a seeded darknet_tiny_h backbone
+           through imgclsmob_to_backbone_ckpt; a file that matches nothing
+           raises in load_params_loose and load_backbone_init. (b)
+           train_kd --vis_every 2 at its defaults (bf16, the teacher
+           folded): pooled (2 batches, 3 steps a call, to 7) from that
+           teacher file and --backbone_init on the zip's checkpoint, every
+           tensor of each printed as loaded; then per step to 5 with a
+           random teacher. Each writes vis/{step}_img_2d.png after JAX's
+           steps (3 and 6; 1, 2 and 4) and nothing else there, K1 once a
+           step, the bf16 K2 once a chunk at each stem shape plus once a
+           plot (the plots' student forward at B=16). (c) the evaluations
+           write accuracy_per_depth_{step:06d}.png (the teacher's at step
+           0, the student's at the last step). (d) profiling.trace over 2
+           bf16 steps of engine/loop.train with a plot each: the Chrome
+           trace names K1 (k1_kept) once a step and K2 (conv3x3_) once a
+           plot at each stem shape, as the wrappers count. Each part's
+           seconds are logged. The kernels line's B=16 bf16 K2 rows count
+           (d)'s launches only: in (b) one counter takes both the plots'
+           B=16 forwards and the evaluations' chunks, so (b)'s totals are
+           gated and logged, not given to a batch's row.
   dist     data parallelism (parallel/mesh) at full width. (a) two ranks on
            the one card, spawned by parallel/mesh.spawn, with gloo on CUDA
            tensors (NCCL refuses two ranks on one device), through the
            engine API: the darknet_tiny_h student and the BN-folded darknet53
            teacher (head prior 0.5) at 256², B=8 a rank and 16 in all, 2
-           fp32 KD steps held against the one-process fp32 step on the
-           concatenated batches on the same card, both with the LR divided by
-           2, at the bounds of tests/test_torch_port_dist.py (metrics rtol
-           5e-3, num_pos equal; after the first step every parameter within 2
-           lr and < 0.5% of its elements off by more than 1e-6; after the
-           last within 2 * sum(lr), the difference's norm <= 0.15 of the
-           update's, BN statistics within 5e-3 of their largest entry), the
-           first step's 2 lr plus the parameter's float32 spacing
-           (dist_steps_agree says why). Two steps, not the CPU test's three:
-           on the card grad_norm at a third step moves 2.3e-3 between runs
-           of one process (cuDNN's nondeterministic sums through the first
-           update's flipped signs) and read 4.8e-3-7.4e-3 from the 2-rank
-           step; at the second 5.0e-4-5.2e-4. Then
-           2 bf16 steps (train_kd's default pair): finite losses; the ranks'
-           state dicts bit-equal; K1 once a step on each rank. Then a 2-rank
-           ScanEvaluator over 96 synthetic images, each rank its 48 (2 chunks
-           of 24, K2 once a chunk at each stem shape), each image with its
-           own draws: the merged table equals the one-process table of the
-           96. Step times are logged, labelled: two processes share one card,
-           so they say nothing of scaling. (b) train_kd --distributed under a
-           1-rank NCCL group from torchrun's variables, set by the phase: 3
+           fp32 KD steps under deterministic algorithms (cuBLAS's workspace
+           pinned, CUBLAS_WORKSPACE_CONFIG; an op with no deterministic
+           kernel raises) against the one-process fp32 steps on the
+           concatenated batches on the same card, both with the LR divided
+           by 2, gated at the bounds of tests/test_torch_port_dist.py
+           (metrics rtol 5e-3, num_pos equal; after the first step every
+           parameter within 2 lr and < 0.5% of its elements off by more
+           than 1e-6; after the last within 2 * sum(lr), the difference's
+           norm <= 0.15 of the update's, BN statistics within 5e-3 of their
+           largest entry), the first step's 2 lr plus the parameter's
+           float32 spacing (dist_steps_agree says why). The CPU tests hold
+           3 steps; a third step here parts the ranks from one process by
+           more than the metrics' 5e-3, as reordering the images does
+           (dist_spread). Then 2 bf16 steps (train_kd's default pair):
+           finite losses; the ranks' state dicts bit-equal; K1 once a step
+           on each rank. Then a 2-rank ScanEvaluator over 96 synthetic
+           images, each rank its 48 (2 chunks of 24, K2 once a chunk at
+           each stem shape), each image with its own draws: the merged
+           table equals the one-process table of the 96. Step times are
+           logged, labelled: two processes share one card, so they say
+           nothing of scaling. (b) train_kd --distributed under a 1-rank
+           NCCL group from torchrun's variables, set by the phase: 3
            synthetic steps at its defaults (bf16) and a scan evaluation (K1
            once a step, the bf16 K2 once a chunk at each shape), its files
            written, the group destroyed on return.
+  dist_spread
+           not in the default --phases: dist's (a) fp32 steps over 3 steps,
+           ungated, read against the yardstick of the step's own rounding:
+           the one process on the images in order against the 2 ranks, the
+           one process again (gated bit-equal), on the images in 3 other
+           orders (the same sums, rounded otherwise), and with the group's
+           BatchNorm arithmetic (flax's E[x²] - E[x]²) in place of cuDNN's;
+           each run's gaps, grad_norm by step and the first step's forward
+           traced by layer (each BatchNorm's batch statistics against one
+           process's, the worst layer) are logged.
+  cli_spread
+           not in the default --phases: the cli phase's (c) 10 times under
+           deterministic algorithms (each bit-equal, gated) and 10 times
+           without them (ungated): the run-to-run spread of the live and
+           the cached multi-step under nondeterministic sums, the readings
+           behind (c)'s bit-equal gate.
 
 TF32 is off for matmuls and convolutions throughout, so the fp32
 comparisons are fp32 against fp32 (the serving network, one KD step and
@@ -255,6 +301,7 @@ Details go to the --json_out file (default outputs/chip_smoke.json).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -352,6 +399,25 @@ DIST_STEPS = 2
 DIST_BF16_STEPS = 2
 DIST_EVAL_IMAGES = 96
 DIST_CLI_STEPS = 3
+# the dist_spread phase (not run by default): its fp32 steps, and the other
+# orders of the images it reads
+DIST_SPREAD_STEPS = 3
+DIST_PERMS = 3
+# the cli_spread phase (not run by default): repetitions of the cli phase's
+# (c) in each mode
+CLI_SPREAD_REPS = 10
+# the tools phase: train_kd --vis_every 2, pooled (steps a call, steps) and
+# per step, with the steps JAX's loop plots after (JAX engine/loop.py:187-188:
+# a call ending at `step` when step == k or step % 2 < k, k its steps: the
+# calls end at 3, 6, 7; :232: step 1 and the even steps); loop.train's
+# steps under profiling.trace; the train batch, where the plots run the
+# student's eval stem (K2)
+TOOLS_POOLED = (3, 7)
+TOOLS_POOLED_PLOTS = (3, 6)
+TOOLS_PER_STEP = 5
+TOOLS_PER_STEP_PLOTS = (1, 2, 4)
+TOOLS_TRACE_STEPS = 2
+VIS_BATCH = 16
 # the edges of conv3x3_igemm's mapping (B, C, O, H, W), each in both forms:
 # a partial channel octet (C = 5, O = 12, M = 23 * 31 odd, B = 1); C = 20
 # (a partial third octet) with O = 72 (past 64: the 128-output tiling); C =
@@ -624,6 +690,12 @@ def kernel_phase(torch, F, cf, dev):
         for tag, (C, O, H, W) in shapes.items():
             rows += conv_rows(torch, F, cf, dev, g, EVAL_BATCH, tag, C, O, H, W, dtype,
                               stacked_too=False)[0]
+        # K2 at the train batch in bf16: the cloud plots' student forward
+        # (train_kd --vis_every at its defaults)
+        for tag, (C, O, H, W) in shapes.items():
+            if dtype == torch.bfloat16:
+                rows += conv_rows(torch, F, cf, dev, g, VIS_BATCH, tag, C, O, H, W, dtype,
+                                  stacked_too=False)[0]
         for tag, C, O, H in VARIANT_SHAPES:
             rows += conv_rows(torch, F, cf, dev, g, BATCH, tag, C, O, H, H, dtype,
                               stacked_too=True)[0]
@@ -1544,6 +1616,91 @@ def votes_agree(torch, got, want) -> float:
     return worst
 
 
+def live_vs_cached(torch, cfg, cfg_t, consts, teacher, pool, dev, det: bool = True):
+    """4 fp32 multi-steps over the first 3 batches of `pool` from one seeded
+    student and one set of SSC draws, once with the live teacher and once
+    with its votes cached, both under deterministic algorithms (unless not
+    `det`): both runs' metrics, the largest relative difference of the
+    losses, the largest |difference| of a parameter, whether the BN
+    statistics agree within rtol 1e-3 / atol 1e-4, and whether the two
+    runs' metrics and state dicts are bit-equal.
+
+    The two paths take the same votes into the same step, so under
+    deterministic algorithms they agree bit for bit (the cli_spread
+    phase). Under the nondeterministic sums (cuDNN's backward, atomic
+    scatters) run-to-run noise alone parts them, and a tail of that noise
+    once broke the 1e-4 / 5e-3 bounds this check held before."""
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+
+    n_fg, B = cfg.data.n_fg, cfg.solver.ims_per_batch
+    sub = pool.take(slice(0, 3))
+    student = init_pose_net(PoseNet(cfg.model, n_fg=n_fg), torch.Generator().manual_seed(2))
+    uniforms = torch.rand((4, B, cfg.model.num_cells, cfg.solver.max_objs),
+                          generator=torch.Generator().manual_seed(3)).to(dev)
+
+    def run(cached):
+        net = PoseNet(cfg.model, n_fg=n_fg)
+        net.load_state_dict(student.state_dict())
+        opt = steps.make_optimizer(cfg)
+        st = steps.create_train_state(cfg, net.to(dev), opt)
+        fn = steps.build_multi_step(cfg, cfg_t, consts, net, None if cached else teacher, opt,
+                                    distill=True, pool_size=3, cached_votes=cached)
+        arg = steps.precompute_pool_votes(cfg, cfg_t, teacher, sub) if cached else None
+        st, mm = fn(st, arg, sub, 0, 4, uniforms=uniforms)
+        return ({kk: float(v) for kk, v in mm.items()},
+                {kk: v.detach().cpu() for kk, v in net.state_dict().items()})
+
+    with deterministic(torch) if det else contextlib.nullcontext():
+        (m_live, sd_live), (m_cache, sd_cache) = run(False), run(True)
+    stat = lambda kk: kk.endswith(("running_mean", "running_var"))  # noqa: E731
+    return dict(
+        live=m_live, cached=m_cache,
+        bit_equal=(m_live == m_cache and sd_live.keys() == sd_cache.keys()
+                   and all(torch.equal(sd_cache[kk], v) for kk, v in sd_live.items())),
+        metric_rel=max(abs(m_cache[kk] - m_live[kk]) / max(abs(m_live[kk]), 1e-12)
+                       for kk in ("loss_total", "loss_cls", "loss_reg", "loss_kd")),
+        param_max_abs=max(float((sd_cache[kk] - v).abs().max()) for kk, v in sd_live.items()
+                          if v.is_floating_point() and not stat(kk)),
+        bn_stats_ok=all(torch.allclose(sd_cache[kk], v, rtol=1e-3, atol=1e-4)
+                        for kk, v in sd_live.items() if stat(kk)))
+
+
+def cli_spread_phase(torch, dev):
+    """The cli phase's (c), CLI_SPREAD_REPS times with and as many without
+    deterministic algorithms, on the cli phase's pool and teacher: each
+    repetition's readings are logged; the deterministic ones must be
+    bit-equal (live against cached, and each run against the first)."""
+    from kd6d_pose_adlp_tpu_torch.data import loaders
+    from kd6d_pose_adlp_tpu_torch.data.batch import Batch
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+
+    cfg, cfg_t = train_configs()
+    data = loaders.build(cfg, kind="synthetic", device=dev)
+    it = data.train_iter()
+    pool = Batch.stack([next(it) for _ in range(CLI_POOL)]).to(dev)
+    teacher = init_pose_net(PoseNet(cfg_t.model, n_fg=cfg.data.n_fg),
+                            torch.Generator().manual_seed(1)).to(dev).eval()
+    out = {}
+    for det in (True, False):
+        tag = "deterministic" if det else "default"
+        out[tag] = [live_vs_cached(torch, cfg, cfg_t, data.consts, teacher, pool, dev, det)
+                    for _ in range(CLI_SPREAD_REPS)]
+        for r, c in enumerate(out[tag]):
+            log(f"[cli_spread] {tag} {r}: loss_total live {c['live']['loss_total']!r} "
+                f"cached {c['cached']['loss_total']!r}; largest relative loss difference "
+                f"{c['metric_rel']:.3e}, parameters max |diff| {c['param_max_abs']:.3e}, BN "
+                f"statistics ok {c['bn_stats_ok']}, num_pos {c['live']['num_pos']} / "
+                f"{c['cached']['num_pos']}, bit-equal {c['bit_equal']}")
+        log(f"[cli_spread] {tag}, {CLI_SPREAD_REPS} repetitions: largest relative loss "
+            f"difference {max(c['metric_rel'] for c in out[tag]):.3e}, parameters max "
+            f"|diff| {max(c['param_max_abs'] for c in out[tag]):.3e}")
+    first = out["deterministic"][0]
+    if not all(c["bit_equal"] and c["live"] == first["live"] for c in out["deterministic"]):
+        raise AssertionError("deterministic live/cached multi-steps are not bit-equal")
+    return out
+
+
 def cli_phase(torch, sf, cf, dev, tf32_defaults):
     """The training entry point's path on the card: the device pool, the
     cached teacher, K steps per call, K1 in every step, checkpoints and
@@ -1551,7 +1708,7 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
     cached votes against live votes; (b) engine/loop.train with the pool
     and the cache, 10 steps in 2 calls, then timed and profiled cached
     steps; (c) live against cached multi-steps from the same weights and
-    draws; (d) train_kd.main to 6 steps, then resumed to 8; (f)
+    draws, bit-equal under deterministic algorithms; (d) train_kd.main to 6 steps, then resumed to 8; (f)
     train_kd.main --quant_teacher, then export_model --check on its
     final.ckpt; (e) evaluate.main on the (d) run's final.ckpt."""
     import contextlib
@@ -1662,38 +1819,16 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
         f"busy {prof['device_busy_ms']:.1f} ms of its {prof['wall_ms']:.1f} ms wall time "
         f"(idle share {idle:.3f}); top: {prof['top']}")
 
-    # (c) live against cached multi-steps, same weights and draws
-    sub = pool.take(slice(0, 3))
-    student = init_pose_net(PoseNet(cfg.model, n_fg=n_fg), torch.Generator().manual_seed(2))
-    uniforms = torch.rand((4, B, cfg.model.num_cells, cfg.solver.max_objs),
-                          generator=torch.Generator().manual_seed(3)).to(dev)
-
-    def run(cached):
-        net = PoseNet(cfg.model, n_fg=n_fg)
-        net.load_state_dict(student.state_dict())
-        opt = steps.make_optimizer(cfg)
-        st = steps.create_train_state(cfg, net.to(dev), opt)
-        fn = steps.build_multi_step(cfg, cfg_t, consts, net, None if cached else teacher, opt,
-                                    distill=True, pool_size=3, cached_votes=cached)
-        arg = steps.precompute_pool_votes(cfg, cfg_t, teacher, sub) if cached else None
-        st, mm = fn(st, arg, sub, 0, 4, uniforms=uniforms)
-        return ({kk: float(v) for kk, v in mm.items()},
-                {kk: v.detach().cpu() for kk, v in net.state_dict().items()})
-
-    (m_live, sd_live), (m_cache, sd_cache) = run(False), run(True)
-    met_rel = max(abs(m_cache[kk] - m_live[kk]) / max(abs(m_live[kk]), 1e-12)
-                  for kk in ("loss_total", "loss_cls", "loss_reg", "loss_kd"))
-    stat = lambda kk: kk.endswith(("running_mean", "running_var"))  # noqa: E731
-    p_err = max(float((sd_cache[kk] - v).abs().max()) for kk, v in sd_live.items()
-                if v.is_floating_point() and not stat(kk))
-    st_ok = all(torch.allclose(sd_cache[kk], v, rtol=1e-3, atol=1e-4)
-                for kk, v in sd_live.items() if stat(kk))
-    log(f"[cli] (c) 4 steps over a 3-batch pool, live vs cached teacher: metrics "
-        f"{m_live} vs {m_cache} (largest relative difference {met_rel:.2e}, gate 1e-4); "
-        f"parameters max |diff| {p_err:.2e} (gate 5e-3); BN statistics within rtol 1e-3 / "
-        f"atol 1e-4: {st_ok}")
-    if not (m_live["loss_kd"] > 0 and met_rel <= 1e-4 and p_err < 5e-3 and st_ok
-            and m_live["num_pos"] == m_cache["num_pos"]):
+    # (c) live against cached multi-steps, same weights and draws, under
+    # deterministic algorithms: bit-equal
+    c = live_vs_cached(torch, cfg, cfg_t, consts, teacher, pool, dev)
+    m_live, m_cache = c["live"], c["cached"]
+    log(f"[cli] (c) 4 steps over a 3-batch pool, live vs cached teacher, deterministic "
+        f"algorithms: metrics {m_live} vs {m_cache} (largest relative difference "
+        f"{c['metric_rel']:.2e}); parameters max |diff| {c['param_max_abs']:.2e}; BN "
+        f"statistics within rtol 1e-3 / atol 1e-4: {c['bn_stats_ok']}; metrics and state "
+        f"dicts bit-equal (gate): {c['bit_equal']}")
+    if not (m_live["loss_kd"] > 0 and c["bit_equal"]):
         raise AssertionError("the cached-teacher multi-step misses the live one")
 
     # (d) the entry point, then its resume; (e) the evaluation CLI
@@ -1717,7 +1852,8 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            st, h = train_kd.main(args + ["--max_iters", str(max_iters)])
+            st, h = train_kd.main(args + ["--max_iters", str(max_iters),
+                                          "--vis_every", "0"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         printed = buf.getvalue()
@@ -1760,7 +1896,8 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         st_q, h_q = train_kd.main(args[:-2] + ["--working_dir", qwd, "--quant_teacher",
-                                               "--max_iters", str(CLI_QUANT_STEPS)])
+                                               "--max_iters", str(CLI_QUANT_STEPS),
+                                               "--vis_every", "0"])
     torch.cuda.synchronize()
     q_secs = time.perf_counter() - t0
     printed = buf.getvalue()
@@ -1830,8 +1967,7 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
         loop_history=hist, k1_launches_loop=k1_b, peak_memory_gib=peak_gb,
         cached_step_ms=step_ms, median_step_ms=med, images_per_sec=1e3 * B / med,
         profile=prof, device_idle_share=idle,
-        live_vs_cached=dict(live=m_live, cached=m_cache, metric_rel=met_rel,
-                            param_max_abs=p_err, bn_stats_ok=st_ok),
+        live_vs_cached=c,
         train_kd=runs, k2_launches={str(b): {":".join(map(str, k)): v for k, v in by.items()}
                                     for b, by in k2_launches.items()}), \
         k1_b + runs[6]["k1"] + runs[8]["k1"] + k1_q, k2_launches
@@ -2067,7 +2203,8 @@ def bop_phase(torch, sf, cf, dev):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            st, h = train_kd.main(args + ["--max_iters", str(max_iters)])
+            st, h = train_kd.main(args + ["--max_iters", str(max_iters),
+                                          "--vis_every", "0"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         printed = buf.getvalue()
@@ -3055,17 +3192,23 @@ def dist_configs():
     return cfg, cfg_t, cfg_e
 
 
-def dist_steps(torch, inp, mesh, dtype: str, n: int, dev):
+def dist_steps(torch, inp, mesh, dtype: str, n: int, dev, perm=None,
+               group_bn: bool = False):
     """`n` KD steps from `inp`'s weights and configs with make_optimizer(
     n_devices=DIST_RANKS), in `dtype` (bf16: train_kd's default pair):
     this rank's rows of each global batch and draw under `mesh`, the whole
     of them without one. [(metrics, state_dict on the CPU)] a step (in
     bf16 the last step's state only) and the host-clock ms of each
-    synchronized step."""
+    synchronized step. Without a mesh, `perm` reorders the images of each
+    batch and draw (the same sums, added in another order), and
+    `group_bn` has the student's BatchNorms take the group's arithmetic
+    (`BatchNorm2d._forward_global` over a one-rank mesh) in place of
+    cuDNN's."""
     from kd6d_pose_adlp_tpu_torch.data.batch import TaskConsts
     from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.models.blocks import BatchNorm2d
     from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet
-    from kd6d_pose_adlp_tpu_torch.parallel.mesh import shard_batch
+    from kd6d_pose_adlp_tpu_torch.parallel.mesh import DataMesh, shard_batch
 
     cfg, cfg_t, _ = inp["cfgs"]
     if dtype == "bfloat16":
@@ -3075,12 +3218,18 @@ def dist_steps(torch, inp, mesh, dtype: str, n: int, dev):
     net, teacher = PoseNet(cfg.model, n_fg=n_fg), PoseNet(cfg_t.model, n_fg=n_fg)
     net.load_state_dict(inp["student"], strict=True)
     teacher.load_state_dict(inp["teacher"], strict=True)
+    if group_bn:
+        for m in net.modules():
+            if isinstance(m, BatchNorm2d):
+                m.mesh = DataMesh(rank=0, size=1, device=dev)
     opt = steps.make_optimizer(cfg, n_devices=DIST_RANKS)
     state = steps.create_train_state(cfg, net.to(dev), opt)
     step = steps.build_train_step(cfg, cfg_t, consts, net, teacher.to(dev).eval(), opt,
                                   mesh=mesh)
     out, ms = [], []
     for b, u in list(zip(inp["batches"], inp["uniforms"]))[:n]:
+        if perm is not None:
+            b, u = b.take(torch.as_tensor(perm)), u[torch.as_tensor(perm)]
         if mesh is None:
             b, u = b.to(dev), u.to(dev)
         else:
@@ -3126,7 +3275,9 @@ def dist_rank(inp):
     on `inp["device"]`: gloo on CUDA tensors, since NCCL refuses two ranks
     on one device. The fp32 steps, the bf16 steps, the sharded scan
     evaluation, each rank's K1 and K2 launches (counts zeroed just before,
-    read just after). Everything it sizes by comes in `inp`."""
+    read just after); the fp32 steps under deterministic algorithms, as
+    the one-process steps they are held against. Everything it sizes by
+    comes in `inp`."""
     import torch
 
     from kd6d_pose_adlp_tpu_torch.ops import sinkhorn_fused as sf
@@ -3138,7 +3289,8 @@ def dist_rank(inp):
     try:
         dev = mesh.device
         sf.reset_launch_counts()
-        fp32, fp32_ms = dist_steps(torch, inp, mesh, "float32", len(inp["batches"]), dev)
+        with deterministic(torch):
+            fp32, fp32_ms = dist_steps(torch, inp, mesh, "float32", len(inp["batches"]), dev)
         bf16, bf16_ms = dist_steps(torch, inp, mesh, "bfloat16", inp["bf16_steps"], dev)
         k1 = dict(sf.launches)
         ev = dist_eval(torch, inp, dev, mesh.rank, mesh.size)
@@ -3188,16 +3340,28 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def dist_phase(torch, sf, cf, dev):
-    import contextlib
-    import dataclasses
-    import io
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch.use_deterministic_algorithms(True) in the body (cuBLAS's
+    workspace pinned by CUBLAS_WORKSPACE_CONFIG, set in main before the
+    first CUDA call): an op with no deterministic kernel raises. Off again
+    after the body."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
-    from kd6d_pose_adlp_tpu_torch import train_kd
+
+def dist_inputs(torch, n: int) -> dict:
+    """The dist phases' inputs, host tensors only: dist_configs, the task
+    constants, the seeded student and BN-folded darknet53 teacher, `n`
+    global batches of DIST_RANKS * DIST_BATCH synthetic images and their
+    SSC draws, and the evaluation's net and per-image RANSAC draws."""
+    import dataclasses
+
     from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
-    from kd6d_pose_adlp_tpu_torch.engine import steps
     from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
-    from kd6d_pose_adlp_tpu_torch.parallel import mesh as pmesh
     from kd6d_pose_adlp_tpu_torch.utils.fold_bn import fold_batchnorm
 
     cfg, cfg_t, cfg_e = dist_configs()
@@ -3209,18 +3373,30 @@ def dist_phase(torch, sf, cf, dev):
     teacher = init_pose_net(PoseNet(unfolded.model, n_fg=n_fg), torch.Generator().manual_seed(1))
     u = torch.rand((DIST_EVAL_IMAGES, cfg_e.test.ransac_iters, cfg_e.test.max_votes * 8),
                    generator=g)
-    inp = dict(
-        cfgs=(cfg, cfg_t, cfg_e), device=str(dev), bf16_steps=DIST_BF16_STEPS,
+    return dict(
+        cfgs=(cfg, cfg_t, cfg_e), bf16_steps=DIST_BF16_STEPS,
         consts=[c.K.numpy(), c.kp3d.numpy(), c.diameters.numpy()],
         student=init_pose_net(PoseNet(cfg.model, n_fg=n_fg),
                               torch.Generator().manual_seed(2)).state_dict(),
         teacher=fold_batchnorm(teacher.eval()),
-        batches=[ds.batch(range(G * i, G * (i + 1))) for i in range(DIST_STEPS)],
+        batches=[ds.batch(range(G * i, G * (i + 1))) for i in range(n)],
         uniforms=[torch.rand((G, cfg.model.num_cells, ds.max_objs), generator=g)
-                  for _ in range(DIST_STEPS)],
+                  for _ in range(n)],
         eval_net=init_pose_net(PoseNet(cfg_e.model, n_fg=n_fg),
                                torch.Generator().manual_seed(4)).state_dict(),
         gumbel=-torch.log(-torch.log(u.clamp(1e-7, 1 - 1e-7))))
+
+
+def dist_phase(torch, sf, cf, dev):
+    import io
+
+    from kd6d_pose_adlp_tpu_torch import train_kd
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.parallel import mesh as pmesh
+
+    inp = dist_inputs(torch, DIST_STEPS) | dict(device=str(dev))
+    cfg, cfg_t, cfg_e = inp["cfgs"]
+    G = DIST_RANKS * DIST_BATCH
     log(f"[dist] (a) {DIST_RANKS} ranks on one card (gloo on CUDA tensors): "
         f"{cfg.model.backbone} student, BN-folded {cfg_t.model.backbone} teacher, "
         f"{RES}², B={DIST_BATCH} a rank, {G} in all, {DIST_STEPS} fp32 steps, "
@@ -3229,12 +3405,15 @@ def dist_phase(torch, sf, cf, dev):
     ranks = pmesh.spawn(dist_rank, DIST_RANKS, args=(inp,))
     spawn_s = time.perf_counter() - t0
 
-    # the one-process fp32 step on the concatenated batches, on this card
-    one, one_ms = dist_steps(torch, inp, None, "float32", DIST_STEPS, dev)
+    # the one-process fp32 steps on the concatenated batches, on this card,
+    # under deterministic algorithms as the ranks' steps
+    with deterministic(torch):
+        one, one_ms = dist_steps(torch, inp, None, "float32", DIST_STEPS, dev)
     lrs = [steps.make_optimizer(cfg, n_devices=DIST_RANKS).lr_schedule(i)
            for i in range(DIST_STEPS)]
     agree = dist_steps_agree(torch, ranks[0]["fp32"], one, inp["student"], lrs)
-    log(f"[dist] fp32, rank 0 vs one process on the {G} images: {agree}")
+    log(f"[dist] fp32, deterministic algorithms, rank 0 vs one process on the {G} images: "
+        f"{agree}")
     for i, ((m, _), (w, _)) in enumerate(zip(ranks[0]["fp32"], one)):
         log(f"[dist] step {i + 1}: ranks {m} / one process {w}")
     same = lambda a, b: all(torch.equal(a[k], b[k]) for k in a)  # noqa: E731
@@ -3292,6 +3471,7 @@ def dist_phase(torch, sf, cf, dev):
         with contextlib.redirect_stdout(buf):
             st, hist = train_kd.main(["--config_file", CLI_CONFIG_FILE, "--data", "synthetic",
                                       "--max_iters", str(DIST_CLI_STEPS), "--working_dir", wd,
+                                      "--vis_every", "0",
                                       "--distributed"])
         sync(torch, dev)
     finally:
@@ -3351,14 +3531,285 @@ def dist_phase(torch, sf, cf, dev):
                  files=files, history=hist)), k1_total, k2_by_batch
 
 
+def spread_rank(inp):
+    """A rank of the dist_spread phase (`parallel/mesh.spawn`): its fp32
+    steps alone, under deterministic algorithms."""
+    import torch
+
+    from kd6d_pose_adlp_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pmesh.init_from_env(device=inp["device"], backend="gloo")
+    try:
+        with deterministic(torch):
+            return dist_steps(torch, inp, mesh, "float32", len(inp["batches"]),
+                              mesh.device)[0]
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dist_spread_phase(torch, dev):
+    """The dist phase's fp32 steps over DIST_SPREAD_STEPS, each run read
+    against the one process on the images in order (module docstring);
+    the one process again is gated bit-equal to it."""
+    from kd6d_pose_adlp_tpu_torch.engine import steps
+    from kd6d_pose_adlp_tpu_torch.parallel import mesh as pmesh
+
+    n, G = DIST_SPREAD_STEPS, DIST_RANKS * DIST_BATCH
+    inp = dist_inputs(torch, n) | dict(device=str(dev))
+    ranks = pmesh.spawn(spread_rank, DIST_RANKS, args=(inp,))
+    perms = [torch.randperm(G, generator=torch.Generator().manual_seed(40 + i)).tolist()
+             for i in range(DIST_PERMS)]
+    with deterministic(torch):
+        one = dist_steps(torch, inp, None, "float32", n, dev)[0]
+        runs = {"one process again": dist_steps(torch, inp, None, "float32", n, dev)[0],
+                f"{DIST_RANKS} ranks": ranks[0]}
+        for p in perms:
+            runs[f"the images reordered ({p[:4]}...)"] = dist_steps(
+                torch, inp, None, "float32", n, dev, perm=p)[0]
+        runs["the group's BatchNorm arithmetic"] = dist_steps(
+            torch, inp, None, "float32", n, dev, group_bn=True)[0]
+    lrs = [steps.make_optimizer(inp["cfgs"][0], n_devices=DIST_RANKS).lr_schedule(i)
+           for i in range(n)]
+    def first_step_bn(r):
+        # each BatchNorm's batch statistics of the first step's forward
+        # (running = 0.9 * start + 0.1 * batch), the largest gap to one
+        # process's over the layer's largest entry, and its layer
+        gaps = {}
+        for k, w in one[0][1].items():
+            if k.endswith(("running_mean", "running_var")):
+                s0 = inp["student"][k]
+                w, g = (w - 0.9 * s0) / 0.1, (r[0][1][k] - 0.9 * s0) / 0.1
+                gaps[k] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-12))
+        worst = max(gaps, key=gaps.get)
+        return gaps[worst], worst
+
+    out = {}
+    for name, r in runs.items():
+        out[name] = dict(dist_steps_agree(torch, r, one, inp["student"], lrs),
+                         grad_norm=[m["grad_norm"] for m, _ in r],
+                         step1_bn=first_step_bn(r))
+        log(f"[dist_spread] {n} fp32 steps, {name} against one process in order: "
+            f"{out[name]}")
+    log(f"[dist_spread] grad_norm by step, one process in order: "
+        f"{[m['grad_norm'] for m, _ in one]}")
+    again = out["one process again"]
+    if not (again["metric_rel"] == again["step1_max"] == again["last_max"]
+            == again["bn_rel"] == 0):
+        raise AssertionError("one process is not bit-equal to itself under deterministic "
+                             "algorithms")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tools phase
+# ---------------------------------------------------------------------------
+
+def pytorchcv_zip(torch, path: str) -> str:
+    """A pytorchcv / imgclsmob release zip of a seeded darknet_tiny_h
+    ImageNet backbone (`{name}-{error}-{sha1}.pth` inside, its keys
+    `features.…` and `output.final_conv.*`), written at `path`."""
+    import io
+    import zipfile
+
+    from kd6d_pose_adlp_tpu_torch.models.darknet import DarkNet
+
+    torch.manual_seed(6)
+    bb = DarkNet("tiny-h", include_head=True)
+    sd = {("output." + k if k.startswith("final_conv.") else k): v
+          for k, v in bb.state_dict().items()}
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("darknet_tiny_h-2340-cdd2c0c9.pth", buf.getvalue())
+    return path
+
+
+def trace_kernels(path: str) -> dict:
+    """Kernel events of a Chrome trace, counted by name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def tools_phase(torch, sf, cf, dev):
+    """Reference checkpoints, the cloud plots, the per-depth plot and the
+    profiler on the training entry point's path at full width (module
+    docstring). Returns (summary, K1 launches, K2 launches by batch). In
+    (b) K2 runs at two batches, the plots' B=16 and the evaluations'
+    chunks, under one counter: its totals are gated and logged there, and
+    only (d)'s launches, all at B=16, go to a batch's row."""
+    import dataclasses
+    import io
+
+    from kd6d_pose_adlp_tpu_torch import train_kd
+    from kd6d_pose_adlp_tpu_torch.data import png
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from kd6d_pose_adlp_tpu_torch.engine.loop import train
+    from kd6d_pose_adlp_tpu_torch.models.pose_net import PoseNet, init_pose_net
+    from kd6d_pose_adlp_tpu_torch.tools import visualizer
+    from kd6d_pose_adlp_tpu_torch.utils import profiling
+    from kd6d_pose_adlp_tpu_torch.utils.checkpoint import load_backbone_init, load_params_loose
+    from kd6d_pose_adlp_tpu_torch.utils.fold_bn import fold_batchnorm
+    from kd6d_pose_adlp_tpu_torch.utils.precision import full_fp32
+    from kd6d_pose_adlp_tpu_torch.utils.torch_convert import imgclsmob_to_backbone_ckpt
+
+    cfg, cfg_t = train_configs()
+    n_fg, B = cfg.data.n_fg, cfg.solver.ims_per_batch
+    if B != VIS_BATCH:
+        raise AssertionError(f"the train batch is {B}, not VIS_BATCH")
+    k1_key = ("sinkhorn_potentials", cfg.solver.max_pos, cfg.kd.max_teacher_cells)
+    shapes = ((3, 8), (8, 16))
+    tmp = tempfile.TemporaryDirectory()
+    wd = tmp.name
+    secs = {}
+
+    # (a) a reference-layout teacher file, a pytorchcv zip, a file that
+    # matches nothing
+    t0 = time.perf_counter()
+    teacher = init_pose_net(PoseNet(cfg_t.model, n_fg=n_fg), torch.Generator().manual_seed(1))
+    sd = teacher.state_dict()
+    ref = os.path.join(wd, "latest.pth")
+    torch.save({"model": {"module." + k: v for k, v in sd.items()}, "steps": 0, "optim": {},
+                "sched": {}}, ref)
+    copy = init_pose_net(PoseNet(cfg_t.model, n_fg=n_fg), torch.Generator().manual_seed(9))
+    n_ref = load_params_loose(ref, copy)
+    images = SyntheticPoseDataset(n_fg=n_fg, input_res=RES, seed=8).batch(
+        range(B)).images.to(dev)
+    with torch.no_grad(), full_fp32():
+        want = teacher.to(dev).eval()(images)
+        got = copy.to(dev).eval()(images)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    teacher.cpu()
+    del copy, got, want
+    zpath = pytorchcv_zip(torch, os.path.join(wd, "darknet_tiny_h-2340-cdd2c0c9.pth.zip"))
+    imagenet = os.path.join(wd, "imagenet_tiny_h.ckpt")
+    n_zip = imgclsmob_to_backbone_ckpt(zpath, "darknet_tiny_h", imagenet)
+    n_bb = sum(1 for k in PoseNet(cfg.model, n_fg=n_fg).state_dict()
+               if k.startswith("backbone.") and not k.endswith("num_batches_tracked"))
+    empty = os.path.join(wd, "nothing.pth")
+    torch.save({"model": {"rpn.weight": torch.zeros(3)}}, empty)
+    raised = []
+    for fn in (load_params_loose, load_backbone_init):
+        try:
+            fn(empty, PoseNet(cfg.model, n_fg=n_fg))
+        except ValueError as e:
+            raised.append(empty in str(e))
+    secs["a"] = time.perf_counter() - t0
+    log(f"[tools] (a) reference-layout darknet53 teacher ({{'model': {{'module.' + k}}}}, "
+        f"steps, optim, sched): {n_ref} of {len(sd)} tensors loaded, its B={B} outputs "
+        f"bit-equal to the source net's: {bit_equal}; pytorchcv zip -> {n_zip} tensors "
+        f"converted ({n_bb} of them a PoseNet backbone's); a file that matches nothing "
+        f"raised in {raised} ({secs['a']:.1f} s)")
+    if not (n_ref == len(sd) and bit_equal and n_zip == n_bb + 2 and raised == [True, True]):
+        raise AssertionError("a reference-format file loaded wrong, or a file that matches "
+                             "nothing did not raise")
+
+    # (b) train_kd --vis_every 2 from those files, pooled, then per step;
+    # (c) the evaluations' per-depth plots
+    n_chunks = -(-CLI_EVAL_IMAGES // cfg.test.ims_per_batch)
+    k1_total, runs = 0, {}
+    plans = (("pooled", TOOLS_POOLED[1], TOOLS_POOLED_PLOTS,
+              ["--device_pool", "2", "--steps_per_dispatch", str(TOOLS_POOLED[0]),
+               "--weight_file_t", ref, "--backbone_init", imagenet], (0, TOOLS_POOLED[1])),
+             ("per_step", TOOLS_PER_STEP, TOOLS_PER_STEP_PLOTS, [], (TOOLS_PER_STEP,)))
+    for name, steps_n, plots, extra, evals in plans:
+        run_wd = os.path.join(wd, name)
+        sf.reset_launch_counts()
+        cf.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            st, hist = train_kd.main(["--config_file", CLI_CONFIG_FILE, "--data", "synthetic",
+                                      "--max_iters", str(steps_n), "--vis_every", "2",
+                                      "--working_dir", run_wd] + extra)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        printed = buf.getvalue()
+        k1 = sf.launches.get(k1_key, 0)
+        k2 = {f"{c}->{o}": cf.launches.get(("conv3x3_bn_act_flat", c, o, "bfloat16"), 0)
+              for c, o in shapes}
+        k1_total += k1
+        vis = sorted(os.listdir(os.path.join(run_wd, "vis")))
+        depth = sorted(f for f in os.listdir(run_wd) if f.startswith("accuracy_per_depth_"))
+        shapes_ok = all(png.read(os.path.join(run_wd, "vis", f)).shape
+                        == visualizer.CLOUD_SIZE + (3,) for f in vis) and all(
+            png.read(os.path.join(run_wd, f)).shape == visualizer.DEPTH_SIZE + (3,)
+            for f in depth)
+        runs[name] = dict(seconds=secs[name], k1=k1, k2=k2, plots=vis, depth_plots=depth,
+                          history=hist)
+        log(f"[tools] (b) train_kd --vis_every 2 {name} to {steps_n} ({secs[name]:.1f} s): "
+            f"K1 {k1}, K2 {k2}; plots {vis}; (c) {depth}; printed: "
+            + " | ".join(line for line in printed.splitlines()
+                         if line.startswith(("teacher:", "backbone init", "device pool"))))
+        want_vis = sorted(f"{i}_img_2d.png" for i in plots)
+        want_depth = [f"accuracy_per_depth_{i:06d}.png" for i in evals]
+        if not (st.step == steps_n and k1 == steps_n and sum(sf.launches.values()) == steps_n
+                and set(k2.values()) == {n_chunks + len(plots)}
+                and sum(cf.launches.values()) == 2 * (n_chunks + len(plots))
+                and vis == want_vis and depth == want_depth and shapes_ok
+                and all(math.isfinite(v) for h in hist for v in h.values())
+                and (name != "pooled"
+                     or (f"teacher: loaded {len(sd)} tensors from {ref}" in printed
+                         and f"backbone init: {n_bb} tensors from {imagenet}" in printed))):
+            raise AssertionError(f"train_kd --vis_every 2 {name}: steps, launches, plots "
+                                 f"(want {want_vis}, {want_depth}) or loads not as expected")
+
+    # (d) loop.train's steps under profiling.trace: the trace names K1's and
+    # K2's kernels, as many times as their wrappers counted
+    bcfg, bcfg_t = bf16_configs(cfg.replace(solver=dataclasses.replace(
+        cfg.solver, max_iter=TOOLS_TRACE_STEPS)), cfg_t)
+    ds = SyntheticPoseDataset(n_fg=n_fg, input_res=RES, seed=12)
+    batches = [ds.batch(range(B * i, B * (i + 1))) for i in range(TOOLS_TRACE_STEPS)]
+    folded = fold_batchnorm(teacher.eval())
+    sf.reset_launch_counts()
+    cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(os.path.join(wd, "prof")) as prof:
+        train(bcfg, ds.consts(device="cpu"), iter(batches), cfg_t=bcfg_t,
+              teacher_state_dict=folded, device=dev, vis_every=2,
+              working_dir=os.path.join(wd, "traced"), verbose=False)
+    secs["d"] = time.perf_counter() - t0
+    kernels = trace_kernels(prof.trace_path)
+    k1_trace = sum(v for k, v in kernels.items() if "k1_" in k)
+    k2_trace = sum(v for k, v in kernels.items() if "conv3x3_" in k)
+    k1_d, k2_d = sf.launches.get(k1_key, 0), dict(cf.launches)
+    plots_d = sorted(os.listdir(os.path.join(wd, "traced", "vis")))
+    log(f"[tools] (d) profiling.trace over loop.train, {TOOLS_TRACE_STEPS} bf16 steps with "
+        f"plots ({secs['d']:.1f} s, trace {os.path.getsize(prof.trace_path)} bytes): K1 "
+        f"{k1_d} launches, {k1_trace} in the trace; K2 {k2_d}, {k2_trace} in the trace; "
+        f"kernels {sorted(k for k in kernels if 'k1_' in k or 'conv3x3_' in k)}; "
+        f"plots {plots_d}")
+    if not (k1_d == TOOLS_TRACE_STEPS == k1_trace > 0
+            and sum(k2_d.values()) == k2_trace == 2 * TOOLS_TRACE_STEPS
+            and plots_d == [f"{i}_img_2d.png" for i in range(1, TOOLS_TRACE_STEPS + 1)]):
+        raise AssertionError("the trace does not name K1 and K2 once a launch")
+    k1_total += k1_d
+    tmp.cleanup()
+    log(f"[tools] seconds: {json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    return dict(reference_tensors=n_ref, outputs_bit_equal=bit_equal, zip_tensors=n_zip,
+                seconds=secs, runs=runs, trace_kernels=kernels, trace_k1=k1_trace,
+                trace_k2=k2_trace), k1_total, {VIS_BATCH: k2_d}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="kernel,serving,pose,train,eval,export,cli,zebra,bop,dist")
+                    default="kernel,serving,pose,train,eval,export,cli,zebra,bop,tools,dist")
     ap.add_argument("--json_out", default="outputs/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
+    # cuBLAS's workspace fixed before the first CUDA call: the cli phase's
+    # (c) and the dist phase run their fp32 steps under deterministic
+    # algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3391,7 +3842,8 @@ def main(argv=None) -> int:
 
     result = {"card": card}
     # launches of each main path's run, by batch: serving at B=8, eval at 24
-    rows, launches, k1_row, k1_launches = [], {BATCH: {}, EVAL_BATCH: {}}, None, None
+    rows, launches, k1_row, k1_launches = [], {BATCH: {}, EVAL_BATCH: {}, VIS_BATCH: {}}, \
+        None, None
 
     def add_launches(by_batch):
         for b, by in by_batch.items():
@@ -3423,10 +3875,18 @@ def main(argv=None) -> int:
         result["bop"], k1_bop, k2_bop = bop_phase(torch, sf, cf, dev)
         k1_launches = (k1_launches or 0) + k1_bop
         add_launches(k2_bop)
+    if "tools" in phases:
+        result["tools"], k1_tools, k2_tools = tools_phase(torch, sf, cf, dev)
+        k1_launches = (k1_launches or 0) + k1_tools
+        add_launches(k2_tools)
     if "dist" in phases:
         result["dist"], k1_dist, k2_dist = dist_phase(torch, sf, cf, dev)
         k1_launches = (k1_launches or 0) + k1_dist
         add_launches(k2_dist)
+    if "dist_spread" in phases:
+        result["dist_spread"] = dist_spread_phase(torch, dev)
+    if "cli_spread" in phases:
+        result["cli_spread"] = cli_spread_phase(torch, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

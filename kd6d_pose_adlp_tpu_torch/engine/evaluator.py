@@ -20,9 +20,6 @@ evaluates its own shard of the eval set (`data/loaders`); the predictions
 are merged across processes (`merge_predictions`, the JAX package's
 `parallel/mesh.gather_host_objects`) before scoring, process 0 alone writes
 preds.json and prints, and every process scores the merged predictions.
-
-Not ported: the accuracy-per-depth PNG (`tools/visualizer`), which is
-skipped.
 """
 from __future__ import annotations
 
@@ -36,6 +33,7 @@ import torch
 from ..config import Config
 from ..data.batch import TaskConsts
 from ..parallel.mesh import gather_host_objects, process_count, process_index
+from ..tools.visualizer import vis_accuracy_per_depth
 from ..utils import geometry as geo
 from ..utils import metrics as M
 from ..utils.logging_utils import ScalarLogger
@@ -106,18 +104,21 @@ def prediction_entry(out: Dict[str, np.ndarray], i: int, meta: Dict,
 def score_and_report(cfg: Config, preds: Dict[str, Dict], evaluate: Callable,
                      step: int, working_dir: Optional[str],
                      logger: Optional[ScalarLogger], verbose: bool) -> Dict:
-    """Write preds.json, score it with `evaluate(preds)`, print the table and
-    log the ADI / REP scalars; the tail shared by both evaluators. `preds`
-    are the merged predictions: every process scores them, process 0 alone
-    writes preds.json and prints."""
+    """Write preds.json, score it with `evaluate(preds)`, plot the success
+    rate per depth bin (`accuracy_per_depth_{step:06d}.png`, JAX
+    `evaluator.py:215-218`), print the table and log the ADI / REP
+    scalars; the tail shared by both evaluators. `preds` are the merged
+    predictions: every process scores them, process 0 alone writes the
+    files and prints."""
     verbose = verbose and process_index() == 0
     if working_dir and process_index() == 0:
         os.makedirs(working_dir, exist_ok=True)
         with open(os.path.join(working_dir, "preds.json"), "w") as f:
             json.dump(preds, f)
     results = evaluate(preds)
-    # the accuracy-per-depth PNG (tools/visualizer) is not ported; the JAX
-    # package also skips it when matplotlib is absent
+    if working_dir and process_index() == 0:
+        vis_accuracy_per_depth(results, os.path.join(
+            working_dir, f"accuracy_per_depth_{step:06d}.png"))
     table = M.format_accuracy_table(results)
     if verbose:
         print(f"[valid @ step {step}]\n{table}", flush=True)

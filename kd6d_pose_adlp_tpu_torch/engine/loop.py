@@ -14,12 +14,16 @@ then `latest.ckpt`. At the end: `final.ckpt` (the student's state_dict),
 `info.txt`; `cfg.json` at the start; metrics and images/s to
 `scalars.jsonl`. All files go to `working_dir`.
 
+With `vis_every` and distillation, at JAX's steps the OT clouds of one
+image (`steps.build_kd_debug`, the first image whose clouds are both
+non-empty) are plotted to `working_dir/vis/{step}_img_2d.png`
+(`tools/visualizer.vis_kd_clouds`); their SSC draws come from a generator
+of their own, so a run with plots trains as one without.
+
 Under a data mesh (`mesh`, `parallel/mesh.DataMesh`), every rank runs this
 loop on its own part of each global batch and the ranks take JAX's global
-step together (`engine/steps`); rank 0 alone writes the files.
-
-Not ported yet, and raising `NotImplementedError` when asked for: cloud
-visualization (`vis_every`, ROADMAP Queue 1 item 6c).
+step together (`engine/steps`); rank 0 alone writes the files, and plots
+from its own part of the batch.
 """
 from __future__ import annotations
 
@@ -36,9 +40,10 @@ from ..models.pose_net import PoseNet, init_pose_net
 from ..parallel.mesh import DataMesh, barrier, replicate
 from ..utils.checkpoint import (config_hash, load_backbone_init, restore_checkpoint,
                                 save_checkpoint, save_params)
+from ..tools.visualizer import vis_kd_clouds
 from ..utils.logging_utils import ScalarLogger, Throughput
-from .steps import (TrainState, build_multi_step, build_train_step, create_train_state,
-                    make_optimizer, precompute_pool_votes)
+from .steps import (TrainState, build_kd_debug, build_multi_step, build_train_step,
+                    create_train_state, make_optimizer, precompute_pool_votes)
 
 
 def train(cfg: Config,
@@ -87,12 +92,15 @@ def train(cfg: Config,
       after the initialization, the resume or the backbone init; each rank
       draws SSC from its own generator, seeded from (seed, rank); images/s
       counts the global batch. Rank 0 alone writes `cfg.json`, the
-      checkpoints, `info.txt` and the scalars, and the ranks meet at a
-      barrier after each write; the other ranks print nothing.
+      checkpoints, `info.txt`, the scalars and the plots, and the ranks
+      meet at a barrier after each write; the other ranks print nothing.
+    - `vis_every` > 0, with distillation: the cloud plots (module
+      docstring) after step 1 and every multiple of vis_every, of the
+      batch just trained (JAX `loop.py:232`); with a pool, after a call
+      that ends at `step` when step == k (the first call from step 0) or
+      step % vis_every < k, k the call's steps, of the pool batch of the
+      next step (JAX `loop.py:187-196`, `pool[step % pool_size]`).
     """
-    if vis_every > 0:
-        raise NotImplementedError(
-            "train(vis_every=...) is not ported yet (ROADMAP Queue 1 item 6c)")
     if pool is not None and steps_per_dispatch < 1:
         raise ValueError(
             f"steps_per_dispatch must be >= 1 with a device pool "
@@ -155,6 +163,19 @@ def train(cfg: Config,
                 print(f"teacher knowledge cached for {pool_size} pool batches "
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
+    kd_debug = None
+    if vis_every > 0 and distill and writer:
+        kd_debug = build_kd_debug(cfg, cfg_t, consts, state.net, teacher_net)
+        vis_gen = torch.Generator(device=device)
+        vis_gen.manual_seed(cfg.solver.seed)
+
+    def plot(batch: Batch) -> None:
+        """The clouds of the first image whose clouds are both non-empty
+        (of image 0 when none is), after this step."""
+        x, y, a, b, ok = (t.cpu().numpy() for t in kd_debug(batch, generator=vis_gen))
+        i = int(ok.argmax())
+        vis_kd_clouds(x[i], y[i], a[i], b[i], state.step, os.path.join(working_dir, "vis"))
+
     logger = None
     if writer:
         logger = ScalarLogger(working_dir)
@@ -196,6 +217,8 @@ def train(cfg: Config,
             meter.update(int(batch.images.shape[0]) * n_ranks)
             if state.step % log_every == 0 or state.step == cfg.solver.max_iter:
                 log(metrics, log_every)
+            if kd_debug is not None and (state.step == 1 or state.step % vis_every == 0):
+                plot(batch)
         else:
             # clip the call at the next val_freq boundary (JAX loop.py:168-171)
             stop = min((state.step // cfg.solver.val_freq + 1) * cfg.solver.val_freq,
@@ -206,6 +229,8 @@ def train(cfg: Config,
             for _ in range(k):
                 meter.update(int(pool.images.shape[1]) * n_ranks)
             log(metrics, 1)
+            if kd_debug is not None and (state.step == k or state.step % vis_every < k):
+                plot(pool.take(state.step % pool_size))
         boundary()
 
     if writer:

@@ -1,5 +1,5 @@
-"""The KD train step and K steps per call over a device pool (port of
-`kd6d_pose_adlp_tpu/engine/steps.py:30-230`).
+"""The KD train step, K steps per call over a device pool, and the OT
+clouds for the plots (port of `kd6d_pose_adlp_tpu/engine/steps.py:30-264`).
 
 One step: teacher forward (eval mode, no gradient) -> teacher-knowledge
 voting -> student forward in train mode (its BN statistics update) ->
@@ -42,13 +42,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..data.batch import Batch, TaskConsts
+from ..models import anchors as anchor_lib
+from ..models import coder
 from ..models.blocks import frozen_batch_stats, global_batch_stats
 from ..models.pose_net import PoseNet, init_pose_net
 from ..ops.object_space import select_class_pred
 from ..ops.voting import Votes, vote_cells, votes_to_internal_frame
 from ..parallel.mesh import DataMesh, all_reduce_
 from ..utils.precision import full_fp32
-from .losses import pose_losses
+from .losses import build_kd_clouds, pose_losses, prepare_targets
 from .schedule import onecycle_linear_lr
 
 
@@ -319,3 +321,43 @@ def build_multi_step(cfg: Config, cfg_t: Optional[Config], consts: TaskConsts,
         return state, metrics
 
     return multi_fn
+
+
+def build_kd_debug(cfg: Config, cfg_t: Config, consts: TaskConsts, net: PoseNet,
+                   teacher_net: PoseNet):
+    """The OT point clouds of a batch, for the cloud plots (JAX
+    `steps.py:233-264`; the reference plots them from inside its loss,
+    losses/kd_loss.py:88-97). Returns debug_fn(batch, uniform=None,
+    generator=None) -> (x (B,8,P,2), y (B,8,T,2), a (B,8,P), b (B,8,T),
+    img_valid (B,)) of `engine/losses.build_kd_clouds`.
+
+    Teacher and student run their eval-mode forwards without a gradient
+    (the student's eval stem is the K2 segment), the teacher's votes and
+    SSC's targets (from `uniform` (B, A, G), else `generator`) as in the
+    step, in full fp32 outside the networks' compute dtype. The student is
+    left in the mode it was in."""
+    w_img, h_img = float(cfg.data.internal_width), float(cfg.data.internal_height)
+    anchors = torch.as_tensor(anchor_lib.make_anchors(
+        cfg.model.input_res, cfg.model.level_strides, cfg.model.level_sizes))
+
+    @torch.no_grad()
+    def debug_fn(batch: Batch, uniform: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        was_training = net.training
+        with full_fp32():
+            teacher_net.eval()
+            t_cls, t_reg = teacher_net(batch.images)
+            votes = teacher_knowledge(t_cls, t_reg, batch, cfg_t, cfg.kd.max_teacher_cells,
+                                      teacher_class=cfg.kd.teacher_class)
+            net.eval()
+            try:
+                cls_logits, pred_reg = net(batch.images)
+            finally:
+                net.train(was_training)
+            tgt = prepare_targets(batch, consts, cfg, uniform=uniform, generator=generator)
+            pred16 = select_class_pred(pred_reg, tgt.cls_idx)
+            inv_bt = coder.invert_bbox_trans(batch.bbox_trans)
+            pred_xy = coder.decode(pred16, anchors.to(pred16.device), inv_bt[:, None])
+            return build_kd_clouds(cls_logits, pred_xy, tgt, votes, cfg, w=w_img, h=h_img)
+
+    return debug_fn

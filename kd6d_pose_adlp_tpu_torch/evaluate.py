@@ -7,8 +7,10 @@
         --weight_file W.pt --test_file TREE/test_list.txt [--fast_pipeline]
 
 Loads a PoseNet weight file loosely (`utils/checkpoint.load_params_loose`):
-a `torch.save`d state_dict, such as the port's `final.ckpt`, or a JAX
-package checkpoint (flax msgpack, such as its `final.ckpt`). It evaluates
+a `torch.save`d state_dict, such as the port's `final.ckpt`, the
+reference's `{"model": state_dict, ...}` checkpoint, or a JAX package
+checkpoint (flax msgpack, such as its `final.ckpt`); a file of which no
+tensor loads raises ValueError. It evaluates
 the weights on the configured split, prints
 `loaded N tensors from ...` and the per-class ADD/ADI/AUC/REP table, and
 writes preds.json into --working_dir. The network computes in

@@ -8,7 +8,8 @@ counterpart of the JAX package's `scripts/export_model.py`:
 
 Builds the config and the task constants, loads the weights
 loosely (a `torch.save`d PoseNet state_dict, such as the port's final.ckpt,
-or a JAX package checkpoint, as `evaluate` reads them), optionally folds BN
+the reference's checkpoint or a JAX package checkpoint, as `evaluate`
+reads them; raising when no tensor loads), optionally folds BN
 (`--fold_bn`, checked against the unfolded network's logits) and
 int8-quantizes (`--quant`, after `--fold_bn`, calibrated on
 `--quant_calib_batches` eval batches), and writes the endpoint with

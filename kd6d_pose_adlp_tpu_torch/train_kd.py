@@ -16,7 +16,8 @@ configs and the data (`--data bop`, the default: the BOP tree the config's
 lists name, read through the host pipeline with `--num_workers` loader
 threads, `--fast_pipeline` for its one-warp path; or `--data synthetic`),
 the teacher from `--weight_file_t` (a
-`torch.save`d state_dict or a JAX checkpoint, read loosely) with its BN
+`torch.save`d state_dict, the reference's checkpoint or a JAX checkpoint,
+read loosely) with its BN
 folded into its convolutions (`--fold_teacher_bn`, on by default, as in
 `train_kd.py:190-198`) and, with `--quant_teacher` (which requires the
 fold), int8-quantized after calibrating on the first
@@ -49,9 +50,13 @@ shard of the eval set and scores the merged predictions, and rank 0 alone
 writes the files and prints. `main` returns each rank's `(step, history)`
 when it started the ranks.
 
-The default that differs from `train_kd.py`, because the JAX default asks
-for a module that is not ported: `--vis_every 0` (1000). See
-`check_ported` for the flag that raises.
+`--vis_every N` (1000 by default, as in `train_kd.py`; 0 = off) plots the
+KD point clouds of one image to `working_dir/vis/{step}_img_2d.png` after
+step 1 and every N steps (with `--device_pool`, at JAX's pooled steps:
+`engine/loop.train`), with numpy alone; every evaluation with a working
+dir also writes `accuracy_per_depth_{step:06d}.png`. `--weight_file_t`
+and `--backbone_init` read the reference's checkpoint layout too
+(`utils/checkpoint`), and raise when the file loads no tensor.
 """
 from __future__ import annotations
 
@@ -112,11 +117,11 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--cache_teacher", type=str2bool, nargs="?", const=True, default=False,
                    help="with --device_pool and distillation: vote the frozen "
                         "teacher over the pool once")
-    p.add_argument("--vis_every", type=int, default=0,
-                   help="KD cloud scatter dump cadence (0 = off; not ported)")
+    p.add_argument("--vis_every", type=int, default=1000,
+                   help="KD cloud scatter dump cadence (0 = off)")
     p.add_argument("--backbone_init", type=str, default="",
-                   help="weight file (torch or JAX) to initialize the student "
-                        "backbone from")
+                   help="weight file (torch, reference, pytorchcv or JAX) to "
+                        "initialize the student backbone from")
     p.add_argument("--fold_teacher_bn", type=str2bool, nargs="?", const=True,
                    default=True, help="fold the frozen teacher's BN into its conv "
                                       "weights (with --weight_file_t)")
@@ -133,15 +138,6 @@ def get_argparser() -> argparse.ArgumentParser:
                    help="run as one rank of torchrun's process group")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     return p
-
-
-def check_ported(args: argparse.Namespace) -> None:
-    """Raises NotImplementedError on a flag whose module is not ported yet,
-    naming its ROADMAP Queue 1 item: `--vis_every` > 0 (the KD cloud plots,
-    item 6c)."""
-    if args.vis_every > 0:
-        raise NotImplementedError(f"--vis_every {args.vis_every} (KD cloud plots) is not "
-                                  "ported yet (ROADMAP Queue 1 item 6c)")
 
 
 def n_ranks(args: argparse.Namespace) -> int:
@@ -193,7 +189,6 @@ def main(argv: Optional[Sequence[str]] = None):
     """Trains; returns (TrainState, history) of `engine/loop.train`, or each
     rank's (step, history) when `--n_devices` > 1 started the ranks."""
     args = get_argparser().parse_args(argv)
-    check_ported(args)
     from .parallel import mesh as pmesh
 
     if args.distributed:

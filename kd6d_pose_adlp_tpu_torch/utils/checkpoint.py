@@ -9,7 +9,12 @@ then `os.replace`), so a crash mid-write leaves the previous file whole.
 `load_params_loose` and `load_backbone_init` read either format: a file
 that starts as a msgpack map is a JAX package checkpoint (flax msgpack,
 read by `utils/msgpack_read` and converted by `utils/convert`), anything
-else a `torch.save`d state_dict.
+else a `torch.save` file read by `utils/torch_convert`: a state_dict, or the
+reference's checkpoint `{"model": state_dict, ...}`, with or without DDP's
+`module.` prefix, or a pytorchcv backbone dict. Both raise ValueError,
+naming the file, when it loads no tensor: the JAX package raises on such a
+file too (its msgpack parse fails), and a silent zero-tensor load would go
+on with random weights.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from .msgpack_read import is_msgpack_map
+from .torch_convert import load_torch_state_dict, to_port_names
 
 
 def config_hash(cfg: Any) -> str:
@@ -91,13 +97,14 @@ def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """The port's state_dict of a weight file in either format."""
+    """The port's state_dict of a weight file in any format the module
+    docstring names."""
     with open(path, "rb") as f:
         head = f.read(1)
     if is_msgpack_map(head):
         from .convert import read_jax_checkpoint
         return read_jax_checkpoint(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return to_port_names(load_torch_state_dict(path))
 
 
 def _load_matching(module: nn.Module, restored: Dict[str, torch.Tensor],
@@ -112,6 +119,13 @@ def _load_matching(module: nn.Module, restored: Dict[str, torch.Tensor],
     return n_loaded
 
 
+def _loaded(n: int, path: str, what: str) -> int:
+    if n == 0:
+        raise ValueError(f"{path}: no tensor of the file matches the {what} "
+                         "(by name and shape); nothing was loaded")
+    return n
+
+
 def load_backbone_init(path: str, module: nn.Module, prefix: str = "backbone") -> int:
     """Backbone-only initialization from a full-model (or backbone-only)
     weight file: the parameters AND BN running statistics under `prefix.`
@@ -119,10 +133,12 @@ def load_backbone_init(path: str, module: nn.Module, prefix: str = "backbone") -
     own values (the reference's ImageNet backbone init,
     libs/train_libs.py:82-87). `num_batches_tracked`, which flax has no
     counterpart of, stays as the module has it, so the count matches the
-    JAX package's. Returns the number of tensors loaded."""
-    return _load_matching(
+    JAX package's. Returns the number of tensors loaded; raises ValueError
+    when that is 0."""
+    return _loaded(_load_matching(
         module, read_state_dict(path),
-        lambda k: k.startswith(prefix + ".") and not k.endswith("num_batches_tracked"))
+        lambda k: k.startswith(prefix + ".") and not k.endswith("num_batches_tracked")),
+        path, f"module's {prefix}")
 
 
 def load_params_loose(path: str, module: nn.Module) -> int:
@@ -130,5 +146,5 @@ def load_params_loose(path: str, module: nn.Module) -> int:
     `module`: keys the module lacks are dropped, tensors whose shape differs
     are skipped, and the module keeps its own values for every key the file
     lacks (reference libs/train_libs.py:99-105). Returns the number of
-    tensors loaded."""
-    return _load_matching(module, read_state_dict(path))
+    tensors loaded; raises ValueError when that is 0."""
+    return _loaded(_load_matching(module, read_state_dict(path)), path, "module")

@@ -331,7 +331,7 @@ def test_gathers_round_trip_and_the_shard_comes_from_the_group(group):
 def test_sharded_evaluation_merges_to_the_one_process_result(group, kind):
     """Each rank evaluates its half of the eval split; the merged
     predictions equal one process's, entry for entry, and so does the
-    table; rank 0 alone writes preds.json."""
+    table; rank 0 alone writes preds.json and the per-depth PNG."""
     want = group["one_eval"][kind]
     assert len(want["preds"]) == EVAL_N
     assert any(e["pred"] for e in want["preds"].values())
@@ -339,7 +339,8 @@ def test_sharded_evaluation_merges_to_the_one_process_result(group, kind):
         got = r["eval"][kind]
         assert got["preds"] == want["preds"]
         assert got["table"] == want["table"]
-    assert group["ranks"][0]["eval"][kind]["files"] == ["preds.json"]
+    assert group["ranks"][0]["eval"][kind]["files"] == ["accuracy_per_depth_000000.png",
+                                                        "preds.json"]
     assert group["ranks"][1]["eval"][kind]["files"] == []
 
 
