@@ -390,6 +390,16 @@ BOP_LOADER_BATCHES = 4
 BOP_TIMED_STEPS = 10
 BOP_WORKERS = 4
 BOP_STEPS = (6, 8)
+# (e): train_kd --data bop on the committed JPEG frames with every
+# augmentation on, slow and fast, then evaluate on the JPEG test list
+BOP_JPEG_STEPS = 3
+BOP_JPEG_DECODES = 10         # decodes of each fixture frame timed
+AUG_REPS = 8                  # calls of each augmentation timed
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_port_fixtures")
+JPEG_AUGS = dict(AUGMENTATION_ColorH=0.1, AUGMENTATION_ColorS=0.3, AUGMENTATION_ColorV=0.3,
+                 AUGMENTATION_Sharpen=0.5, AUGMENTATION_Smooth=1.0, AUGMENTATION_Noise=0.02,
+                 AUGMENTATION_OCCLUSION=0.5)
 # the dist phase: ranks on the one card, the batch a rank, the fp32 and bf16
 # steps, the eval images (a multiple of 2 chunks of EVAL_BATCH) and
 # train_kd --distributed's steps
@@ -1986,6 +1996,9 @@ def bop_tree_phase(png, native, make_bop_dataset, root):
     from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
 
     t0 = time.perf_counter()
+    native.get_lib()        # the data plane's g++ build, kept out of the read times
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     yaml_path = make_bop_dataset.write_dataset(root, BOP_TRAIN_FRAMES, BOP_TEST_FRAMES,
                                                n_fg=15, single_class=0, seed=0)
     write_s = time.perf_counter() - t0
@@ -2015,11 +2028,12 @@ def bop_tree_phase(png, native, make_bop_dataset, root):
             raise AssertionError(f"png_unfilter at {bpp} bytes a pixel differs from its "
                                  "numpy version")
     n = BOP_TRAIN_FRAMES + BOP_TEST_FRAMES
-    log(f"[bop] (a) make_bop_dataset: {BOP_TRAIN_FRAMES} train + {BOP_TEST_FRAMES} test "
+    log(f"[bop] (a) data plane built and loaded in {build_s:.1f} s; make_bop_dataset: "
+        f"{BOP_TRAIN_FRAMES} train + {BOP_TEST_FRAMES} test "
         f"640x480 frames, {nbytes / 2**20:.1f} MiB, in {write_s:.1f} s; every frame and mask "
         f"read back bit-equal, {1e3 * frame_s / n:.2f} ms a frame, {1e3 * mask_s / n:.2f} ms "
         f"a mask; png_unfilter equals its numpy version at 1-8 bytes a pixel")
-    return yaml_path, dict(write_s=write_s, mib=nbytes / 2**20,
+    return yaml_path, dict(build_s=build_s, write_s=write_s, mib=nbytes / 2**20,
                            frame_read_ms=1e3 * frame_s / n, mask_read_ms=1e3 * mask_s / n)
 
 
@@ -2097,14 +2111,277 @@ def bop_samples_phase(cfg, yaml_path):
     return dict(gt_rot_max_abs=worst_r, gt_trans_max_abs_mm=worst_t, loader_images_per_s=rates)
 
 
+def fixture_digest(a) -> str:
+    """SHA-256 of an array's dtype, shape and bytes, as
+    tests/test_torch_port_jpeg.py hashes cv2's arrays into the manifest."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype} {a.shape}".encode() + a.tobytes()).hexdigest()
+
+
+def bop_bitexact_phase():
+    """(f) Every committed fixture decoded by the port (IMREAD_UNCHANGED and
+    IMREAD_COLOR reads), and every data-plane primitive case of the
+    manifest, against the SHA-256 that cv2 gave when the manifest was
+    written."""
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch.data import imread, native
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    ops = {"bgr2hsv": native.bgr2hsv, "hsv2bgr": native.hsv2bgr,
+           "gaussian_blur7": native.gaussian_blur7, "box_blur": native.box_blur,
+           "normalize_minmax": native.normalize_minmax,
+           "resize_linear": lambda a, w, h: native.resize_linear(a, (w, h)),
+           "f32_affine": lambda a, s, t: a.astype(np.float32) * np.float32(s) + np.float32(t),
+           "f64_affine": lambda a, s, t: a.astype(np.float64) * s + t}
+    t0 = time.perf_counter()
+    wrong = []
+    for rel, want in manifest["files"].items():
+        path = os.path.join(FIXTURES, rel)
+        for what, got in (("read", imread.read(path)), ("read_color", imread.read_color(path))):
+            if fixture_digest(got) != want[what]:
+                wrong.append(f"{rel} {what}")
+    for case in manifest["cases"]:
+        a = imread.read_color(os.path.join(FIXTURES, case["input"]))
+        for op in case["ops"]:
+            a = ops[op[0]](a, *op[1:])
+        if fixture_digest(a) != case["sha256"]:
+            wrong.append(f"{case['input']} {case['ops']}")
+    n_files, n_cases = len(manifest["files"]), len(manifest["cases"])
+    log(f"[bop] (f) bit-equality with cv2's committed digests: {n_files} fixtures x 2 reads, "
+        f"{n_cases} primitive cases (HSV both ways, GaussianBlur 7x7 at sigma 0, -1, 0.37, "
+        f"0.93, blur 5-11, normalize float32 / float64 / max == min, resize up, down and the "
+        f"exact 2x) in {time.perf_counter() - t0:.2f} s: {len(wrong)} differ")
+    if wrong:
+        raise AssertionError(f"the port's decodes or primitives differ from cv2's digests: "
+                             f"{wrong}")
+    return dict(files=n_files, cases=n_cases)
+
+
+class _GateOpen:
+    """A numpy Generator whose `random()` gives 0.75, so the background
+    bank's p = 0.5 gate lets every call through; its other draws are the
+    wrapped generator's."""
+
+    def __init__(self, rng):
+        self.rng = rng
+
+    def random(self):
+        return 0.75
+
+    def __getattr__(self, name):
+        return getattr(self.rng, name)
+
+
+def augmentation_ms(frame, backgrounds: str) -> dict:
+    """{augmentation: {"frame": ms, "crop": ms}}: each train-time pixel
+    augmentation of `data/transforms.py` made to fire (probability 1; the
+    background bank, whose probability is fixed, through `_GateOpen`), on
+    the slow path's 640x480 frame and the fast path's RES x RES crop, at
+    the JPEG tree's settings."""
+    import numpy as np
+
+    from kd6d_pose_adlp_tpu_torch.data import native
+    from kd6d_pose_adlp_tpu_torch.data import transforms as T
+
+    bank = T.BackgroundBank(backgrounds)
+    out = {}
+    for tag, img in (("frame", frame), ("crop", native.resize_linear(frame, (RES, RES)))):
+        h, w = img.shape[:2]
+        mask = np.zeros((h, w), np.int32)
+        mask[h // 4:3 * h // 4, w // 3:2 * w // 3] = 1
+        fns = {"background": lambda rng: bank(img, mask, _GateOpen(rng)),
+               "hsv": lambda rng: T.distort_hsv(img, rng, 0.1, 0.3, 0.3),
+               "sharpen": lambda rng: T.pencil_sharpen(img, rng, 1.0),
+               "noise": lambda rng: T.distort_noise(img, rng, 0.02),
+               "smooth": lambda rng: T.distort_smooth(img, rng, 1.0),
+               "occlusion": lambda rng: T.random_occlusion(img, mask, rng, 1.0)}
+        for name, fn in fns.items():
+            rng = np.random.default_rng(0)
+            if fn(rng) is img and name == "background":
+                raise AssertionError("the background bank did not fire")
+            t0 = time.perf_counter()
+            for _ in range(AUG_REPS):
+                fn(rng)
+            out.setdefault(name, {})[tag] = 1e3 * (time.perf_counter() - t0) / AUG_REPS
+    return out
+
+
+def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2):
+    """(e) The tree's frames as the committed JPEG fixtures of the same
+    scenes: decode ms a 640x480 frame; the loader's images/s at B=16 on 1
+    and 4 threads, every augmentation on beside off, slow and fast;
+    train_kd.main --data bop on the JPEG train list with every augmentation
+    on and the fixture backgrounds, slow and fast; evaluate.main on the JPEG
+    test list. Returns (summary, K1 launches)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    from kd6d_pose_adlp_tpu_torch import evaluate, train_kd
+    from kd6d_pose_adlp_tpu_torch.config import load_yaml_config
+    from kd6d_pose_adlp_tpu_torch.data import bop, jpeg
+    from kd6d_pose_adlp_tpu_torch.data.pipeline import BOPPoseDataset, PrefetchLoader
+
+    backgrounds = os.path.join(FIXTURES, "backgrounds")
+    frames = os.path.join(FIXTURES, "frames")
+    lists, decode_ms = {}, []
+    for split in ("train", "test"):
+        names = []
+        for f in sorted(os.listdir(frames)):
+            if f.startswith(split + "_"):
+                rel = f"{split}/000001/rgb/{f[len(split) + 1:]}"
+                shutil.copy(os.path.join(frames, f), os.path.join(root, rel))
+                names.append(rel)
+                t0 = time.perf_counter()
+                for _ in range(BOP_JPEG_DECODES):
+                    img = jpeg.read(os.path.join(root, rel))
+                decode_ms.append(1e3 * (time.perf_counter() - t0) / BOP_JPEG_DECODES)
+                if img.shape != (480, 640, 3):
+                    raise AssertionError(f"{rel}: decoded to {img.shape}")
+        lists[split] = os.path.join(root, f"jpeg_{split}_list.txt")
+        with open(lists[split], "w") as f:
+            f.write("\n".join(names))
+    with open(yaml_path) as f:
+        text = f.read()
+    text = text.replace(f"'{root}/train_list.txt'", f"'{lists['train']}'").replace(
+        f"'{root}/test_list.txt'", f"'{lists['test']}'").replace(
+        "SOLVER:\n", "SOLVER:\n" + "".join(f"  {k}: {v}\n" for k, v in JPEG_AUGS.items()))
+    jpeg_yaml = os.path.join(root, "config_jpeg.yaml")
+    with open(jpeg_yaml, "w") as f:
+        f.write(text)
+    cfg = load_yaml_config(jpeg_yaml)
+    s = cfg.solver
+    if (cfg.data.train_list, cfg.data.test_list) != (lists["train"], lists["test"]) or (
+            s.aug_color_h, s.aug_color_s, s.aug_color_v, s.aug_sharpen, s.aug_smooth,
+            s.aug_noise, s.aug_occlusion) != tuple(JPEG_AUGS.values()):
+        raise AssertionError("the JPEG tree's config does not hold its lists and augmentations")
+    # the YAML has no key for the background directory (nor has the JAX
+    # package's): train_kd's configs get it as a caller of the package would
+    every_aug = cfg.replace(solver=dataclasses.replace(s, aug_background_dir=backgrounds))
+    no_aug = cfg.replace(solver=dataclasses.replace(
+        s, aug_color_h=0.0, aug_color_s=0.0, aug_color_v=0.0, aug_sharpen=0.0,
+        aug_smooth=0.0, aug_noise=0.0, aug_occlusion=0.0))
+    log(f"[bop] (e) JPEG frames: {len(decode_ms)} fixtures (4:2:0, 4:2:2, 4:4:4, 4:4:0, "
+        f"restarts) decode in {min(decode_ms):.2f}-{max(decode_ms):.2f} ms a 640x480 frame "
+        f"(PNG frames of (a): {png_frame_ms:.2f} ms)")
+
+    aug_ms = augmentation_ms(jpeg.read(os.path.join(root, "train", "000001", "rgb",
+                                                    "000000.jpg")), backgrounds)
+    log("[bop] (e) one augmentation, firing, ms on a 640x480 frame / a "
+        f"{RES}x{RES} crop (mean of {AUG_REPS}): " + ", ".join(
+            f"{k} {v['frame']:.2f} / {v['crop']:.2f}" for k, v in aug_ms.items()))
+
+    rates = {}
+    for fast in (False, True):
+        for tag, c in (("augs_off", no_aug), ("augs_on", every_aug)):
+            c = c.replace(data=dataclasses.replace(c.data, fast_pipeline=fast))
+            ds = BOPPoseDataset(c, lists["train"], train=True)
+            for p in ds.images:                 # frames decoded into the cache
+                bop.read_image(p)
+                bop.get_single_bop_annotation(p, ds.obj2cls)
+            for n_threads in (1, 4):
+                it = iter(PrefetchLoader(ds, BOP_BATCH, train=True, num_threads=n_threads,
+                                         seed=n_threads))
+                next(it)
+                t0 = time.perf_counter()
+                for _ in range(BOP_LOADER_BATCHES):
+                    b, _ = next(it)
+                rates[f"{'fast' if fast else 'slow'}_{tag}_{n_threads}"] = (
+                    BOP_LOADER_BATCHES * BOP_BATCH / (time.perf_counter() - t0))
+                it.close()
+                if tuple(b.images.shape) != (BOP_BATCH, RES, RES, 3):
+                    raise AssertionError(f"JPEG loader batch {tuple(b.images.shape)}")
+    log(f"[bop] (e) PrefetchLoader images/s on the JPEG frames at B={BOP_BATCH}, every "
+        "augmentation on beside off, frames decoded and cached: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+
+    k1_key = ("sinkhorn_potentials", cfg.solver.max_pos, cfg.kd.max_teacher_cells)
+    orig_build = train_kd.build_configs
+
+    def with_backgrounds(args):
+        c, c_t = orig_build(args)
+        return c.replace(solver=dataclasses.replace(
+            c.solver, aug_background_dir=backgrounds)), c_t
+
+    runs, k1_total = {}, 0
+    train_kd.build_configs = with_backgrounds
+    try:
+        for fast in (False, True):
+            tag = "fast" if fast else "slow"
+            wd = os.path.join(tmp, f"run_jpeg_{tag}")
+            sf.reset_launch_counts()
+            cf.reset_launch_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                st, h = train_kd.main(["--config_file", jpeg_yaml, "--data", "bop",
+                                       "--num_workers", str(BOP_WORKERS), "--weight_file_t", wf,
+                                       "--working_dir", wd, "--max_iters", str(BOP_JPEG_STEPS),
+                                       "--vis_every", "0"] + (["--fast_pipeline"] if fast else []))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            printed = buf.getvalue()
+            k1 = sf.launches.get(k1_key, 0)
+            k1_total += k1
+            k2 = sum(cf.launches.values())
+            add_k2(cfg.test.ims_per_batch)
+            log(f"[bop] (e) train_kd.main --data bop, JPEG frames, every augmentation on, {tag} "
+                f"({secs:.1f} s): step {st.step}, K1 {k1}, K2 {dict(cf.launches)}; "
+                + "; ".join(f"step {x['step']}: loss_total {x['loss_total']:.4f} (kd "
+                            f"{x['loss_kd']:.5f})" for x in h))
+            if not (st.step == BOP_JPEG_STEPS and k1 == BOP_JPEG_STEPS and k2 > 0
+                    and all(math.isfinite(v) for x in h for v in x.values())
+                    and all(x["loss_kd"] > 0 for x in h)
+                    and f"[valid @ step {BOP_JPEG_STEPS}]" in printed):
+                raise AssertionError(f"train_kd.main on the JPEG frames ({tag}): steps, K1 / K2 "
+                                     "launches, losses or the evaluation not as expected")
+            runs[tag] = dict(seconds=secs, k1=k1, k2=k2, history=h)
+    finally:
+        train_kd.build_configs = orig_build
+    cf.reset_launch_counts()
+    ewd = os.path.join(tmp, "eval_jpeg")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ev = evaluate.main(["--config_file", jpeg_yaml, "--weight_file",
+                            os.path.join(tmp, "run_jpeg_slow", "final.ckpt"), "--data", "bop",
+                            "--ims_per_batch", str(EVAL_BATCH), "--working_dir", ewd,
+                            "--test_file", lists["test"]])
+    secs = time.perf_counter() - t0
+    printed = buf.getvalue()
+    with open(os.path.join(ewd, "preds.json")) as f:
+        n_preds = len(json.load(f))
+    k2 = dict(cf.launches)
+    add_k2(EVAL_BATCH)
+    n_test = sum(1 for f in os.listdir(frames) if f.startswith("test_"))
+    log(f"[bop] (e) evaluate.main --data bop on the JPEG test list ({secs:.1f} s): "
+        f"{n_preds} predictions; K2 {k2}")
+    if not (ev["table"] in printed and n_preds == n_test and k2 and min(k2.values()) > 0):
+        raise AssertionError("evaluate.main on the JPEG test list: table, predictions or K2 "
+                             "launches not as expected")
+    return dict(decode_ms=decode_ms, png_frame_ms=png_frame_ms, augmentation_ms=aug_ms,
+                loader_images_per_s=rates,
+                train_kd=runs, evaluate=dict(seconds=secs, predictions=n_preds)), k1_total
+
+
 def bop_phase(torch, sf, cf, dev):
     """The BOP host pipeline on the card at full width: (a) a tree written by
     make_bop_dataset; (b) samples and the loader; the live bf16 BOP step
     beside the live synthetic step, one profiled BOP step; (c)
     train_kd.main --data bop to 6 steps and resumed to 8; (d)
     evaluate.main --data bop with --test_file and with --fast_pipeline;
-    (e) export_model --data bop --check. Returns (summary, K1 launches, K2
-    launches by batch)."""
+    (e) the same scenes as committed JPEG frames: decode, the loader with
+    every augmentation on and off, train_kd.main and evaluate.main; (f) the
+    fixtures' decodes and the augmentations' primitives bit-equal to cv2's
+    committed digests; (g) export_model --data bop --check. Returns
+    (summary, K1 launches, K2 launches by batch)."""
     import contextlib
     import dataclasses
     import io
@@ -2270,7 +2547,13 @@ def bop_phase(torch, sf, cf, dev):
                                  "predictions or K2 launches not as expected")
         evals[extra[0]] = dict(seconds=secs, predictions=n_preds)
 
-    # (e) the export CLI with the tree's task constants
+    # (f) bit-equality with cv2, then (e) the JPEG frames under the CLIs
+    bitexact = bop_bitexact_phase()
+    jpeg_run, k1_jpeg = bop_jpeg_phase(torch, sf, cf, tmp.name, root, yaml_path, wf,
+                                       tree["frame_read_ms"], add)
+    k1_cli += k1_jpeg
+
+    # (g) the export CLI with the tree's task constants
     cf.reset_launch_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2280,15 +2563,15 @@ def bop_phase(torch, sf, cf, dev):
                                   "--out", os.path.join(tmp.name, "student.pt2")])
     printed = buf.getvalue()
     add(BATCH)
-    log(f"[bop] (e) export_model --data bop --check: {meta['bytes']} bytes, K2 "
+    log(f"[bop] (g) export_model --data bop --check: {meta['bytes']} bytes, K2 "
         f"{dict(cf.launches)}; " + " | ".join(line for line in printed.splitlines()
                                               if line.startswith(("loaded", "round-trip"))))
     if not ("round-trip check OK" in printed and set(cf.launches.values()) == {2}):
         raise AssertionError("export_model --data bop --check failed")
     tmp.cleanup()
     return dict(tree=tree, samples=samples, live=live, profile=prof, device_idle_share=idle,
-                train_kd=runs, evaluate=evals, export_bytes=meta["bytes"]), \
-        k1_live + k1_cli, k2_launches
+                train_kd=runs, evaluate=evals, jpeg=jpeg_run, bitexact=bitexact,
+                export_bytes=meta["bytes"]), k1_live + k1_cli, k2_launches
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,9 @@ The reference's annotation flow (`libs/utils.py:238-301`,
 class ids, R, T) from scene_camera.json / scene_gt.json / mask_visib PNGs.
 JSON files are cached per path; decoded frames and annotations go through a
 byte-budgeted LRU (`KD6D_DECODE_CACHE_MB`, 2048 by default, 0 disables).
-PNGs are read by `data/png.py`, not an image library; JPEG frames (BOP's
-PBR renders) raise, as the port has no JPEG decoder (ROADMAP Queue 1
-item 8).
+Frames are read without an image library (`data/imread.py`): PNG by
+`data/png.py`, JPEG (BOP's PBR renders) by `data/jpeg.py`, told apart by
+their signatures as cv2 does.
 """
 from __future__ import annotations
 
@@ -20,9 +20,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from . import png
-
-JPEG_SUFFIXES = (".jpg", ".jpeg")
+from . import imread
 
 
 @functools.lru_cache(maxsize=256)
@@ -68,25 +66,16 @@ _DECODE_CACHE = _ByteLRU(
     int(float(os.environ.get("KD6D_DECODE_CACHE_MB", "2048")) * 2**20))
 
 
-def check_png(path: str) -> None:
-    """Raise ValueError for a frame the port cannot decode (JPEG)."""
-    if path.strip().lower().endswith(JPEG_SUFFIXES):
-        raise ValueError(f"{path}: JPEG frames are not supported, the port decodes PNG "
-                         "only (ROADMAP Queue 1 item 8)")
-
-
 def read_image(path: str) -> np.ndarray:
     """BGR uint8 image with the reference's normalizations
     (libs/dataset.py:59-90): uint16 -> uint8, gray -> 3ch, alpha -> white bg.
     Decoded frames are LRU-cached and returned write-protected; callers
-    must copy before mutating."""
+    must copy before mutating. A file that cannot be decoded raises
+    `native.UnsupportedImage` naming it."""
     cached = _DECODE_CACHE.get(path)
     if cached is not None:
         return cached
-    check_png(path)
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    img = png.read(path)
+    img = imread.read(path)
     if img.dtype == np.uint16:
         img = (img / 256).astype(np.uint8)
     if img.ndim == 2:
@@ -132,7 +121,7 @@ def get_single_bop_annotation(img_path: str, obj2cls: Dict[str, int]
         mask_file = os.path.join(gt_dir, "mask_visib", f"{base}_{i:06d}.png")
         if not os.path.exists(mask_file):
             continue
-        mv = png.read(mask_file)
+        mv = imread.read(mask_file)
         if merged is None:
             merged = np.zeros(mv.shape[:2], np.int32)
         obj_id = str(pose["obj_id"])

@@ -1,12 +1,15 @@
-"""ctypes bindings of the port's host data plane (`csrc/dataplane.cpp`; the
-counterpart of `kd6d_pose_adlp_tpu/data/native.py`).
+"""ctypes bindings of the port's host data plane (`csrc/dataplane.cpp`, the
+counterpart of `kd6d_pose_adlp_tpu/data/native.py`; `csrc/jpeg.cpp`, the
+baseline JPEG decoder; `csrc/cvarith.cpp`, cv2's uint8 colour, filter and
+resize arithmetic of the augmentations).
 
-The library is built with g++ at first use into `kd6d_pose_adlp_tpu_torch/
-_build/`, named by a hash of the source and flags as the CUDA libraries are
-(`utils/cuda_build.py`), and loaded once per process. There is no fallback:
-the BOP pipeline's warps, normalisation and PNG decoding run here, so a
-failed build raises. Each call runs on one thread (the C functions' thread
-count is 1): the loader's threads parallelize across samples.
+The three sources are built with g++ at first use into one library in
+`kd6d_pose_adlp_tpu_torch/_build/`, named by a hash of the sources and flags
+as the CUDA libraries are (`utils/cuda_build.py`), and loaded once per
+process. There is no fallback: the BOP pipeline's warps, normalisation,
+decoding and augmentations run here, so a failed build raises. Each call
+runs on one thread and releases the interpreter lock (ctypes does): the
+loader's threads parallelize across samples.
 """
 from __future__ import annotations
 
@@ -22,15 +25,25 @@ from ..utils.cuda_build import BUILD_DIR, CSRC
 
 # portable code: the JAX package adds -march=native, but the warps' fixed
 # point gives the same pixels without it (tests/test_torch_port_bop.py
-# holds them bit-equal to its native path)
-GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+# holds them bit-equal to its native path); no contraction into FMAs, as
+# csrc/cvarith.cpp fuses exactly where cv2 does, with std::fma
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
+SOURCES = ("dataplane.cpp", "jpeg.cpp", "cvarith.cpp")
 
 _lib = None
 _lock = threading.Lock()
 
 
+class UnsupportedImage(ValueError):
+    """An image file the port cannot decode (a format, variant or damage
+    that `png.py` and `jpeg.py` do not handle). The BOP pipeline raises it,
+    where a missing file only skips its sample: the JAX package reads such
+    files with cv2, so skipping them would change what is trained and
+    scored."""
+
+
 def library_path():
-    src = (CSRC / "dataplane.cpp").read_bytes()
+    src = b"".join((CSRC / name).read_bytes() for name in SOURCES)
     digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"libdataplane-{digest}.so"
 
@@ -38,10 +51,11 @@ def library_path():
 def _build(target) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run(["g++", *GXX_FLAGS, str(CSRC / "dataplane.cpp"), "-o", str(tmp),
-                           "-lpthread"], capture_output=True, text=True, timeout=300)
+    proc = subprocess.run(["g++", *GXX_FLAGS, *(str(CSRC / name) for name in SOURCES),
+                           "-o", str(tmp), "-lpthread"], capture_output=True, text=True,
+                          timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for csrc/dataplane.cpp (rc {proc.returncode}):\n"
+        raise RuntimeError(f"g++ failed for csrc/{', '.join(SOURCES)} (rc {proc.returncode}):\n"
                            + proc.stdout + proc.stderr)
     os.replace(tmp, target)
 
@@ -68,6 +82,22 @@ def get_lib() -> ctypes.CDLL:
             lib.normalize_bgr_u8.restype = None
             lib.png_unfilter.argtypes = [u8p, c, c, c, u8p]
             lib.png_unfilter.restype = c
+            i64 = ctypes.c_int64
+            lib.jpeg_info.argtypes = [ctypes.c_char_p, i64, i32p, ctypes.c_char_p, c]
+            lib.jpeg_info.restype = c
+            lib.jpeg_decode.argtypes = [ctypes.c_char_p, i64, u8p, i64, c, ctypes.c_char_p, c]
+            lib.jpeg_decode.restype = c
+            f = ctypes.c_double
+            lib.bgr2hsv_u8.argtypes = [u8p, i64, u8p]
+            lib.hsv2bgr_u8.argtypes = [u8p, c, c, u8p]
+            lib.gaussian_blur7_u8.argtypes = [u8p, c, c, c, f, u8p]
+            lib.box_blur_u8.argtypes = [u8p, c, c, c, c, u8p]
+            lib.normalize_minmax_f32.argtypes = [f32p, i64, f32p]
+            lib.normalize_minmax_f64.argtypes = [f64p, i64, f64p]
+            lib.resize_linear_u8.argtypes = [u8p, c, c, c, u8p, c, c]
+            for name in ("bgr2hsv_u8", "hsv2bgr_u8", "gaussian_blur7_u8", "box_blur_u8",
+                         "normalize_minmax_f32", "normalize_minmax_f64", "resize_linear_u8"):
+                getattr(lib, name).restype = None
             _lib = lib
     return _lib
 
@@ -123,15 +153,107 @@ def normalize_bgr_u8(img: np.ndarray, mean, std) -> np.ndarray:
 def png_unfilter(raw: np.ndarray, rows: int, stride: int, bpp: int) -> np.ndarray:
     """The (rows, stride) uint8 bytes of a PNG image from its inflated IDAT
     stream `raw` (rows of a filter-type byte and `stride` filtered bytes),
-    `bpp` bytes a pixel. Raises ValueError on a short stream or a filter
-    type outside 0-4."""
+    `bpp` bytes a pixel. Raises UnsupportedImage on a short stream or a
+    filter type outside 0-4."""
     lib = get_lib()
     raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)
     if raw.size < rows * (stride + 1):
-        raise ValueError(f"PNG data holds {raw.size} bytes, {rows} rows of {stride} "
+        raise UnsupportedImage(f"PNG data holds {raw.size} bytes, {rows} rows of {stride} "
                          f"need {rows * (stride + 1)}")
     out = np.empty((rows, stride), np.uint8)
     bad = lib.png_unfilter(raw, rows, stride, bpp, out)
     if bad:
-        raise ValueError(f"PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]}")
+        raise UnsupportedImage(f"PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]}")
+    return out
+
+
+def _jpeg_fail(name: str, err) -> UnsupportedImage:
+    return UnsupportedImage(f"{name}: {err.value.decode(errors='replace')}")
+
+
+def jpeg_decode(data: bytes, color: bool, name: str = "<bytes>") -> np.ndarray:
+    """The baseline JPEG `data` decoded as libjpeg-turbo decodes it for
+    cv2.imread: (H, W) grey or (H, W, 3) BGR uint8, or (H, W, 3) BGR
+    always when `color` (IMREAD_COLOR's conversion). Raises
+    UnsupportedImage naming `name` for what `csrc/jpeg.cpp` does not decode."""
+    lib = get_lib()
+    info = np.zeros(4, np.int32)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_info(data, len(data), info, err, len(err)):
+        raise _jpeg_fail(name, err)
+    h, w, nc = int(info[0]), int(info[1]), int(info[2])
+    out = np.empty((h, w) if nc == 1 and not color else (h, w, 3), np.uint8)
+    if lib.jpeg_decode(data, len(data), out, out.size, int(color), err, len(err)):
+        raise _jpeg_fail(name, err)
+    return out
+
+
+def _image(img: np.ndarray, what: str, channels=None) -> np.ndarray:
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or 0 in img.shape or (channels is not None
+                                           and img.shape[2] != channels):
+        raise ValueError(f"{what} takes a non-empty (H, W, {channels or 'C'}) uint8 "
+                         f"image, got {img.shape}")
+    return img
+
+
+def bgr2hsv(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_BGR2HSV) of an (H, W, 3) uint8 image."""
+    img = _image(img, "bgr2hsv", 3)
+    out = np.empty_like(img)
+    get_lib().bgr2hsv_u8(img, img.shape[0] * img.shape[1], out)
+    return out
+
+
+def hsv2bgr(hsv: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(hsv, COLOR_HSV2BGR) of an (H, W, 3) uint8 image."""
+    hsv = _image(hsv, "hsv2bgr", 3)
+    out = np.empty_like(hsv)
+    get_lib().hsv2bgr_u8(hsv, hsv.shape[0], hsv.shape[1], out)
+    return out
+
+
+def gaussian_blur7(img: np.ndarray, sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(img, (7, 7), sigma) of an (H, W, C) uint8 image
+    (sigma <= 0: cv2's 7-tap table)."""
+    img = _image(img, "gaussian_blur7")
+    out = np.empty_like(img)
+    get_lib().gaussian_blur7_u8(img, img.shape[0], img.shape[1], img.shape[2], float(sigma), out)
+    return out
+
+
+def box_blur(img: np.ndarray, ksize: int) -> np.ndarray:
+    """cv2.blur(img, (ksize, ksize)) of an (H, W, C) uint8 image, ksize odd
+    and at most 15 (cv2's 8U fixed-point division holds to 16^2 taps)."""
+    if ksize % 2 != 1 or not 1 <= ksize <= 15:
+        raise ValueError(f"box_blur takes an odd ksize of at most 15, got {ksize}")
+    img = _image(img, "box_blur")
+    out = np.empty_like(img)
+    get_lib().box_blur_u8(img, img.shape[0], img.shape[1], img.shape[2], int(ksize), out)
+    return out
+
+
+def normalize_minmax(x: np.ndarray) -> np.ndarray:
+    """cv2.normalize(x, None, alpha=0, beta=255, norm_type=NORM_MINMAX) of a
+    float32 or float64 array, over all its elements; the same dtype out."""
+    x = np.asarray(x)
+    if x.dtype not in (np.float32, np.float64) or x.size == 0:
+        raise ValueError(f"normalize_minmax takes a non-empty float32 or float64 array, "
+                         f"got {x.dtype} {x.shape}")
+    x = np.ascontiguousarray(x)
+    out = np.empty_like(x)
+    fn = get_lib().normalize_minmax_f32 if x.dtype == np.float32 else \
+        get_lib().normalize_minmax_f64
+    fn(x.reshape(-1), x.size, out.reshape(-1))
+    return out
+
+
+def resize_linear(img: np.ndarray, out_wh) -> np.ndarray:
+    """cv2.resize(img, out_wh) (INTER_LINEAR) of an (H, W, C) uint8 image."""
+    img = _image(img, "resize_linear")
+    w, h = int(out_wh[0]), int(out_wh[1])
+    if w < 1 or h < 1:
+        raise ValueError(f"resize_linear to {out_wh}")
+    out = np.empty((h, w, img.shape[2]), np.uint8)
+    get_lib().resize_linear_u8(img, img.shape[0], img.shape[1], img.shape[2], out, h, w)
     return out

@@ -26,37 +26,19 @@ from ..utils.mesh import load_bbox_3d, load_bop_meshes
 from . import bop
 from . import transforms as T
 from .batch import Batch, TaskConsts
-
-
-def check_ported_augs(cfg: Config) -> None:
-    """Raise NotImplementedError on a train-time augmentation that is not
-    ported (they need cv2's uint8 colour and filter arithmetic or an image
-    decoder; every config in the repo leaves them off)."""
-    s = cfg.solver
-    unported = (("HSV colour (AUGMENTATION_ColorH/S/V)",
-                 bool(s.aug_color_h or s.aug_color_s or s.aug_color_v)),
-                ("pencil sharpen (AUGMENTATION_Sharpen)", s.aug_sharpen > 0),
-                ("Gaussian smooth (AUGMENTATION_Smooth)", s.aug_smooth > 0),
-                ("background replacement (aug_background_dir)", bool(s.aug_background_dir)))
-    for what, asked in unported:
-        if asked:
-            raise NotImplementedError(f"the {what} augmentation is not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
+from .native import UnsupportedImage
 
 
 class BOPPoseDataset:
     def __init__(self, cfg: Config, list_file: str, train: bool):
         self.cfg = cfg
         self.train = train
-        if train:
-            check_ported_augs(cfg)
         self.images = bop.read_image_list(list_file)
-        for path in self.images:
-            bop.check_png(path)
         self.meshes, self.obj2cls = load_bop_meshes(cfg.data.mesh_dir)
         self.kp3d = load_bbox_3d(cfg.data.bbox_file)
         self.sym = cfg.data.symmetry_dict()
         self.internal_K = cfg.data.internal_K_np()
+        self.backgrounds = T.BackgroundBank(cfg.solver.aug_background_dir)
         self.fast = bool(cfg.data.fast_pipeline)
 
     def __len__(self):
@@ -88,12 +70,19 @@ class BOPPoseDataset:
 
     def _pixel_augs(self, img: np.ndarray, mask: np.ndarray, rng):
         """Train-time pixel augmentations (reference libs/transform.py chain,
-        the ported ones, in the JAX package's order). The slow path applies
-        them to the 640x480 internal frame like the reference; the fast path
-        to the crop."""
+        in the JAX package's order: background, HSV, sharpen, noise, smooth,
+        occlusion, grayscale). The slow path applies them to the 640x480
+        internal frame like the reference; the fast path to the crop."""
         s = self.cfg.solver
+        img = self.backgrounds(img, mask, rng)
+        if s.aug_color_h or s.aug_color_s or s.aug_color_v:
+            img = T.distort_hsv(img, rng, s.aug_color_h, s.aug_color_s, s.aug_color_v)
+        if s.aug_sharpen > 0:
+            img = T.pencil_sharpen(img, rng, s.aug_sharpen)
         if s.aug_noise > 0:
             img = T.distort_noise(img, rng, s.aug_noise)
+        if s.aug_smooth > 0:
+            img = T.distort_smooth(img, rng, s.aug_smooth)
         if s.aug_occlusion > 0:
             img, mask = T.random_occlusion(img, mask, rng, s.aug_occlusion)
         if s.aug_grayscalize:
@@ -126,8 +115,10 @@ class BOPPoseDataset:
                focus_obj: Optional[int] = None) -> Optional[Dict]:
         """One sample dict (image, mask, class_ids, rotations, translations,
         bbox_trans, meta), or None when the frame has no usable object (the
-        loader redraws, as the reference does). A frame that cannot be read
-        also gives None, as in the JAX package."""
+        loader redraws, as the reference does). A missing frame or
+        annotation also gives None, as in the JAX package; a frame or mask
+        that the port cannot decode raises UnsupportedImage naming it,
+        since the JAX package's cv2 would read it."""
         cfg = self.cfg
         s = cfg.solver
         rng = np.random.default_rng((seed * 1_000_003 + index) & 0x7FFFFFFF)
@@ -135,6 +126,8 @@ class BOPPoseDataset:
         try:
             img = bop.read_image(path)
             K, mask, class_ids, Rs, Ts = bop.get_single_bop_annotation(path, self.obj2cls)
+        except UnsupportedImage:
+            raise
         except (OSError, ValueError, KeyError):
             return None
         if len(class_ids) == 0:

@@ -8,8 +8,9 @@ the five row filters in the data plane (`csrc/dataplane.cpp`
 `png_unfilter`). It returns what `cv2.imread(IMREAD_UNCHANGED)` returns:
 grey as (H, W), RGB as BGR (H, W, 3), grey + alpha and RGBA as BGRA
 (H, W, 4), 8-bit as uint8 and 16-bit as native-endian uint16. Palette
-images, bit depths below 8, Adam7 interlace and tRNS transparency raise
-ValueError naming the file. `write` emits filter type 0 rows through zlib.
+images, bit depths below 8, Adam7 interlace, tRNS transparency and damaged
+files raise `native.UnsupportedImage` (a ValueError) naming the file.
+`write` emits filter type 0 rows through zlib.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import zlib
 import numpy as np
 
 from . import native
+from .native import UnsupportedImage
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # colour type -> samples a pixel
@@ -33,21 +35,21 @@ def read(path: str) -> np.ndarray:
 
 def _chunks(data: bytes, name: str):
     if data[:8] != SIGNATURE:
-        raise ValueError(f"{name}: not a PNG file")
+        raise UnsupportedImage(f"{name}: not a PNG file")
     pos = 8
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         end = pos + 12 + n
         if end > len(data):
-            raise ValueError(f"{name}: chunk {kind!r} is truncated")
+            raise UnsupportedImage(f"{name}: chunk {kind!r} is truncated")
         body = data[pos + 8:end - 4]
         if zlib.crc32(kind + body) != struct.unpack(">I", data[end - 4:end])[0]:
-            raise ValueError(f"{name}: chunk {kind!r} fails its CRC")
+            raise UnsupportedImage(f"{name}: chunk {kind!r} fails its CRC")
         yield kind, body
         if kind == b"IEND":
             return
         pos = end
-    raise ValueError(f"{name}: no IEND chunk")
+    raise UnsupportedImage(f"{name}: no IEND chunk")
 
 
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -59,23 +61,26 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"tRNS":
-            raise ValueError(f"{name}: tRNS transparency is not supported")
+            raise UnsupportedImage(f"{name}: tRNS transparency is not supported")
     if header is None or not idat:
-        raise ValueError(f"{name}: no IHDR or IDAT chunk")
+        raise UnsupportedImage(f"{name}: no IHDR or IDAT chunk")
     w, h, depth, ctype, comp, filt, interlace = header
     if ctype == 3:
-        raise ValueError(f"{name}: palette PNGs are not supported")
+        raise UnsupportedImage(f"{name}: palette PNGs are not supported")
     if ctype not in _CHANNELS or depth not in (8, 16):
-        raise ValueError(f"{name}: colour type {ctype} at bit depth {depth} is not "
-                         "supported (grey, RGB, grey + alpha or RGBA at 8 or 16 bits)")
+        raise UnsupportedImage(f"{name}: colour type {ctype} at bit depth {depth} is not "
+                               "supported (grey, RGB, grey + alpha or RGBA at 8 or 16 bits)")
     if interlace != 0:
-        raise ValueError(f"{name}: Adam7 interlaced PNGs are not supported")
+        raise UnsupportedImage(f"{name}: Adam7 interlaced PNGs are not supported")
     if comp != 0 or filt != 0:
-        raise ValueError(f"{name}: unknown compression {comp} or filter method {filt}")
+        raise UnsupportedImage(f"{name}: unknown compression {comp} or filter method {filt}")
     ch = _CHANNELS[ctype]
     bpp = ch * depth // 8
-    raw = zlib.decompress(b"".join(idat))
-    rows = native.png_unfilter(np.frombuffer(raw, np.uint8), h, w * bpp, bpp)
+    try:
+        raw = zlib.decompress(b"".join(idat))
+        rows = native.png_unfilter(np.frombuffer(raw, np.uint8), h, w * bpp, bpp)
+    except (zlib.error, UnsupportedImage) as e:
+        raise UnsupportedImage(f"{name}: {e}") from None
     img = rows.view(">u2").astype(np.uint16) if depth == 16 else rows
     img = img.reshape(h, w, ch)
     if ch == 1:

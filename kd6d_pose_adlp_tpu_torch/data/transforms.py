@@ -3,28 +3,30 @@
 plane, without an image library.
 
 Resize to the internal 640x480 frame with a K remap, the train-time
-augmentations (shift / scale / rotate, noise, occlusion, grayscale) and
-normalisation (reference `libs/transform.py`, `libs/train_libs.py:212-254`).
+augmentations (shift / scale / rotate, background, HSV, pencil sharpen,
+noise, Gaussian smooth, occlusion, grayscale) and normalisation (reference
+`libs/transform.py`, `libs/train_libs.py:212-254`).
 The internal-frame fit and the random shift / scale / rotate are one affine,
 one resample and one pose re-fit, as in the JAX package.
 
 `remap_poses` always solves, with one solver (`utils/pnp.solve_pnp_epnp`,
 OpenCV's EPnP in float64); the JAX package keeps the old pose when cv2 is
 missing. The warps and `normalize_fast` always run in the data plane; the
-JAX package falls back to cv2. Not ported: the HSV, pencil-sharpen and
-Gaussian-smooth augmentations and the background bank, which need cv2's
-uint8 colour and filter arithmetic and an image decoder (ROADMAP Queue 1
-item 7); `data/pipeline.BOPPoseDataset` refuses a config that turns one on.
+JAX package falls back to cv2. The cv2 calls of the HSV, sharpen, smooth and
+background augmentations are the data plane's bit-equal counterparts
+(`csrc/cvarith.cpp`); the numpy around them, and the draws from the
+generator, are the JAX package's own, in its order and count.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..utils import geometry as geo
 from ..utils.pnp import solve_pnp_epnp
-from . import native
+from . import imread, native
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -70,11 +72,33 @@ def random_ssr_matrix(rng: np.random.Generator, shift: float, scale: float,
     return geo.shift_scale_rotate_matrix(px, py, ang, sf, width, height)
 
 
+def distort_hsv(img: np.ndarray, rng, h_ratio, s_ratio, v_ratio) -> np.ndarray:
+    """Scale H, S and V by 1 + U(-1, 1) x ratio each (three draws, also for a
+    ratio of 0), clipped where the factor exceeds 1 (reference
+    libs/transform.py RandomHSV)."""
+    hsv = native.bgr2hsv(img)
+    h = hsv[:, :, 0].astype(np.float32)
+    s = hsv[:, :, 1].astype(np.float32)
+    v = hsv[:, :, 2].astype(np.float32)
+    a = rng.uniform(-1, 1) * h_ratio + 1
+    b = rng.uniform(-1, 1) * s_ratio + 1
+    c = rng.uniform(-1, 1) * v_ratio + 1
+    hsv[:, :, 0] = (h * a) if a < 1 else np.clip(h * a, None, 179)
+    hsv[:, :, 1] = (s * b) if b < 1 else np.clip(s * b, None, 255)
+    hsv[:, :, 2] = (v * c) if c < 1 else np.clip(v * c, None, 255)
+    return native.hsv2bgr(hsv)
+
+
 def distort_noise(img: np.ndarray, rng, ratio: float) -> np.ndarray:
     """Gaussian pixel noise of a sigma drawn from [0, ratio) x 255."""
     sigma = rng.uniform(0, ratio)
     out = img.astype(np.float32) + rng.normal(0, sigma, img.shape) * 255
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def distort_smooth(img: np.ndarray, rng, ratio: float) -> np.ndarray:
+    """7x7 Gaussian blur of a sigma drawn from [0, ratio)."""
+    return native.gaussian_blur7(img, rng.uniform(0, ratio))
 
 
 def random_occlusion(img: np.ndarray, mask: np.ndarray, rng,
@@ -97,6 +121,56 @@ def random_occlusion(img: np.ndarray, mask: np.ndarray, rng,
     img[oy:oy + h, ox:ox + w] = rng.integers(0, 256, (h, w, img.shape[2]))
     mask[oy:oy + h, ox:ox + w] = -1
     return img, mask
+
+
+def pencil_sharpen(img: np.ndarray, rng, prob: float) -> np.ndarray:
+    """Edge-boost aug (reference libs/transform.py RandomPencilSharpen):
+    box-blur at a drawn size, an edge image (ratio or difference), min-max
+    normalised, alpha-blended back and normalised again."""
+    if rng.random() >= prob:
+        return img
+    ks = int(rng.choice([5, 7, 9, 11]))
+    blurred = native.box_blur(img, ks).astype(np.float32)
+    if rng.random() < 0.5:
+        edge = img / (blurred + 0.01)
+    else:
+        edge = img - blurred
+    edge = native.normalize_minmax(edge).astype(np.uint8)
+    alpha = rng.uniform(0.5, 0.95)
+    out = img * (1 - alpha) + edge * alpha
+    return native.normalize_minmax(out).astype(np.uint8)
+
+
+class BackgroundBank:
+    """Random background replacement (reference libs/transform.py
+    RandomBackground): with p=0.5 the pixels outside the instance mask are
+    swapped for a random image of a directory's .png / .jpg files, read as
+    cv2.imread reads them (`imread.read_color`) and resized bilinearly."""
+
+    def __init__(self, background_dir: Optional[str]):
+        self.files = []
+        if background_dir and os.path.isdir(background_dir):
+            self.files = [os.path.join(background_dir, f)
+                          for f in sorted(os.listdir(background_dir))
+                          if f.endswith((".png", ".jpg"))]
+
+    def __call__(self, img: np.ndarray, mask: np.ndarray, rng) -> np.ndarray:
+        if not self.files or rng.random() < 0.5:
+            return img
+        bg = None
+        for _ in range(4):                   # cv2.imread gives None for a missing file
+            try:
+                bg = imread.read_color(self.files[int(rng.integers(0, len(self.files)))])
+                break
+            except FileNotFoundError:
+                continue
+        if bg is None:
+            return img
+        bg = native.resize_linear(bg, (img.shape[1], img.shape[0]))
+        out = img.copy()
+        keep = mask > 0
+        out[~keep] = bg[~keep]
+        return out
 
 
 def grayscalize(img: np.ndarray) -> np.ndarray:

@@ -31,6 +31,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import shutil
 import struct
 import threading
 import time
@@ -587,27 +588,76 @@ def test_bundle_matches_jax(trees, fast):
 
 
 # ---------------------------------------------------------------------------
-# 9. what still raises
+# 9. what once raised loads; what the decoders do not support still raises
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("aug", [dict(aug_color_h=0.1), dict(aug_sharpen=0.2),
                                  dict(aug_smooth=0.5), dict(aug_background_dir="/bg")],
                          ids=["hsv", "sharpen", "smooth", "background"])
-def test_unported_augmentations_raise(trees, aug):
-    _, tc = _cfg_pair(trees, "single", **aug)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tpipe.BOPPoseDataset(tc, tc.data.train_list, train=True)
-    tpipe.BOPPoseDataset(tc, tc.data.train_list, train=False)   # eval applies none
+def test_unported_augmentations_raise(trees, aug, tmp_path):
+    """The four augmentations that raised NotImplementedError until the
+    data plane had cv2's arithmetic now load and give JAX's samples; a
+    background file the port cannot decode raises, naming it."""
+    if "aug_background_dir" in aug:
+        bg = tmp_path / "bg"
+        bg.mkdir()
+        ok, buf = cv2.imencode(".jpg", np.full((48, 64, 3), 90, np.uint8),
+                               [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        (bg / "progressive.jpg").write_bytes(buf.tobytes())
+        aug = dict(aug_background_dir=str(bg))
+    jc, tc = _cfg_pair(trees, "single", **aug)
+    tds = tpipe.BOPPoseDataset(tc, tc.data.train_list, train=True)
+    tpipe.BOPPoseDataset(tc, tc.data.train_list, train=False)
+    jds = jpipe.BOPPoseDataset(jc, jc.data.train_list, train=True)
+    if "aug_background_dir" in aug:
+        assert cv2.imread(str(tmp_path / "bg" / "progressive.jpg")) is not None
+        with pytest.raises(ValueError, match="progressive.jpg: progressive"):
+            for seed in range(8):               # the bank fires at p = 0.5
+                tds.sample(0, seed=seed)
+        return
+    for seed in (1, 2):
+        for idx in range(4):
+            got, want = tds.sample(idx, seed=seed), jds.sample(idx, seed=seed)
+            np.testing.assert_array_equal(got["image"], want["image"])
+            np.testing.assert_array_equal(got["mask"], want["mask"])
 
 
 def test_jpeg_frames_raise(trees, tmp_path):
+    """JPEG frames, which raised until the port had a decoder, now load as
+    the JAX package reads them; a progressive JPEG frame and a frame in
+    another format raise UnsupportedImage (a ValueError) naming the file,
+    from the dataset and the loader too, where cv2 would read them."""
+    src = os.path.join(os.path.dirname(trees["single"]), "train", "000001", "rgb")
+    rgb = tmp_path / "train" / "000001" / "rgb"
+    shutil.copytree(os.path.dirname(src), str(rgb.parent))
+    img = cv2.imread(os.path.join(src, "000000.png"))
+    cv2.imwrite(str(rgb / "000000.jpg"), img, [cv2.IMWRITE_JPEG_QUALITY, 90])
     lst = tmp_path / "list.txt"
     lst.write_text("train/000001/rgb/000000.jpg\n")
-    _, tc = _cfg_pair(trees, "single")
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        tpipe.BOPPoseDataset(tc, str(lst), train=False)
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        tbop.read_image(str(tmp_path / "x.JPG"))
+    jc, tc = _cfg_pair(trees, "single")
+    tds = tpipe.BOPPoseDataset(tc, str(lst), train=False)
+    jds = jpipe.BOPPoseDataset(jc, str(lst), train=False)
+    _assert_samples_match(tds.sample(0, seed=1), jds.sample(0, seed=1), train=False)
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    (tmp_path / "p.jpg").write_bytes(buf.tobytes())
+    with pytest.raises(native.UnsupportedImage, match="p.jpg: progressive JPEG is not supported"):
+        tbop.read_image(str(tmp_path / "p.jpg"))
+    # through the dataset and the loader, train and eval, a frame the
+    # decoders do not handle raises naming it; a missing frame is skipped
+    (rgb / "000001.jpg").write_bytes(buf.tobytes())
+    cv2.imwrite(str(rgb / "000002.bmp"), img)
+    for name, what in (("000001.jpg", "progressive JPEG is not supported"),
+                       ("000002.bmp", "neither a PNG nor a JPEG")):
+        lst.write_text(f"train/000001/rgb/{name}\n")
+        assert cv2.imread(str(rgb / name)) is not None      # the JAX package reads it
+        for train in (True, False):
+            tds = tpipe.BOPPoseDataset(tc, str(lst), train=train)
+            with pytest.raises(native.UnsupportedImage, match=f"{name}: {what}"):
+                tds.sample(0, seed=1)
+            with pytest.raises(native.UnsupportedImage, match=f"{name}: {what}"):
+                next(iter(tpipe.PrefetchLoader(tds, batch_size=2, train=train, num_threads=1)))
+    lst.write_text("train/000001/rgb/missing.jpg\n")
+    assert tpipe.BOPPoseDataset(tc, str(lst), train=True).sample(0, seed=1) is None
 
 
 def test_data_path_imports_no_image_library():

@@ -1,0 +1,378 @@
+"""PyTorch port, JPEG reading (`kd6d_pose_adlp_tpu_torch/data/jpeg.py` over
+`csrc/jpeg.cpp`, and `data/imread.py`'s PNG-or-JPEG reads) against
+`cv2.imread`, on images encoded in the test by `cv2.imencode` and PIL, and
+the committed fixtures under `tests/torch_port_fixtures/` that
+`chip_smoke.py` checks on the card.
+
+Tolerances: every decode is bit-equal to cv2's (IMREAD_UNCHANGED and
+IMREAD_COLOR), and so is `bop.read_image` to the JAX package's. What the
+decoder does not support raises UnsupportedImage (a ValueError) naming the
+file.
+
+The fixtures: JPEG encodings of frames of the `make_bop_dataset` tree that
+chip_smoke's bop phase writes (`SyntheticPoseDataset(n_fg=15,
+single_class=0, seed=0)`, train frames 1000 + j, test frames j), background
+JPEGs and PNGs, and `manifest.json`: cv2's SHA-256 of every fixture under
+both reads and of each data-plane primitive case (`CASES`). `write_fixtures`
+makes them (`PYTHONPATH=. python tests/test_torch_port_jpeg.py` writes them
+anew);
+`test_the_committed_manifest_is_cv2s` recomputes the manifest with cv2 from
+the committed files, so the digests the card is held to stay honest.
+"""
+import hashlib
+import io
+import json
+import os
+import struct
+
+import numpy as np
+import pytest
+
+cv2 = pytest.importorskip("cv2")
+
+from kd6d_pose_adlp_tpu.data import bop as jbop  # noqa: E402
+from kd6d_pose_adlp_tpu_torch.data import bop as tbop  # noqa: E402
+from kd6d_pose_adlp_tpu_torch.data import imread, jpeg, native, png  # noqa: E402
+from test_torch_port_pool import one_torch_thread  # noqa: E402,F401 (autouse fixture)
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_fixtures")
+FIXTURE_BUDGET = 512 * 1024
+SAMPLING = {"444": 0x111111, "422": 0x211111, "420": 0x221111, "440": 0x121111,
+            "411": 0x411111}
+
+# (name, SyntheticPoseDataset index, quality, sampling, restart interval)
+FRAMES = (("frames/train_000000.jpg", 1000, 75, "420", 0),
+          ("frames/train_000001.jpg", 1001, 75, "422", 0),
+          ("frames/train_000002.jpg", 1002, 50, "444", 0),
+          ("frames/test_000000.jpg", 0, 75, "420", 4),
+          ("frames/test_000001.jpg", 1, 75, "440", 0))
+FRAME = "frames/train_000000.jpg"
+# data-plane primitive cases: ops applied in turn to read_color(input)
+CASES = tuple(
+    [dict(input=FRAME, ops=[["bgr2hsv"]]),
+     dict(input=FRAME, ops=[["bgr2hsv"], ["hsv2bgr"]])]
+    + [dict(input=FRAME, ops=[["gaussian_blur7", s]]) for s in (0.0, -1.0, 0.37, 0.93)]
+    + [dict(input=FRAME, ops=[["box_blur", k]]) for k in (5, 7, 9, 11)]
+    + [dict(input=FRAME, ops=[["f32_affine", 0.37, -11.0], ["normalize_minmax"]]),
+       dict(input=FRAME, ops=[["f32_affine", 0.0, 3.5], ["normalize_minmax"]]),
+       dict(input=FRAME, ops=[["f64_affine", 0.63, 3.5], ["normalize_minmax"]]),
+       dict(input="backgrounds/bg_0.jpg", ops=[["resize_linear", 640, 480]]),
+       dict(input="backgrounds/bg_0.jpg", ops=[["resize_linear", 256, 256]]),
+       dict(input="backgrounds/bg_1.jpg", ops=[["resize_linear", 640, 480]]),
+       dict(input="backgrounds/bg_2.png", ops=[["resize_linear", 128, 128]]),
+       dict(input="backgrounds/bg_3.png", ops=[["resize_linear", 333, 251]])])
+
+CV2_OPS = {
+    "bgr2hsv": lambda a: cv2.cvtColor(a, cv2.COLOR_BGR2HSV),
+    "hsv2bgr": lambda a: cv2.cvtColor(a, cv2.COLOR_HSV2BGR),
+    "gaussian_blur7": lambda a, s: cv2.GaussianBlur(a, (7, 7), s),
+    "box_blur": lambda a, k: cv2.blur(a, (k, k)),
+    "normalize_minmax": lambda a: cv2.normalize(a, None, alpha=0, beta=255,
+                                                norm_type=cv2.NORM_MINMAX),
+    "resize_linear": lambda a, w, h: cv2.resize(a, (w, h)),
+    "f32_affine": lambda a, s, t: a.astype(np.float32) * np.float32(s) + np.float32(t),
+    "f64_affine": lambda a, s, t: a.astype(np.float64) * s + t,
+}
+
+
+def digest(a: np.ndarray) -> str:
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype} {a.shape}".encode() + a.tobytes()).hexdigest()
+
+
+def fixture_manifest(root: str, read, read_color, ops) -> dict:
+    """{"files": {path: {"read", "read_color"}}, "cases": [...]} for the
+    fixtures under `root`, by the given readers and primitives."""
+    files = {}
+    for sub in ("frames", "backgrounds"):
+        for f in sorted(os.listdir(os.path.join(root, sub))):
+            p = os.path.join(root, sub, f)
+            files[f"{sub}/{f}"] = dict(read=digest(read(p)), read_color=digest(read_color(p)))
+    cases = []
+    for case in CASES:
+        a = read_color(os.path.join(root, case["input"]))
+        for op in case["ops"]:
+            a = ops[op[0]](a, *op[1:])
+        cases.append(dict(case, sha256=digest(a)))
+    return dict(files=files, cases=cases)
+
+
+def cv2_manifest(root: str) -> dict:
+    return fixture_manifest(root, lambda p: cv2.imread(p, cv2.IMREAD_UNCHANGED), cv2.imread,
+                            CV2_OPS)
+
+
+def _smooth(rng, h, w, c):
+    """Smooth colour fields: backgrounds that cost few bytes."""
+    base = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, c)).astype(np.uint8)
+    return cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC).reshape(h, w, c)
+
+
+def write_fixtures(root: str = FIXTURES) -> dict:
+    """Write the fixtures and their manifest under `root` (cv2 encodes and
+    hashes)."""
+    from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
+
+    for sub in ("frames", "backgrounds"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    ds = SyntheticPoseDataset(n_fg=15, single_class=0, seed=0)
+    for name, index, quality, sampling, rst in FRAMES:
+        img = ds.sample_internal(index)["img"][:, :, ::-1]
+        ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(img), [
+            cv2.IMWRITE_JPEG_QUALITY, quality,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
+            cv2.IMWRITE_JPEG_RST_INTERVAL, rst])
+        assert ok
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(buf.tobytes())
+    rng = np.random.default_rng(17)
+    bg = os.path.join(root, "backgrounds")
+    # 1280x960: the slow path's 640x480 frame is an exact 2x downscale
+    cv2.imwrite(os.path.join(bg, "bg_0.jpg"), _smooth(rng, 960, 1280, 3),
+                [cv2.IMWRITE_JPEG_QUALITY, 75])
+    cv2.imwrite(os.path.join(bg, "bg_1.jpg"), _smooth(rng, 240, 320, 1)[:, :, 0],
+                [cv2.IMWRITE_JPEG_QUALITY, 90])
+    bgra = np.concatenate([_smooth(rng, 150, 200, 3), _smooth(rng, 150, 200, 1)], axis=2)
+    cv2.imwrite(os.path.join(bg, "bg_2.png"), bgra)
+    cv2.imwrite(os.path.join(bg, "bg_3.png"), _smooth(rng, 96, 120, 3).astype(np.uint16) * 257)
+    manifest = cv2_manifest(root)
+    with open(os.path.join(root, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return manifest
+
+
+# ---------------------------------------------------------------------------
+# the committed fixtures
+# ---------------------------------------------------------------------------
+
+def test_the_committed_manifest_is_cv2s():
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        committed = json.load(f)
+    assert cv2_manifest(FIXTURES) == committed
+    port_ops = dict(CV2_OPS, bgr2hsv=native.bgr2hsv, hsv2bgr=native.hsv2bgr,
+                    gaussian_blur7=native.gaussian_blur7, box_blur=native.box_blur,
+                    normalize_minmax=native.normalize_minmax,
+                    resize_linear=lambda a, w, h: native.resize_linear(a, (w, h)))
+    assert fixture_manifest(FIXTURES, imread.read, imread.read_color, port_ops) == committed
+    total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(FIXTURES)
+                for f in fs)
+    assert total <= FIXTURE_BUDGET, total
+    assert {c["input"] for c in committed["cases"]} <= set(committed["files"])
+    assert sorted(name for name, *_ in FRAMES) == sorted(f for f in committed["files"]
+                                                         if f.startswith("frames/"))
+
+
+# ---------------------------------------------------------------------------
+# decoding against cv2
+# ---------------------------------------------------------------------------
+
+def _textured(rng, h, w, c=3):
+    base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, c)).astype(np.uint8)
+    img = cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC).reshape(h, w, c)
+    img = np.clip(img.astype(int) + rng.integers(-30, 31, img.shape), 0, 255).astype(np.uint8)
+    return img if c > 1 else img[:, :, 0]
+
+
+def _both_reads_equal(tmp_path, data: bytes, name="a.jpg"):
+    p = str(tmp_path / name)
+    with open(p, "wb") as f:
+        f.write(data)
+    for got, flag in ((jpeg.read(p), cv2.IMREAD_UNCHANGED),
+                      (imread.read_color(p), cv2.IMREAD_COLOR)):
+        want = cv2.imread(p, flag)
+        assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape, (got.shape,
+                                                                                 want.shape)
+        np.testing.assert_array_equal(got, want)
+
+
+SIZES = ((1, 1), (7, 9), (17, 33), (480, 640))
+
+
+@pytest.mark.parametrize("sampling", sorted(SAMPLING))
+@pytest.mark.parametrize("quality", [50, 75, 95, 100])
+def test_read_equals_cv2(tmp_path, quality, sampling):
+    rng = np.random.default_rng(quality)
+    for h, w in SIZES:
+        for rst in (0, 2):
+            ok, buf = cv2.imencode(".jpg", _textured(rng, h, w), [
+                cv2.IMWRITE_JPEG_QUALITY, quality,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
+                cv2.IMWRITE_JPEG_RST_INTERVAL, rst])
+            _both_reads_equal(tmp_path, buf.tobytes())
+
+
+def test_grey_and_pil_optimized_tables_equal_cv2(tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    for h, w in SIZES:
+        for q in (50, 100):
+            ok, buf = cv2.imencode(".jpg", _textured(rng, h, w, 1), [cv2.IMWRITE_JPEG_QUALITY, q])
+            _both_reads_equal(tmp_path, buf.tobytes())
+    for h, w in ((7, 9), (31, 45), (480, 640)):
+        for subsampling in (0, 1, 2):              # PIL's 4:4:4, 4:2:2, 4:2:0
+            bio = io.BytesIO()
+            Image.fromarray(_textured(rng, h, w)[:, :, ::-1]).save(
+                bio, "JPEG", quality=80, optimize=True, subsampling=subsampling)
+            _both_reads_equal(tmp_path, bio.getvalue())
+            bio = io.BytesIO()
+            Image.fromarray(_textured(rng, h, w, 1)).save(bio, "JPEG", quality=70, optimize=True)
+            _both_reads_equal(tmp_path, bio.getvalue())
+
+
+def _segments(data: bytes):
+    """(marker, start, end) of each marker segment before the first scan."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xDA:
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        out.append((data[pos + 1], pos, pos + 2 + n))
+        pos += 2 + n
+    return out
+
+
+def test_colour_space_markers_equal_cv2(tmp_path):
+    """Adobe APP14 transform 0 and the component ids 'R', 'G', 'B' read as
+    RGB without conversion; Adobe transform 1 as YCbCr."""
+    rng = np.random.default_rng(5)
+    ok, buf = cv2.imencode(".jpg", _textured(rng, 24, 40), [
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING["420"]])
+    data = buf.tobytes()
+    app0 = [(s, e) for m, s, e in _segments(data) if m == 0xE0]
+    assert app0
+    s, e = app0[0]
+    for transform in (0, 1):
+        adobe = b"\xff\xee" + struct.pack(">H", 14) + b"Adobe" + bytes([0, 100, 0, 0, 0, 0,
+                                                                         transform])
+        _both_reads_equal(tmp_path, data[:s] + adobe + data[e:])
+    no_jfif = bytearray(data[:s] + data[e:])
+    sof = [(st, en) for m, st, en in _segments(bytes(no_jfif)) if m == 0xC0][0][0]
+    for k, cid in enumerate(b"RGB"):             # SOF component ids, then the SOS's
+        assert no_jfif[sof + 10 + 3 * k] == k + 1
+        no_jfif[sof + 10 + 3 * k] = cid
+    sos = bytes(no_jfif).index(b"\xff\xda")
+    for k, cid in enumerate(b"RGB"):
+        assert no_jfif[sos + 5 + 2 * k] == k + 1
+        no_jfif[sos + 5 + 2 * k] = cid
+    _both_reads_equal(tmp_path, bytes(no_jfif))
+
+
+def _exif(orientation: int) -> bytes:
+    tiff = (b"II*\x00" + struct.pack("<IH", 8, 1) + struct.pack("<HHI", 0x0112, 3, 1)
+            + struct.pack("<HHI", orientation, 0, 0))
+    return b"Exif\x00\x00" + tiff
+
+
+def test_exif_orientation(tmp_path):
+    rng = np.random.default_rng(6)
+    ok, buf = cv2.imencode(".jpg", _textured(rng, 16, 24))
+    data = buf.tobytes()
+    for o in (1, 6):
+        body = _exif(o)
+        p = str(tmp_path / f"o{o}.jpg")
+        with open(p, "wb") as f:
+            f.write(data[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + data[2:])
+        np.testing.assert_array_equal(jpeg.read(p), cv2.imread(p, cv2.IMREAD_UNCHANGED))
+        if o == 1:
+            np.testing.assert_array_equal(imread.read_color(p), cv2.imread(p))
+        else:
+            assert cv2.imread(p).shape == (24, 16, 3)     # cv2 turns it
+            with pytest.raises(native.UnsupportedImage, match=f"o{o}.jpg: EXIF orientation 6"):
+                imread.read_color(p)
+    # a PNG's eXIf chunk turns it too
+    import zlib
+    p = str(tmp_path / "o6.png")
+    cv2.imwrite(p, _textured(rng, 16, 24))
+    with open(p, "rb") as f:
+        data = f.read()
+    tiff = _exif(6)[6:]
+    chunk = struct.pack(">I", len(tiff)) + b"eXIf" + tiff + struct.pack(
+        ">I", zlib.crc32(b"eXIf" + tiff))
+    with open(p, "wb") as f:
+        f.write(data[:33] + chunk + data[33:])
+    assert cv2.imread(p).shape == (24, 16, 3)
+    with pytest.raises(native.UnsupportedImage, match="o6.png: EXIF orientation 6"):
+        imread.read_color(p)
+
+
+@pytest.mark.parametrize("kind", ["bgr8", "grey8", "bgra8", "greyalpha8", "bgr16", "grey16"])
+def test_read_color_of_png_equals_cv2(tmp_path, kind):
+    rng = np.random.default_rng(len(kind))
+    p = str(tmp_path / "a.png")
+    if kind == "greyalpha8":                     # cv2 writes no grey + alpha: by hand
+        ga = rng.integers(0, 256, (5, 6, 2), dtype=np.uint8)
+        import zlib
+        raw = b"".join(b"\0" + ga[y].tobytes() for y in range(5))
+
+        def chunk(k, d):
+            return struct.pack(">I", len(d)) + k + d + struct.pack(">I", zlib.crc32(k + d))
+        with open(p, "wb") as f:
+            f.write(png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", 6, 5, 8, 4, 0, 0, 0))
+                    + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    else:
+        shape = {"bgr8": (9, 11, 3), "grey8": (9, 11), "bgra8": (9, 11, 4),
+                 "bgr16": (9, 11, 3), "grey16": (9, 11)}[kind]
+        dtype = np.uint16 if kind.endswith("16") else np.uint8
+        cv2.imwrite(p, rng.integers(0, np.iinfo(dtype).max + 1, shape, dtype=dtype))
+    got, want = imread.read_color(p), cv2.imread(p)
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unsupported_files_raise_naming_the_file(tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    img = _textured(rng, 32, 48)
+    ok, base = cv2.imencode(".jpg", img)
+    base = base.tobytes()
+    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    cmyk = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (16, 16, 4), dtype=np.uint8), "CMYK").save(cmyk, "JPEG")
+    sof = [s for m, s, _ in _segments(base) if m == 0xC0][0]
+
+    def sof_patched(marker=None, precision=None):
+        d = bytearray(base)
+        if marker is not None:
+            d[sof + 1] = marker
+        if precision is not None:
+            d[sof + 4] = precision
+        return bytes(d)
+
+    cases = {"progressive": (prog.tobytes(), "progressive"),
+             "cmyk": (cmyk.getvalue(), "CMYK"),
+             "truncated": (base[:len(base) // 2], "truncated"),
+             "no_eoi": (base[:-2], "EOI"),
+             "arithmetic": (sof_patched(marker=0xC9), "arithmetic"),
+             "lossless": (sof_patched(marker=0xC3), "lossless"),
+             "12bit": (sof_patched(precision=12), "8-bit"),
+             "not_a_jpeg": (b"GIF89a" + base[6:], "not a JPEG")}
+    for name, (data, what) in cases.items():
+        p = str(tmp_path / f"{name}.jpg")
+        with open(p, "wb") as f:
+            f.write(data)
+        for read in (jpeg.read, imread.read_color, tbop.read_image):
+            with pytest.raises(native.UnsupportedImage,
+                               match=f"{name}.jpg.*{what}|{what}.*{name}.jpg"
+                               if name != "not_a_jpeg" else f"{name}.jpg"):
+                read(p)
+
+
+def test_read_image_on_jpeg_frames_equals_jax(tmp_path):
+    rng = np.random.default_rng(8)
+    for name, img in (("c.jpg", _textured(rng, 48, 64)), ("g.jpg", _textured(rng, 48, 64, 1)),
+                      ("png_named.jpg", None)):
+        p = str(tmp_path / name)
+        if img is None:                          # a PNG with a .jpg name: by signature
+            cv2.imwrite(str(tmp_path / "x.png"), _textured(rng, 8, 8))
+            os.replace(str(tmp_path / "x.png"), p)
+        else:
+            cv2.imwrite(p, img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        got, want = tbop.read_image(p), jbop.read_image(p)
+        assert got.shape == want.shape == (got.shape[0], got.shape[1], 3)
+        np.testing.assert_array_equal(got, want)
+        assert not got.flags.writeable
+
+
+if __name__ == "__main__":
+    m = write_fixtures()
+    print(f"wrote {len(m['files'])} fixtures and {len(m['cases'])} cases under {FIXTURES}")

@@ -31,8 +31,21 @@ from kd6d_pose_adlp_tpu.ops import sinkhorn as jsk
 from kd6d_pose_adlp_tpu.ops.sinkhorn_pallas import _solve_potentials
 from kd6d_pose_adlp_tpu_torch.ops import sinkhorn as tsk
 from kd6d_pose_adlp_tpu_torch.ops import sinkhorn_fused as sf
+from test_torch_port_pool import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KW = dict(p=2.0, blur=1e-3, scaling=0.5, diameter=2.0)
+
+
+@pytest.fixture(autouse=True)
+def pinned_float_state():
+    """The float state an earlier file in the same xdist worker could have
+    left, pinned for every test: torch at one intra-op thread (the
+    imported `one_torch_thread`), denormals kept (torch's default) and JAX
+    in float32 at its default matmul precision."""
+    torch.set_flush_denormal(False)
+    assert not jax.config.jax_enable_x64
+    assert jax.config.jax_default_matmul_precision is None
+    yield
 
 
 def _clouds(seed, N=16, P=64, T=64):
