@@ -2153,7 +2153,9 @@ def bop_bitexact_phase():
         if fixture_digest(a) != case["sha256"]:
             wrong.append(f"{case['input']} {case['ops']}")
     n_files, n_cases = len(manifest["files"]), len(manifest["cases"])
-    log(f"[bop] (f) bit-equality with cv2's committed digests: {n_files} fixtures x 2 reads, "
+    log(f"[bop] (f) bit-equality with cv2's committed digests: {n_files} fixtures x 2 reads "
+        f"(baseline and progressive frames; baseline, progressive, CMYK and EXIF-turned "
+        f"JPEG, grey + alpha, 16-bit, palette + tRNS and Adam7 PNG backgrounds), "
         f"{n_cases} primitive cases (HSV both ways, GaussianBlur 7x7 at sigma 0, -1, 0.37, "
         f"0.93, blur 5-11, normalize float32 / float64 / max == min, resize up, down and the "
         f"exact 2x) in {time.perf_counter() - t0:.2f} s: {len(wrong)} differ")
@@ -2212,13 +2214,28 @@ def augmentation_ms(frame, backgrounds: str) -> dict:
     return out
 
 
+def jpeg_frame_kind(path: str) -> str:
+    """"progressive" or "baseline": the JPEG's frame marker (SOF2 or SOF0 /
+    SOF1), from its marker segments before the first scan."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF and data[pos + 1] != 0xDA:
+        if data[pos + 1] in (0xC0, 0xC1, 0xC2):
+            return "progressive" if data[pos + 1] == 0xC2 else "baseline"
+        pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+    raise AssertionError(f"{path}: no SOF0-2 marker before the first scan")
+
+
 def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2):
     """(e) The tree's frames as the committed JPEG fixtures of the same
-    scenes: decode ms a 640x480 frame; the loader's images/s at B=16 on 1
+    scenes, baseline and progressive: decode ms a 640x480 frame of each
+    kind; the loader's images/s at B=16 on 1
     and 4 threads, every augmentation on beside off, slow and fast;
     train_kd.main --data bop on the JPEG train list with every augmentation
-    on and the fixture backgrounds, slow and fast; evaluate.main on the JPEG
-    test list. Returns (summary, K1 launches)."""
+    on and the fixture backgrounds (among them progressive, CMYK and
+    EXIF-turned JPEGs, palette + tRNS and Adam7 PNGs), slow and fast;
+    evaluate.main on the JPEG test list. Returns (summary, K1 launches)."""
     import contextlib
     import dataclasses
     import io
@@ -2231,7 +2248,7 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
 
     backgrounds = os.path.join(FIXTURES, "backgrounds")
     frames = os.path.join(FIXTURES, "frames")
-    lists, decode_ms = {}, []
+    lists, decode_ms = {}, {}
     for split in ("train", "test"):
         names = []
         for f in sorted(os.listdir(frames)):
@@ -2242,7 +2259,7 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
                 t0 = time.perf_counter()
                 for _ in range(BOP_JPEG_DECODES):
                     img = jpeg.read(os.path.join(root, rel))
-                decode_ms.append(1e3 * (time.perf_counter() - t0) / BOP_JPEG_DECODES)
+                decode_ms[f] = 1e3 * (time.perf_counter() - t0) / BOP_JPEG_DECODES
                 if img.shape != (480, 640, 3):
                     raise AssertionError(f"{rel}: decoded to {img.shape}")
         lists[split] = os.path.join(root, f"jpeg_{split}_list.txt")
@@ -2268,9 +2285,17 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
     no_aug = cfg.replace(solver=dataclasses.replace(
         s, aug_color_h=0.0, aug_color_s=0.0, aug_color_v=0.0, aug_sharpen=0.0,
         aug_smooth=0.0, aug_noise=0.0, aug_occlusion=0.0))
-    log(f"[bop] (e) JPEG frames: {len(decode_ms)} fixtures (4:2:0, 4:2:2, 4:4:4, 4:4:0, "
-        f"restarts) decode in {min(decode_ms):.2f}-{max(decode_ms):.2f} ms a 640x480 frame "
-        f"(PNG frames of (a): {png_frame_ms:.2f} ms)")
+    kinds = {f: jpeg_frame_kind(os.path.join(frames, f)) for f in decode_ms}
+    if sorted(set(kinds.values())) != ["baseline", "progressive"]:
+        raise AssertionError(f"the JPEG fixtures' frames are not baseline and progressive: "
+                             f"{kinds}")
+    by_kind = {k: [decode_ms[f] for f in decode_ms if kinds[f] == k] for k in set(kinds.values())}
+    log(f"[bop] (e) JPEG frames: {len(decode_ms)} fixtures decode in ms a 640x480 frame: "
+        + ", ".join(f"{f} ({kinds[f]}) {ms:.2f}" for f, ms in decode_ms.items())
+        + "; baseline (4:2:0, 4:2:2, 4:4:4, 4:4:0, restarts) "
+        f"{min(by_kind['baseline']):.2f}-{max(by_kind['baseline']):.2f}, progressive "
+        f"{min(by_kind['progressive']):.2f}-{max(by_kind['progressive']):.2f} (PNG frames of "
+        f"(a): {png_frame_ms:.2f} ms)")
 
     aug_ms = augmentation_ms(jpeg.read(os.path.join(root, "train", "000001", "rgb",
                                                     "000000.jpg")), backgrounds)
@@ -2366,7 +2391,8 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
     if not (ev["table"] in printed and n_preds == n_test and k2 and min(k2.values()) > 0):
         raise AssertionError("evaluate.main on the JPEG test list: table, predictions or K2 "
                              "launches not as expected")
-    return dict(decode_ms=decode_ms, png_frame_ms=png_frame_ms, augmentation_ms=aug_ms,
+    return dict(decode_ms=decode_ms, frame_kinds=kinds, png_frame_ms=png_frame_ms,
+                augmentation_ms=aug_ms,
                 loader_images_per_s=rates,
                 train_kd=runs, evaluate=dict(seconds=secs, predictions=n_preds)), k1_total
 

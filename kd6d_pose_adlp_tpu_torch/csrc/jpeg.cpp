@@ -1,21 +1,34 @@
-// Baseline JPEG decoder of the port's host data plane, bit-equal to
-// libjpeg-turbo's default decompression (what cv2.imread returns): Huffman
-// entropy decoding of SOF0 / SOF1 frames at 8 bits, the accurate integer IDCT
-// (jidctint.c jpeg_idct_islow: CONST_BITS 13, PASS1_BITS 2, the range-limit
-// table), fancy (triangle) upsampling of h2v1, h1v2 and h2v2 chroma with
-// libjpeg-turbo's alternating rounding bias and edge rows, int_upsample
-// replication for any other integral factor, and ycc_rgb_convert's
-// fixed-point tables (SCALEBITS 16), written out as BGR.
+// JPEG decoder of the port's host data plane, bit-equal to libjpeg-turbo's
+// default decompression (what cv2.imread returns): Huffman entropy decoding
+// of SOF0 / SOF1 (sequential) and SOF2 (progressive) frames at 8 bits, the
+// accurate integer IDCT (jidctint.c jpeg_idct_islow: CONST_BITS 13,
+// PASS1_BITS 2, the range-limit table), fancy (triangle) upsampling of h2v1,
+// h1v2 and h2v2 chroma with libjpeg-turbo's alternating rounding bias and
+// edge rows, int_upsample replication for any other integral factor, and
+// ycc_rgb_convert's fixed-point tables (SCALEBITS 16), written out as BGR.
+//
+// A sequential frame is transformed block by block as it is decoded. A
+// progressive frame (jdphuff.c: DC first and refine, AC first with EOB runs
+// and AC refine, spectral selection and successive approximation, single-
+// component scans on the component's own block grid, restart intervals) is
+// decoded into a whole-image coefficient buffer that goes through the same
+// IDCT after EOI. libjpeg smooths the blocks (jdcoefct.c smoothing_ok) where
+// a component's zigzag coefficients 1-9 are still incomplete at EOI; such a
+// file fails here rather than decoding to other pixels.
 //
 // Colour space as jdapimin.c default_decompress_parms decides it: one
 // component is grey; three are YCbCr under a JFIF marker, RGB under an Adobe
 // APP14 marker of transform 0 (copied, no conversion), YCbCr under any other
 // Adobe transform, and without either marker RGB only for the component ids
-// 'R', 'G', 'B'. Anything else fails with a message and no image:
-// progressive, lossless, hierarchical or arithmetic-coded frames, other
-// precisions, 2 or 4 components (CMYK / YCCK), fractional sampling factors,
-// missing tables, bad Huffman codes, missing restart markers and data that
-// ends before the last MCU.
+// 'R', 'G', 'B'; four are CMYK without an Adobe marker or under transform 0,
+// YCCK under any other (jdcolor.c ycck_cmyk_convert); either comes out as
+// BGR through OpenCV's icvCvt_CMYK2BGR_8u_C4C3R (which reads Adobe's
+// inverted channels), the image cv2 returns for a 4-component JPEG under
+// either flag. Anything else fails
+// with a message and no image: lossless, hierarchical or arithmetic-coded
+// frames, other precisions, 2 components, fractional sampling factors,
+// missing tables, bad Huffman codes, illegal progressions, missing restart
+// markers, DNL markers and data that ends before the last MCU or EOI.
 //
 // Compiled with dataplane.cpp into one library by data/native.py.
 #include <cstdint>
@@ -103,6 +116,14 @@ struct Comp {
   int dcpred = 0;
   bool seen = false;
   std::vector<uint8_t> plane;
+  // progressive frames: the coefficients of the MCU-padded block grid
+  // (bstride blocks a row), the quantization table latched at the
+  // component's first scan, and the Al of the last scan of each zigzag
+  // coefficient (-1 before any), as libjpeg's coef_bits
+  std::vector<int16_t> coef;
+  int bstride = 0;
+  uint16_t q[64];
+  int coef_bits[64];
 };
 
 struct Decoder {
@@ -114,8 +135,9 @@ struct Decoder {
   Huff dc[4], ac[4];
   int W = 0, H = 0, nc = 0, hmax = 1, vmax = 1, ri = 0;
   Comp comp[4];
-  bool have_sof = false, jfif = false, adobe = false;
+  bool have_sof = false, jfif = false, adobe = false, progressive = false;
   int adobe_transform = -1;
+  int eobrun = 0;
   // entropy reader
   uint64_t acc = 0;
   int nbits = 0, pad = 0;
@@ -182,13 +204,14 @@ struct Decoder {
 
   void read_sof(int m) {
     if (have_sof) throw Fail{"more than one frame"};
-    if (m != 0xC0 && m != 0xC1) {
-      if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE)
-        throw Fail{"progressive JPEG is not supported"};
+    if (m != 0xC0 && m != 0xC1 && m != 0xC2) {
       if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF)
         throw Fail{"lossless JPEG is not supported"};
+      if (m == 0xC5 || m == 0xC6)
+        throw Fail{"hierarchical JPEG is not supported"};
       throw Fail{"arithmetic-coded or hierarchical JPEG is not supported"};
     }
+    progressive = m == 0xC2;
     int prec = u8();
     if (prec != 8) throw Fail{"only 8-bit JPEG is supported"};
     H = u16();
@@ -196,9 +219,8 @@ struct Decoder {
     nc = u8();
     if (H <= 0 || W <= 0) throw Fail{"bad image size (or a DNL marker, not supported)"};
     if ((int64_t)W * H > (int64_t)1 << 30) throw Fail{"image larger than 2^30 pixels"};
-    if (nc != 1 && nc != 3)
-      throw Fail{nc == 4 ? "CMYK / YCCK JPEG is not supported"
-                         : "only 1 or 3 colour components are supported"};
+    if (nc != 1 && nc != 3 && nc != 4)
+      throw Fail{"only 1, 3 or 4 colour components are supported"};
     for (int i = 0; i < nc; ++i) {
       comp[i].id = u8();
       int hv = u8();
@@ -221,6 +243,11 @@ struct Decoder {
       c.stride = mcux * c.h * 8;
       c.rows = mcuy * c.v * 8;
       c.plane.assign((size_t)c.stride * c.rows, 0);
+      if (progressive) {
+        c.bstride = c.stride / 8;
+        c.coef.assign((size_t)c.bstride * (c.rows / 8) * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      }
     }
     have_sof = true;
   }
@@ -295,11 +322,19 @@ struct Decoder {
     hit_marker = false;
   }
 
+  // the DC predictor plus a difference, failing where the int would
+  // overflow (jdhuff.c JERR_BAD_DCT_COEF)
+  static void add_dc(Comp& c, int s) {
+    if ((c.dcpred >= 0 && s > INT32_MAX - c.dcpred) || (c.dcpred < 0 && s < INT32_MIN - c.dcpred))
+      throw Fail{"DC coefficient out of range"};
+    c.dcpred += s;
+  }
+
   void decode_block(Comp& c, int16_t* coef) {
     std::memset(coef, 0, 64 * sizeof(int16_t));
     int s = decode(dc[c.td]);
     if (s) s = extend(bits(s), s);
-    c.dcpred += s;
+    add_dc(c, s);
     coef[0] = (int16_t)c.dcpred;
     const Huff& a = ac[c.ta];
     for (int k = 1; k < 64; ++k) {
@@ -316,6 +351,77 @@ struct Decoder {
     }
   }
 
+  // jdphuff.c decode_mcu_DC_first / _DC_refine / _AC_first / _AC_refine,
+  // one block each
+  void dc_first(Comp& c, int16_t* blk, int al) {
+    int s = decode(dc[c.td]);
+    if (s) s = extend(bits(s), s);
+    add_dc(c, s);
+    blk[0] = (int16_t)(int)((unsigned)c.dcpred << al);
+  }
+  void dc_refine(int16_t* blk, int al) {
+    if (bits(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+  void ac_first(const Comp& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huff& t = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode(t), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)(int)((unsigned)extend(bits(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+  // a correction bit for each already-nonzero coefficient: 1 adds p1 to its
+  // magnitude unless the bit is already set
+  inline void refine(int16_t* t, int p1) {
+    if (bits(1) && (*t & p1) == 0) *t = (int16_t)(*t + (*t >= 0 ? p1 : -p1));
+  }
+  void ac_refine(const Comp& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    const Huff& t = ac[c.ta];
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode(t), r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) throw Fail{"bad Huffman code in a refinement scan"};
+          s = bits(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits(r);
+          break;
+        }
+        do {
+          int16_t* th = blk + kNatural[k];
+          if (*th != 0) {
+            refine(th, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k)
+        if (blk[kNatural[k]] != 0) refine(blk + kNatural[k], p1);
+      --eobrun;
+    }
+  }
+
   void idct_block(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride);
 
   void read_sos() {
@@ -325,29 +431,58 @@ struct Decoder {
     if (ns < 1 || ns > 4 || len != 6 + 2 * ns) throw Fail{"bad SOS"};
     size_t end = pos - 1 + len - 2;
     Comp* sc[4];
+    int tsel[4];
     for (int i = 0; i < ns; ++i) {
-      int cid = u8(), t = u8();
+      int cid = u8();
+      tsel[i] = u8();
       Comp* c = nullptr;
       for (int j = 0; j < nc; ++j)
         if (comp[j].id == cid) c = &comp[j];
       if (!c) throw Fail{"SOS names an unknown component"};
-      c->td = t >> 4;
-      c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        throw Fail{"a scan uses an undefined Huffman table"};
-      if (!qdef[c->tq]) throw Fail{"a component uses an undefined quantization table"};
-      c->seen = true;
-      c->dcpred = 0;
       sc[i] = c;
     }
-    int ss = u8(), se = u8(), a = u8();
-    if (ss != 0 || se != 63 || a != 0) throw Fail{"progressive JPEG is not supported"};
+    int ss = u8(), se = u8(), a = u8(), ah = a >> 4, al = a & 15;
+    // the scan's kind: 0 sequential, 1 DC first, 2 DC refine, 3 AC first,
+    // 4 AC refine (jdphuff.c start_pass_phuff_decoder's checks; libjpeg
+    // only warns of an illegal progression, which fails here)
+    int kind = 0;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || a != 0) throw Fail{"a sequential scan is not 0-63"};
+    } else {
+      bool dc_band = ss == 0;
+      if ((dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+          (ah != 0 && al != ah - 1) || al > 13)
+        throw Fail{"bad progressive scan parameters"};
+      kind = dc_band ? (ah ? 2 : 1) : (ah ? 4 : 3);
+      for (int i = 0; i < ns; ++i) {
+        int* cb = sc[i]->coef_bits;
+        if (!dc_band && cb[0] < 0) throw Fail{"an AC scan before the DC scan (bad progression)"};
+        for (int k = ss; k <= se; ++k) {
+          if (ah != (cb[k] < 0 ? 0 : cb[k])) throw Fail{"bad progression of successive approximation"};
+          cb[k] = al;
+        }
+      }
+    }
+    for (int i = 0; i < ns; ++i) {
+      Comp* c = sc[i];
+      c->td = tsel[i] >> 4;
+      c->ta = tsel[i] & 15;
+      bool need_dc = kind <= 1, need_ac = kind == 0 || kind >= 3;
+      if (c->td > 3 || c->ta > 3 || (need_dc && !dc[c->td].defined) ||
+          (need_ac && !ac[c->ta].defined))
+        throw Fail{"a scan uses an undefined Huffman table"};
+      if (!qdef[c->tq]) throw Fail{"a component uses an undefined quantization table"};
+      if (progressive && !c->seen) std::memcpy(c->q, qt[c->tq], sizeof(c->q));
+      c->seen = true;
+      c->dcpred = 0;
+    }
     pos = end;
     bpos = pos;
     acc = 0;
     nbits = 0;
     pad = 0;
     hit_marker = false;
+    eobrun = 0;
 
     alignas(16) int16_t coef[64];
     int mcux, mcuy;
@@ -368,6 +503,7 @@ struct Decoder {
         bpos = q + 1;
         ++rst;
         for (int i = 0; i < ns; ++i) sc[i]->dcpred = 0;
+        eobrun = 0;
       }
       int mx = m % mcux, my = m / mcux;
       for (int i = 0; i < ns; ++i) {
@@ -375,15 +511,52 @@ struct Decoder {
         int bh = ns == 1 ? 1 : c.v, bwn = ns == 1 ? 1 : c.h;
         for (int by = 0; by < bh; ++by)
           for (int bx = 0; bx < bwn; ++bx) {
-            decode_block(c, coef);
-            int x0 = (mx * bwn + bx) * 8, y0 = (my * bh + by) * 8;
-            idct_block(coef, qt[c.tq], c.plane.data() + (size_t)y0 * c.stride + x0, c.stride);
+            int x = mx * bwn + bx, y = my * bh + by;
+            if (kind == 0) {
+              decode_block(c, coef);
+              idct_block(coef, qt[c.tq], c.plane.data() + (size_t)y * 8 * c.stride + x * 8,
+                         c.stride);
+              continue;
+            }
+            int16_t* blk = c.coef.data() + ((size_t)y * c.bstride + x) * 64;
+            switch (kind) {
+              case 1: dc_first(c, blk, al); break;
+              case 2: dc_refine(blk, al); break;
+              case 3: ac_first(c, blk, ss, se, al); break;
+              default: ac_refine(c, blk, ss, se, al); break;
+            }
           }
       }
       check_overread();
     }
     end_segment();
     pos = bpos;
+  }
+
+  // After EOI of a progressive frame: every component has had its DC scan,
+  // no block would be smoothed, and the coefficients go through the IDCT.
+  void finish_progressive() {
+    static const int kQpos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool smooth_ok = true, incomplete = false;
+    for (int i = 0; i < nc; ++i) {
+      const Comp& c = comp[i];
+      if (c.coef_bits[0] < 0) throw Fail{"a component has no DC scan (truncated)"};
+      for (int k = 0; k < 10; ++k)
+        if (c.q[kQpos[k]] == 0) smooth_ok = false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) incomplete = true;
+    }
+    if (smooth_ok && incomplete)
+      throw Fail{"progressive data ends with coefficients 1-9 incomplete, which libjpeg "
+                 "smooths across blocks (not supported)"};
+    for (int i = 0; i < nc; ++i) {
+      Comp& c = comp[i];
+      for (int y = 0; y < c.rows / 8; ++y)
+        for (int x = 0; x < c.bstride; ++x)
+          idct_block(c.coef.data() + ((size_t)y * c.bstride + x) * 64, c.q,
+                     c.plane.data() + (size_t)y * 8 * c.stride + x * 8, c.stride);
+      std::vector<int16_t>().swap(c.coef);
+    }
   }
 
   void parse(bool headers_only) {
@@ -394,6 +567,7 @@ struct Decoder {
         if (!have_sof) throw Fail{"no frame before EOI"};
         for (int i = 0; i < nc; ++i)
           if (!comp[i].seen) throw Fail{"a component has no scan (truncated)"};
+        if (progressive && !headers_only) finish_progressive();
         return;
       }
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7)) throw Fail{"unexpected marker"};
@@ -427,8 +601,10 @@ struct Decoder {
   }
 
   int color_space() const {
-    // 0 grey, 1 YCbCr, 2 RGB (jdapimin.c default_decompress_parms)
+    // 0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK (jdapimin.c
+    // default_decompress_parms)
     if (nc == 1) return 0;
+    if (nc == 4) return adobe && adobe_transform != 0 ? 4 : 3;
     if (jfif) return 1;
     if (adobe) return adobe_transform == 0 ? 2 : 1;
     if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) return 2;
@@ -657,6 +833,24 @@ void Decoder::output(uint8_t* dst, bool color) {
   upsample(comp[1], p1);
   upsample(comp[2], p2);
   const size_t N = (size_t)W * H;
+  if (cs >= 3) {
+    std::vector<uint8_t> p3;
+    upsample(comp[3], p3);
+    for (size_t i = 0; i < N; ++i) {
+      int c = p0[i], m = p1[i], y = p2[i], k = p3[i];
+      if (cs == 4) {                   // jdcolor.c ycck_cmyk_convert
+        int luma = p0[i], cb = p1[i], cr = p2[i];
+        c = clamp255(255 - (luma + g_ycc.cr_r[cr]));
+        m = clamp255(255 - (luma + (int)((g_ycc.cb_g[cb] + g_ycc.cr_g[cr]) >> 16)));
+        y = clamp255(255 - (luma + g_ycc.cb_b[cb]));
+      }
+      // OpenCV icvCvt_CMYK2BGR_8u_C4C3R
+      dst[3 * i + 2] = (uint8_t)(k - ((255 - c) * k >> 8));
+      dst[3 * i + 1] = (uint8_t)(k - ((255 - m) * k >> 8));
+      dst[3 * i] = (uint8_t)(k - ((255 - y) * k >> 8));
+    }
+    return;
+  }
   if (cs == 2) {
     for (size_t i = 0; i < N; ++i) {
       dst[3 * i] = p2[i];
@@ -682,7 +876,7 @@ void set_err(char* err, int errlen, const std::string& msg) {
 extern "C" {
 
 // Header of the JPEG in data[0:n): info = {height, width, components,
-// colour space (0 grey, 1 YCbCr, 2 RGB)}. 0 on success, else 1 and a
+// colour space (0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK)}. 0 on success, else 1 and a
 // message in err.
 int jpeg_info(const uint8_t* data, int64_t n, int* info, char* err, int errlen) {
   try {
@@ -703,8 +897,9 @@ int jpeg_info(const uint8_t* data, int64_t n, int* info, char* err, int errlen) 
   }
 }
 
-// Decode the JPEG in data[0:n) into out: (H, W) grey or (H, W, 3) BGR when
-// color is 0 (cv2.IMREAD_UNCHANGED), always (H, W, 3) BGR when color is 1
+// Decode the JPEG in data[0:n) into out: (H, W) grey or (H, W, 3) BGR (also
+// of a CMYK / YCCK file) when color is 0 (cv2.IMREAD_UNCHANGED), always
+// (H, W, 3) BGR when color is 1
 // (the colour conversion of cv2.IMREAD_COLOR). out holds the size jpeg_info
 // gives. 0 on success, else 1 and a message in err.
 int jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size, int color,

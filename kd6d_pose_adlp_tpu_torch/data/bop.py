@@ -5,9 +5,10 @@ The reference's annotation flow (`libs/utils.py:238-301`,
 class ids, R, T) from scene_camera.json / scene_gt.json / mask_visib PNGs.
 JSON files are cached per path; decoded frames and annotations go through a
 byte-budgeted LRU (`KD6D_DECODE_CACHE_MB`, 2048 by default, 0 disables).
-Frames are read without an image library (`data/imread.py`): PNG by
-`data/png.py`, JPEG (BOP's PBR renders) by `data/jpeg.py`, told apart by
-their signatures as cv2 does.
+Frames and masks are read without an image library (`data/imread.py`): PNG
+by `data/png.py` (any colour type and bit depth, tRNS, Adam7), JPEG (BOP's
+PBR renders; sequential or progressive, grey, colour or CMYK) by
+`data/jpeg.py`, told apart by their signatures as cv2 does.
 """
 from __future__ import annotations
 
@@ -70,7 +71,9 @@ def read_image(path: str) -> np.ndarray:
     """BGR uint8 image with the reference's normalizations
     (libs/dataset.py:59-90): uint16 -> uint8, gray -> 3ch, alpha -> white bg.
     Decoded frames are LRU-cached and returned write-protected; callers
-    must copy before mutating. A file that cannot be decoded raises
+    must copy before mutating. A palette or RGB PNG with tRNS reads as BGRA
+    and is composited on white like any alpha. A file that cannot be
+    decoded (`imread`'s docstring lists what) raises
     `native.UnsupportedImage` naming it."""
     cached = _DECODE_CACHE.get(path)
     if cached is not None:

@@ -4,9 +4,13 @@ chooses, never by its name.
 
 `read(path)` is `cv2.imread(path, IMREAD_UNCHANGED)`; `read_color(path)` is
 `cv2.imread(path)` (IMREAD_COLOR): grey to three channels, alpha dropped,
-16 bits to their high byte. cv2 turns an image by its EXIF orientation under
-IMREAD_COLOR; an orientation other than 1 raises here instead. A file in
-another format, or one that the two decoders do not handle, raises
+16 bits to their high byte, and the image turned by the EXIF orientation of
+a JPEG's APP1 block or a PNG's eXIf chunk as cv2's ExifTransform turns it
+(orientations 2-8: a flip, a rotation or a transpose; `read`, as
+IMREAD_UNCHANGED, never turns). What the two decoders decode is in their
+docstrings. A file in another format, or one that they do not handle
+(arithmetic-coded, lossless, hierarchical or 12-bit JPEG, DNL, truncated or
+damaged data, a progressive JPEG that libjpeg would smooth), raises
 `UnsupportedImage` (a ValueError) naming the file.
 """
 from __future__ import annotations
@@ -69,6 +73,19 @@ def _png_exif(data: bytes) -> bytes:
     return b""
 
 
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """`img` turned by an EXIF orientation as cv2's ExifTransform turns it:
+    2 flips left-right, 3 turns half way, 4 flips upside down, 5 transposes,
+    6, 7 and 8 transpose and then flip left-right, both ways or upside down;
+    any other value leaves it."""
+    if 5 <= orientation <= 8:
+        img = img.swapaxes(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    for axis in flip:
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
 def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarray:
     """Decode the PNG or JPEG file contents `data` as `read` (or, with
     `color`, `read_color`) does."""
@@ -76,22 +93,18 @@ def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarra
     if not is_png and data[:3] != jpeg.SIGNATURE:
         raise UnsupportedImage(f"{name}: neither a PNG nor a JPEG file, the two formats "
                                "the port decodes")
-    if color:
-        exif = _png_exif(data) if is_png else _jpeg_exif(data)
-        orientation = _tiff_orientation(exif) if exif else 1
-        if 2 <= orientation <= 8:
-            raise UnsupportedImage(f"{name}: EXIF orientation {orientation} is not "
-                                   "supported (cv2 turns the image under IMREAD_COLOR)")
     if not is_png:
-        return jpeg.decode(data, name=name, color=color)
-    img = png.decode(data, name=name)
+        img = jpeg.decode(data, name=name, color=color)
+    else:
+        img = png.decode(data, name=name)
     if not color:
         return img
-    if img.dtype == np.uint16:                   # libpng's strip_16: the high byte
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        return np.repeat(img[:, :, None], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, :3])
+    if is_png:
+        if img.dtype == np.uint16:               # libpng's strip_16: the high byte
+            img = (img >> 8).astype(np.uint8)
+        img = np.repeat(img[:, :, None], 3, axis=2) if img.ndim == 2 else img[:, :, :3]
+    exif = _png_exif(data) if is_png else _jpeg_exif(data)
+    return _orient(img, _tiff_orientation(exif) if exif else 1)
 
 
 def read(path: str, color: bool = False) -> np.ndarray:

@@ -1,14 +1,18 @@
 """JPEG reading without an image library: the port's counterpart of
 `cv2.imread(path, IMREAD_UNCHANGED)` for JPEG frames (BOP's PBR renders).
 
-`read` hands the file to the data plane's baseline decoder
-(`csrc/jpeg.cpp`, which releases the interpreter lock, so loader threads
-overlap) and returns what cv2 returns: (H, W) grey or (H, W, 3) BGR uint8,
-bit-equal to libjpeg-turbo's default decompression. Progressive, lossless,
-arithmetic-coded, 12-bit, CMYK / YCCK and truncated files raise
-`native.UnsupportedImage` (a ValueError) naming the file. An Adobe APP14
-marker of transform 0 reads as RGB, with no colour conversion, as libjpeg
-does. `imread.py` chooses between this and `png.py` by signature.
+`read` hands the file to the data plane's decoder (`csrc/jpeg.cpp`, which
+releases the interpreter lock, so loader threads overlap) and returns what
+cv2 returns: (H, W) grey or (H, W, 3) BGR uint8, bit-equal to
+libjpeg-turbo's default decompression, for sequential and progressive
+frames. An Adobe APP14 marker of transform 0 reads as RGB, with no colour
+conversion, as libjpeg does; a 4-component file (CMYK, or YCCK under Adobe
+transform 2) reads as (H, W, 3) BGR by OpenCV's CMYK -> BGR step, as cv2
+gives it under either flag. Lossless, arithmetic-coded, hierarchical and
+12-bit files, DNL markers, truncated files and a progressive file whose
+coefficients 1-9 are incomplete at EOI (libjpeg would smooth its blocks)
+raise `native.UnsupportedImage` (a ValueError) naming the file. `imread.py`
+chooses between this and `png.py` by signature.
 """
 from __future__ import annotations
 

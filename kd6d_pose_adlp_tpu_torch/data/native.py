@@ -1,6 +1,6 @@
 """ctypes bindings of the port's host data plane (`csrc/dataplane.cpp`, the
 counterpart of `kd6d_pose_adlp_tpu/data/native.py`; `csrc/jpeg.cpp`, the
-baseline JPEG decoder; `csrc/cvarith.cpp`, cv2's uint8 colour, filter and
+sequential and progressive JPEG decoder; `csrc/cvarith.cpp`, cv2's uint8 colour, filter and
 resize arithmetic of the augmentations).
 
 The three sources are built with g++ at first use into one library in
@@ -172,10 +172,11 @@ def _jpeg_fail(name: str, err) -> UnsupportedImage:
 
 
 def jpeg_decode(data: bytes, color: bool, name: str = "<bytes>") -> np.ndarray:
-    """The baseline JPEG `data` decoded as libjpeg-turbo decodes it for
-    cv2.imread: (H, W) grey or (H, W, 3) BGR uint8, or (H, W, 3) BGR
-    always when `color` (IMREAD_COLOR's conversion). Raises
-    UnsupportedImage naming `name` for what `csrc/jpeg.cpp` does not decode."""
+    """The JPEG `data` (sequential or progressive; grey, YCbCr, RGB, CMYK or
+    YCCK) decoded as libjpeg-turbo decodes it for cv2.imread: (H, W) grey or
+    (H, W, 3) BGR uint8, or (H, W, 3) BGR always when `color` (IMREAD_COLOR's
+    conversion). Raises UnsupportedImage naming `name` for what
+    `csrc/jpeg.cpp` does not decode (its header comment lists it)."""
     lib = get_lib()
     info = np.zeros(4, np.int32)
     err = ctypes.create_string_buffer(256)

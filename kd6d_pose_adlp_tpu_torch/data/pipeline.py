@@ -116,9 +116,11 @@ class BOPPoseDataset:
         """One sample dict (image, mask, class_ids, rotations, translations,
         bbox_trans, meta), or None when the frame has no usable object (the
         loader redraws, as the reference does). A missing frame or
-        annotation also gives None, as in the JAX package; a frame or mask
-        that the port cannot decode raises UnsupportedImage naming it,
-        since the JAX package's cv2 would read it."""
+        annotation also gives None, as in the JAX package, and so does a mask
+        that reads with colour channels (a palette or RGB PNG), whose merge
+        fails there with an IndexError; a frame or mask that the port cannot
+        decode raises UnsupportedImage naming it, since the JAX package's cv2
+        would read it."""
         cfg = self.cfg
         s = cfg.solver
         rng = np.random.default_rng((seed * 1_000_003 + index) & 0x7FFFFFFF)
@@ -128,7 +130,7 @@ class BOPPoseDataset:
             K, mask, class_ids, Rs, Ts = bop.get_single_bop_annotation(path, self.obj2cls)
         except UnsupportedImage:
             raise
-        except (OSError, ValueError, KeyError):
+        except (OSError, ValueError, LookupError):
             return None
         if len(class_ids) == 0:
             return None

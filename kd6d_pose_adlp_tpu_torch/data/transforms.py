@@ -145,7 +145,10 @@ class BackgroundBank:
     """Random background replacement (reference libs/transform.py
     RandomBackground): with p=0.5 the pixels outside the instance mask are
     swapped for a random image of a directory's .png / .jpg files, read as
-    cv2.imread reads them (`imread.read_color`) and resized bilinearly."""
+    cv2.imread reads them (`imread.read_color`: progressive and CMYK JPEG,
+    palette, sub-8-bit, tRNS and Adam7 PNG, turned by EXIF orientation) and
+    resized bilinearly. A file the port cannot decode raises
+    `native.UnsupportedImage`; only a missing file is drawn again."""
 
     def __init__(self, background_dir: Optional[str]):
         self.files = []

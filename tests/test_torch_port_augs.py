@@ -140,7 +140,7 @@ def test_background_bank_matches_jax(tmp_path):
     shutil.copy(d / "bg_1.jpg", d / "upper.JPG")     # not listed: the suffix is case-sensitive
     (d / "notes.txt").write_text("x")
     port, jax_bank = TT.BackgroundBank(str(d)), JT.BackgroundBank(str(d))
-    assert port.files == jax_bank.files and len(port.files) == 4
+    assert port.files == jax_bank.files and len(port.files) == 9
     rng = np.random.default_rng(0)
     for shape in ((480, 640), (128, 128)):
         img = _img(1, *shape)

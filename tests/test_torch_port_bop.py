@@ -224,10 +224,25 @@ def test_png_grey_alpha_and_what_raises(tmp_path):
     p = str(tmp_path / "ga.png")
     raw_png(p, b"".join(b"\0" + ga[y].tobytes() for y in range(5)), 6, 5, 8, 4)
     np.testing.assert_array_equal(png.read(p), cv2.imread(p, cv2.IMREAD_UNCHANGED))
-    cases = {"palette": (8, 3, 0, b""), "bit depth 4": (4, 0, 0, b""),
-             "interlaced": (8, 0, 1, b""),
-             "tRNS": (8, 0, 0, struct.pack(">I", 2) + b"tRNS\0\0"
-                      + struct.pack(">I", zlib.crc32(b"tRNS\0\0")))}
+    def trns(body):
+        return struct.pack(">I", len(body)) + b"tRNS" + body + struct.pack(
+            ">I", zlib.crc32(b"tRNS" + body))
+
+    plte = struct.pack(">I", 6) + b"PLTE" + bytes(range(6)) + struct.pack(
+        ">I", zlib.crc32(b"PLTE" + bytes(range(6))))
+    # what once raised here decodes as cv2 reads it (tests/test_torch_port_imread.py
+    # holds each kind at every depth); a broken variant of each still raises
+    decodes = {"palette": (8, 3, 0, plte), "bit depth 4": (4, 0, 0, b""),
+               "interlaced": (8, 0, 1, b""), "tRNS": (8, 0, 0, trns(b"\0\0"))}
+    cases = {"palette": (8, 3, 0, b""), "bit depth 4": (4, 2, 0, b""),
+             "interlaced": (8, 0, 2, b""), "tRNS": (8, 0, 0, trns(b"\0"))}
+    for name, (depth, ctype, interlace, extra) in decodes.items():
+        p = str(tmp_path / f"ok {name}.png")
+        raw_png(p, bytes(rng.integers(0, 2, 64, dtype=np.uint8)), 4, 4, depth, ctype,
+                interlace, extra)
+        want = cv2.imread(p, cv2.IMREAD_UNCHANGED)
+        assert want is not None
+        np.testing.assert_array_equal(png.read(p), want)
     for name, (depth, ctype, interlace, extra) in cases.items():
         p = str(tmp_path / f"{name}.png")
         raw_png(p, b"\0" * 64, 4, 4, depth, ctype, interlace, extra)
@@ -596,8 +611,9 @@ def test_bundle_matches_jax(trees, fast):
                          ids=["hsv", "sharpen", "smooth", "background"])
 def test_unported_augmentations_raise(trees, aug, tmp_path):
     """The four augmentations that raised NotImplementedError until the
-    data plane had cv2's arithmetic now load and give JAX's samples; a
-    background file the port cannot decode raises, naming it."""
+    data plane had cv2's arithmetic now load and give JAX's samples (the
+    background from a progressive JPEG, which the port decodes as cv2
+    does); a background file the port cannot decode raises, naming it."""
     if "aug_background_dir" in aug:
         bg = tmp_path / "bg"
         bg.mkdir()
@@ -609,22 +625,26 @@ def test_unported_augmentations_raise(trees, aug, tmp_path):
     tds = tpipe.BOPPoseDataset(tc, tc.data.train_list, train=True)
     tpipe.BOPPoseDataset(tc, tc.data.train_list, train=False)
     jds = jpipe.BOPPoseDataset(jc, jc.data.train_list, train=True)
-    if "aug_background_dir" in aug:
-        assert cv2.imread(str(tmp_path / "bg" / "progressive.jpg")) is not None
-        with pytest.raises(ValueError, match="progressive.jpg: progressive"):
-            for seed in range(8):               # the bank fires at p = 0.5
-                tds.sample(0, seed=seed)
-        return
     for seed in (1, 2):
         for idx in range(4):
             got, want = tds.sample(idx, seed=seed), jds.sample(idx, seed=seed)
             np.testing.assert_array_equal(got["image"], want["image"])
             np.testing.assert_array_equal(got["mask"], want["mask"])
+    if "aug_background_dir" in aug:
+        # cut before its last scan and closed: cv2 smooths what the port refuses
+        data = buf.tobytes()
+        (tmp_path / "bg" / "progressive.jpg").write_bytes(
+            data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
+        assert cv2.imread(str(tmp_path / "bg" / "progressive.jpg")) is not None
+        with pytest.raises(ValueError, match="progressive.jpg: progressive data ends"):
+            for seed in range(8):               # the bank fires at p = 0.5
+                tds.sample(0, seed=seed)
 
 
 def test_jpeg_frames_raise(trees, tmp_path):
     """JPEG frames, which raised until the port had a decoder, now load as
-    the JAX package reads them; a progressive JPEG frame and a frame in
+    the JAX package reads them, progressive ones too; a progressive frame
+    cut before its last scan (which libjpeg would smooth) and a frame in
     another format raise UnsupportedImage (a ValueError) naming the file,
     from the dataset and the loader too, where cv2 would read them."""
     src = os.path.join(os.path.dirname(trees["single"]), "train", "000001", "rgb")
@@ -638,15 +658,23 @@ def test_jpeg_frames_raise(trees, tmp_path):
     tds = tpipe.BOPPoseDataset(tc, str(lst), train=False)
     jds = jpipe.BOPPoseDataset(jc, str(lst), train=False)
     _assert_samples_match(tds.sample(0, seed=1), jds.sample(0, seed=1), train=False)
-    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    (tmp_path / "p.jpg").write_bytes(buf.tobytes())
-    with pytest.raises(native.UnsupportedImage, match="p.jpg: progressive JPEG is not supported"):
+    ok, buf = cv2.imencode(".jpg", cv2.imread(os.path.join(src, "000003.png")),
+                           [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    (rgb / "000003.jpg").write_bytes(buf.tobytes())       # a path not yet cached
+    lst.write_text("train/000001/rgb/000003.jpg\n")
+    tds = tpipe.BOPPoseDataset(tc, str(lst), train=False)
+    jds = jpipe.BOPPoseDataset(jc, str(lst), train=False)
+    _assert_samples_match(tds.sample(0, seed=1), jds.sample(0, seed=1), train=False)
+    data = buf.tobytes()
+    cut = data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"
+    (tmp_path / "p.jpg").write_bytes(cut)
+    with pytest.raises(native.UnsupportedImage, match="p.jpg: progressive data ends"):
         tbop.read_image(str(tmp_path / "p.jpg"))
     # through the dataset and the loader, train and eval, a frame the
     # decoders do not handle raises naming it; a missing frame is skipped
-    (rgb / "000001.jpg").write_bytes(buf.tobytes())
+    (rgb / "000001.jpg").write_bytes(cut)
     cv2.imwrite(str(rgb / "000002.bmp"), img)
-    for name, what in (("000001.jpg", "progressive JPEG is not supported"),
+    for name, what in (("000001.jpg", "progressive data ends"),
                        ("000002.bmp", "neither a PNG nor a JPEG")):
         lst.write_text(f"train/000001/rgb/{name}\n")
         assert cv2.imread(str(rgb / name)) is not None      # the JAX package reads it

@@ -11,9 +11,11 @@ file.
 
 The fixtures: JPEG encodings of frames of the `make_bop_dataset` tree that
 chip_smoke's bop phase writes (`SyntheticPoseDataset(n_fg=15,
-single_class=0, seed=0)`, train frames 1000 + j, test frames j), background
-JPEGs and PNGs, and `manifest.json`: cv2's SHA-256 of every fixture under
-both reads and of each data-plane primitive case (`CASES`). `write_fixtures`
+single_class=0, seed=0)`, train frames 1000 + j, test frames j; two of them
+progressive), background JPEGs and PNGs (among them a progressive, a CMYK
+and an EXIF-turned JPEG, a palette + tRNS and an Adam7 PNG), and
+`manifest.json`: cv2's SHA-256 of every fixture under both reads and of
+each data-plane primitive case (`CASES`). `write_fixtures`
 makes them (`PYTHONPATH=. python tests/test_torch_port_jpeg.py` writes them
 anew);
 `test_the_committed_manifest_is_cv2s` recomputes the manifest with cv2 from
@@ -24,6 +26,7 @@ import io
 import json
 import os
 import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -36,16 +39,19 @@ from kd6d_pose_adlp_tpu_torch.data import imread, jpeg, native, png  # noqa: E40
 from test_torch_port_pool import one_torch_thread  # noqa: E402,F401 (autouse fixture)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_fixtures")
-FIXTURE_BUDGET = 512 * 1024
+FIXTURE_BUDGET = 768 * 1024
 SAMPLING = {"444": 0x111111, "422": 0x211111, "420": 0x221111, "440": 0x121111,
             "411": 0x411111}
 
-# (name, SyntheticPoseDataset index, quality, sampling, restart interval)
-FRAMES = (("frames/train_000000.jpg", 1000, 75, "420", 0),
-          ("frames/train_000001.jpg", 1001, 75, "422", 0),
-          ("frames/train_000002.jpg", 1002, 50, "444", 0),
-          ("frames/test_000000.jpg", 0, 75, "420", 4),
-          ("frames/test_000001.jpg", 1, 75, "440", 0))
+# (name, SyntheticPoseDataset index, quality, sampling, restart interval,
+#  progressive)
+FRAMES = (("frames/train_000000.jpg", 1000, 75, "420", 0, False),
+          ("frames/train_000001.jpg", 1001, 75, "422", 0, False),
+          ("frames/train_000002.jpg", 1002, 50, "444", 0, False),
+          ("frames/train_000003.jpg", 1003, 75, "420", 0, True),
+          ("frames/test_000000.jpg", 0, 75, "420", 4, False),
+          ("frames/test_000001.jpg", 1, 75, "440", 0, False),
+          ("frames/test_000002.jpg", 2, 60, "444", 5, True))
 FRAME = "frames/train_000000.jpg"
 # data-plane primitive cases: ops applied in turn to read_color(input)
 CASES = tuple(
@@ -102,6 +108,68 @@ def cv2_manifest(root: str) -> dict:
                             CV2_OPS)
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def png_bytes(px, ctype, depth, interlace=0, palette=None, trns=None, rng=None,
+              extra=b"") -> bytes:
+    """A PNG written by hand: samples `px` ((H, W) or (H, W, C) in file
+    order: RGB, grey + alpha, palette indices) of colour type `ctype` at
+    `depth` bits, Adam7 when `interlace`, with PLTE / tRNS bodies and
+    `extra` chunks after IHDR. With `rng` each row gets a random filter
+    type over its raw bytes, so a reader's unfiltering is exercised (cv2
+    and the port must undo the same filters)."""
+    px = np.asarray(px)
+    h, w = px.shape[:2]
+    ch = PNG_CHANNELS[ctype]
+    px = px.reshape(h, w, ch)
+
+    def rows(p):
+        ph, pw = p.shape[:2]
+        if depth == 16:
+            r = p.astype(">u2").reshape(ph, pw * ch).view(np.uint8)
+        elif depth == 8:
+            r = p.astype(np.uint8).reshape(ph, pw * ch)
+        else:                                    # sub-byte samples, MSB first
+            per = 8 // depth
+            v = np.zeros((ph, -(-pw // per) * per), np.uint8)
+            v[:, :pw] = p[:, :, 0]
+            v = v.reshape(ph, -1, per)
+            r = np.zeros(v.shape[:2], np.uint8)
+            for i in range(per):
+                r |= (v[:, :, i] << (8 - depth * (i + 1))).astype(np.uint8)
+        kinds = rng.integers(0, 5, ph) if rng is not None else np.zeros(ph, int)
+        return b"".join(bytes([int(kinds[y])]) + r[y].tobytes() for y in range(ph))
+
+    if interlace:
+        raw = b"".join(rows(px[y0::dy, x0::dx]) for x0, y0, dx, dy in ADAM7
+                       if px[y0::dy, x0::dx].size)
+    else:
+        raw = rows(px)
+    out = png.SIGNATURE + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                                         interlace)) + extra
+    if palette is not None:
+        out += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += png_chunk(b"tRNS", trns)
+    return out + png_chunk(b"IDAT", zlib.compress(raw)) + png_chunk(b"IEND", b"")
+
+
+def with_exif(data: bytes, orientation: int) -> bytes:
+    """A JPEG or PNG file's bytes with an EXIF block of one orientation: an
+    APP1 segment after SOI, or an eXIf chunk after IHDR."""
+    if data[:8] == png.SIGNATURE:
+        return data[:33] + png_chunk(b"eXIf", _exif(orientation)[6:]) + data[33:]
+    body = _exif(orientation)
+    return data[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + data[2:]
+
+
 def _smooth(rng, h, w, c):
     """Smooth colour fields: backgrounds that cost few bytes."""
     base = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, c)).astype(np.uint8)
@@ -116,12 +184,13 @@ def write_fixtures(root: str = FIXTURES) -> dict:
     for sub in ("frames", "backgrounds"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     ds = SyntheticPoseDataset(n_fg=15, single_class=0, seed=0)
-    for name, index, quality, sampling, rst in FRAMES:
+    for name, index, quality, sampling, rst, progressive in FRAMES:
         img = ds.sample_internal(index)["img"][:, :, ::-1]
         ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(img), [
             cv2.IMWRITE_JPEG_QUALITY, quality,
             cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
-            cv2.IMWRITE_JPEG_RST_INTERVAL, rst])
+            cv2.IMWRITE_JPEG_RST_INTERVAL, rst,
+            cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)])
         assert ok
         with open(os.path.join(root, name), "wb") as f:
             f.write(buf.tobytes())
@@ -135,6 +204,27 @@ def write_fixtures(root: str = FIXTURES) -> dict:
     bgra = np.concatenate([_smooth(rng, 150, 200, 3), _smooth(rng, 150, 200, 1)], axis=2)
     cv2.imwrite(os.path.join(bg, "bg_2.png"), bgra)
     cv2.imwrite(os.path.join(bg, "bg_3.png"), _smooth(rng, 96, 120, 3).astype(np.uint16) * 257)
+    # progressive, CMYK and EXIF-turned JPEG, palette + tRNS and Adam7 PNG, from
+    # their own generator so the older files keep their bytes
+    from PIL import Image
+
+    rng = np.random.default_rng(18)
+    cv2.imwrite(os.path.join(bg, "bg_4.jpg"), _smooth(rng, 180, 240, 3),
+                [cv2.IMWRITE_JPEG_QUALITY, 80, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    bio = io.BytesIO()
+    Image.fromarray(_smooth(rng, 90, 120, 4), "CMYK").save(bio, "JPEG", quality=85)
+    with open(os.path.join(bg, "bg_5.jpg"), "wb") as f:
+        f.write(bio.getvalue())
+    pal = Image.fromarray(_smooth(rng, 100, 140, 3)).quantize(16)
+    bio = io.BytesIO()
+    pal.save(bio, "PNG", bits=4, transparency=3)
+    with open(os.path.join(bg, "bg_6.png"), "wb") as f:
+        f.write(bio.getvalue())
+    with open(os.path.join(bg, "bg_7.png"), "wb") as f:
+        f.write(png_bytes(_smooth(rng, 75, 101, 3), 2, 8, interlace=1, rng=rng))
+    ok, buf = cv2.imencode(".jpg", _smooth(rng, 160, 96, 3), [cv2.IMWRITE_JPEG_QUALITY, 80])
+    with open(os.path.join(bg, "bg_8.jpg"), "wb") as f:
+        f.write(with_exif(buf.tobytes(), 6))
     manifest = cv2_manifest(root)
     with open(os.path.join(root, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -272,26 +362,19 @@ def test_exif_orientation(tmp_path):
         with open(p, "wb") as f:
             f.write(data[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + data[2:])
         np.testing.assert_array_equal(jpeg.read(p), cv2.imread(p, cv2.IMREAD_UNCHANGED))
-        if o == 1:
-            np.testing.assert_array_equal(imread.read_color(p), cv2.imread(p))
-        else:
-            assert cv2.imread(p).shape == (24, 16, 3)     # cv2 turns it
-            with pytest.raises(native.UnsupportedImage, match=f"o{o}.jpg: EXIF orientation 6"):
-                imread.read_color(p)
+        if o == 6:
+            assert cv2.imread(p).shape == (24, 16, 3)     # cv2 turns it, and so does the port
+        np.testing.assert_array_equal(imread.read_color(p), cv2.imread(p))
     # a PNG's eXIf chunk turns it too
-    import zlib
     p = str(tmp_path / "o6.png")
     cv2.imwrite(p, _textured(rng, 16, 24))
     with open(p, "rb") as f:
         data = f.read()
-    tiff = _exif(6)[6:]
-    chunk = struct.pack(">I", len(tiff)) + b"eXIf" + tiff + struct.pack(
-        ">I", zlib.crc32(b"eXIf" + tiff))
     with open(p, "wb") as f:
-        f.write(data[:33] + chunk + data[33:])
+        f.write(with_exif(data, 6))
     assert cv2.imread(p).shape == (24, 16, 3)
-    with pytest.raises(native.UnsupportedImage, match="o6.png: EXIF orientation 6"):
-        imread.read_color(p)
+    np.testing.assert_array_equal(imread.read_color(p), cv2.imread(p))
+    np.testing.assert_array_equal(imread.read(p), cv2.imread(p, cv2.IMREAD_UNCHANGED))
 
 
 @pytest.mark.parametrize("kind", ["bgr8", "grey8", "bgra8", "greyalpha8", "bgr16", "grey16"])
@@ -319,15 +402,15 @@ def test_read_color_of_png_equals_cv2(tmp_path, kind):
 
 
 def test_unsupported_files_raise_naming_the_file(tmp_path):
-    from PIL import Image
-
     rng = np.random.default_rng(7)
     img = _textured(rng, 32, 48)
     ok, base = cv2.imencode(".jpg", img)
     base = base.tobytes()
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    cmyk = io.BytesIO()
-    Image.fromarray(rng.integers(0, 256, (16, 16, 4), dtype=np.uint8), "CMYK").save(cmyk, "JPEG")
+    prog = prog.tobytes()
+    # cut before its last scan, the final refinement of the luma AC bands,
+    # and closed by EOI: libjpeg would smooth the blocks
+    last_scan = prog.rindex(b"\xff\xda")
     sof = [s for m, s, _ in _segments(base) if m == 0xC0][0]
 
     def sof_patched(marker=None, precision=None):
@@ -338,8 +421,8 @@ def test_unsupported_files_raise_naming_the_file(tmp_path):
             d[sof + 4] = precision
         return bytes(d)
 
-    cases = {"progressive": (prog.tobytes(), "progressive"),
-             "cmyk": (cmyk.getvalue(), "CMYK"),
+    cases = {"smoothing": (prog[:last_scan] + b"\xff\xd9", "smooths"),
+             "truncated_progressive": (prog[:len(prog) // 2], "truncated"),
              "truncated": (base[:len(base) // 2], "truncated"),
              "no_eoi": (base[:-2], "EOI"),
              "arithmetic": (sof_patched(marker=0xC9), "arithmetic"),
