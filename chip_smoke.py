@@ -216,7 +216,16 @@ Phases:
            --test_file and once with --fast_pipeline: every tensor loaded,
            the table printed, 48 predictions, the bf16 K2 once per chunk of
            24. (e) export_model --data bop --check at B=8: the round trip
-           passes, the bf16 K2 once per shape in each request.
+           passes, the bf16 K2 once per shape in each request. Damaged
+           files (the committed tests/torch_port_fixtures/damaged/): the
+           JPEG frames' tree gains a cut baseline and a cut progressive
+           train frame, a zero-byte train frame, a cut mask PNG and a test
+           frame cut after a wrong restart marker, its background directory
+           a cut and a bit-flipped JPEG and a cut PNG; every fixture's reads
+           against cv2's digests (None where cv2 gives None), the damaged
+           frames' decode ms beside the clean ones', and train_kd (slow and
+           fast) and evaluate through that tree to their end, the samples
+           redrawn logged.
   tools    reference checkpoints and the tools on the training entry
            point's path at full width (darknet_tiny_h, FPN 128, P6/P7, a
            darknet53 teacher, 256², B=16). (a) a reference-layout file
@@ -397,6 +406,12 @@ BOP_JPEG_DECODES = 10         # decodes of each fixture frame timed
 AUG_REPS = 8                  # calls of each augmentation timed
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "torch_port_fixtures")
+# (e)'s damaged files: fixture -> (split, frame id) in the JPEG lists; the
+# mask of a listed frame cut to half its bytes; the damaged backgrounds
+DAMAGED_FRAMES = {"train_000000_cut.jpg": ("train", 4), "train_000003_cut.jpg": ("train", 5),
+                  "empty.jpg": ("train", 6), "test_000000_rst_cut.jpg": ("test", 3)}
+DAMAGED_MASK = "000003_000000.png"
+DAMAGED_BACKGROUNDS = ("bg_0_cut.jpg", "bg_4_flipped.jpg", "bg_7_cut.png")
 JPEG_AUGS = dict(AUGMENTATION_ColorH=0.1, AUGMENTATION_ColorS=0.3, AUGMENTATION_ColorV=0.3,
                  AUGMENTATION_Sharpen=0.5, AUGMENTATION_Smooth=1.0, AUGMENTATION_Noise=0.02,
                  AUGMENTATION_OCCLUSION=0.5)
@@ -2144,7 +2159,7 @@ def bop_bitexact_phase():
     for rel, want in manifest["files"].items():
         path = os.path.join(FIXTURES, rel)
         for what, got in (("read", imread.read(path)), ("read_color", imread.read_color(path))):
-            if fixture_digest(got) != want[what]:
+            if (None if got is None else fixture_digest(got)) != want[what]:
                 wrong.append(f"{rel} {what}")
     for case in manifest["cases"]:
         a = imread.read_color(os.path.join(FIXTURES, case["input"]))
@@ -2153,16 +2168,20 @@ def bop_bitexact_phase():
         if fixture_digest(a) != case["sha256"]:
             wrong.append(f"{case['input']} {case['ops']}")
     n_files, n_cases = len(manifest["files"]), len(manifest["cases"])
+    damaged = [rel for rel in manifest["files"] if rel.startswith("damaged/")]
+    n_none = sum(manifest["files"][rel]["read"] is None for rel in damaged)
     log(f"[bop] (f) bit-equality with cv2's committed digests: {n_files} fixtures x 2 reads "
         f"(baseline and progressive frames; baseline, progressive, CMYK and EXIF-turned "
-        f"JPEG, grey + alpha, 16-bit, palette + tRNS and Adam7 PNG backgrounds), "
+        f"JPEG, grey + alpha, 16-bit, palette + tRNS and Adam7 PNG backgrounds; "
+        f"{len(damaged)} damaged files, cut, bit-flipped, a wrong restart marker and zero "
+        f"bytes, {n_none} of them None as cv2 gives them), "
         f"{n_cases} primitive cases (HSV both ways, GaussianBlur 7x7 at sigma 0, -1, 0.37, "
         f"0.93, blur 5-11, normalize float32 / float64 / max == min, resize up, down and the "
         f"exact 2x) in {time.perf_counter() - t0:.2f} s: {len(wrong)} differ")
     if wrong:
         raise AssertionError(f"the port's decodes or primitives differ from cv2's digests: "
                              f"{wrong}")
-    return dict(files=n_files, cases=n_cases)
+    return dict(files=n_files, damaged=len(damaged), damaged_none=n_none, cases=n_cases)
 
 
 class _GateOpen:
@@ -2229,26 +2248,34 @@ def jpeg_frame_kind(path: str) -> str:
 
 def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2):
     """(e) The tree's frames as the committed JPEG fixtures of the same
-    scenes, baseline and progressive: decode ms a 640x480 frame of each
+    scenes, baseline and progressive, with the damaged fixtures among them
+    (cut frames, a zero-byte frame, a test frame with a wrong restart
+    marker; one listed frame's mask cut): decode ms a 640x480 frame of each
     kind; the loader's images/s at B=16 on 1
     and 4 threads, every augmentation on beside off, slow and fast;
     train_kd.main --data bop on the JPEG train list with every augmentation
     on and the fixture backgrounds (among them progressive, CMYK and
-    EXIF-turned JPEGs, palette + tRNS and Adam7 PNGs), slow and fast;
-    evaluate.main on the JPEG test list. Returns (summary, K1 launches)."""
+    EXIF-turned JPEGs, palette + tRNS and Adam7 PNGs, and damaged ones),
+    slow and fast, the samples redrawn counted; evaluate.main on the JPEG
+    test list. Returns (summary, K1 launches)."""
     import contextlib
     import dataclasses
     import io
     import shutil
 
+    import threading
+
     from kd6d_pose_adlp_tpu_torch import evaluate, train_kd
     from kd6d_pose_adlp_tpu_torch.config import load_yaml_config
-    from kd6d_pose_adlp_tpu_torch.data import bop, jpeg
+    from kd6d_pose_adlp_tpu_torch.data import bop, imread, jpeg, pipeline
     from kd6d_pose_adlp_tpu_torch.data.pipeline import BOPPoseDataset, PrefetchLoader
 
-    backgrounds = os.path.join(FIXTURES, "backgrounds")
-    frames = os.path.join(FIXTURES, "frames")
-    lists, decode_ms = {}, {}
+    frames, damaged = os.path.join(FIXTURES, "frames"), os.path.join(FIXTURES, "damaged")
+    backgrounds = os.path.join(root, "backgrounds")     # the fixtures' and damaged ones
+    shutil.copytree(os.path.join(FIXTURES, "backgrounds"), backgrounds)
+    for f in DAMAGED_BACKGROUNDS:
+        shutil.copy(os.path.join(damaged, f), backgrounds)
+    lists, n_listed, decode_ms, damaged_ms = {}, {}, {}, {}
     for split in ("train", "test"):
         names = []
         for f in sorted(os.listdir(frames)):
@@ -2262,9 +2289,31 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
                 decode_ms[f] = 1e3 * (time.perf_counter() - t0) / BOP_JPEG_DECODES
                 if img.shape != (480, 640, 3):
                     raise AssertionError(f"{rel}: decoded to {img.shape}")
-        lists[split] = os.path.join(root, f"jpeg_{split}_list.txt")
+        for f, (sp, j) in DAMAGED_FRAMES.items():
+            if sp != split:
+                continue
+            rel = f"{split}/000001/rgb/{j:06d}.jpg"
+            shutil.copy(os.path.join(damaged, f), os.path.join(root, rel))
+            names.append(rel)
+            t0 = time.perf_counter()
+            for _ in range(BOP_JPEG_DECODES):
+                img = imread.read(os.path.join(root, rel))
+            damaged_ms[f] = 1e3 * (time.perf_counter() - t0) / BOP_JPEG_DECODES
+            if (img is None) != (f == "empty.jpg") or (img is not None
+                                                       and img.shape != (480, 640, 3)):
+                raise AssertionError(f"{rel} ({f}): read as {None if img is None else img.shape}")
+        lists[split], n_listed[split] = os.path.join(root, f"jpeg_{split}_list.txt"), len(names)
         with open(lists[split], "w") as f:
             f.write("\n".join(names))
+    # a mask of a listed train frame cut inside its IDAT: cv2 gives None, and
+    # both packages drop that instance (the frame's only one)
+    mask = os.path.join(root, "train", "000001", "mask_visib", DAMAGED_MASK)
+    with open(mask, "rb") as f:
+        data = f.read()
+    with open(mask, "wb") as f:
+        f.write(data[:len(data) // 2])
+    if imread.read(mask) is not None:
+        raise AssertionError(f"{mask}, cut, still reads")
     with open(yaml_path) as f:
         text = f.read()
     text = text.replace(f"'{root}/train_list.txt'", f"'{lists['train']}'").replace(
@@ -2296,6 +2345,12 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         f"{min(by_kind['baseline']):.2f}-{max(by_kind['baseline']):.2f}, progressive "
         f"{min(by_kind['progressive']):.2f}-{max(by_kind['progressive']):.2f} (PNG frames of "
         f"(a): {png_frame_ms:.2f} ms)")
+    log("[bop] (e) damaged frames, imread.read ms (mean of "
+        f"{BOP_JPEG_DECODES}): " + ", ".join(f"{f} {ms:.2f}" for f, ms in damaged_ms.items())
+        + f" (baseline cut to 14.7 KB, progressive cut to 19.0 KB, zero bytes: None, a test "
+        f"frame cut after a wrong restart marker); the clean frames above "
+        f"{min(decode_ms.values()):.2f}-{max(decode_ms.values()):.2f}; {DAMAGED_MASK} cut to "
+        f"{len(data) // 2} of {len(data)} bytes reads as None")
 
     aug_ms = augmentation_ms(jpeg.read(os.path.join(root, "train", "000001", "rgb",
                                                     "000000.jpg")), backgrounds)
@@ -2309,7 +2364,10 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
             c = c.replace(data=dataclasses.replace(c.data, fast_pipeline=fast))
             ds = BOPPoseDataset(c, lists["train"], train=True)
             for p in ds.images:                 # frames decoded into the cache
-                bop.read_image(p)
+                try:
+                    bop.read_image(p)
+                except FileNotFoundError:       # the zero-byte frame, None as in cv2
+                    continue
                 bop.get_single_bop_annotation(p, ds.obj2cls)
             for n_threads in (1, 4):
                 it = iter(PrefetchLoader(ds, BOP_BATCH, train=True, num_threads=n_threads,
@@ -2335,14 +2393,27 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         return c.replace(solver=dataclasses.replace(
             c.solver, aug_background_dir=backgrounds)), c_t
 
+    # the samples that come back None (the zero-byte frame, the frame whose
+    # only mask is cut): the loader redraws them, as the JAX package's does
+    orig_sample, lock, redrawn = BOPPoseDataset.sample, threading.Lock(), [0]
+
+    def counted(self, *a, **kw):
+        out = orig_sample(self, *a, **kw)
+        if out is None:
+            with lock:
+                redrawn[0] += 1
+        return out
+
     runs, k1_total = {}, 0
     train_kd.build_configs = with_backgrounds
+    pipeline.BOPPoseDataset.sample = counted
     try:
         for fast in (False, True):
             tag = "fast" if fast else "slow"
             wd = os.path.join(tmp, f"run_jpeg_{tag}")
             sf.reset_launch_counts()
             cf.reset_launch_counts()
+            redrawn[0] = 0
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -2357,19 +2428,22 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
             k1_total += k1
             k2 = sum(cf.launches.values())
             add_k2(cfg.test.ims_per_batch)
-            log(f"[bop] (e) train_kd.main --data bop, JPEG frames, every augmentation on, {tag} "
-                f"({secs:.1f} s): step {st.step}, K1 {k1}, K2 {dict(cf.launches)}; "
+            log(f"[bop] (e) train_kd.main --data bop, JPEG frames with the damaged ones, every "
+                f"augmentation on, {tag} ({secs:.1f} s): step {st.step}, K1 {k1}, K2 "
+                f"{dict(cf.launches)}, samples redrawn {redrawn[0]}; "
                 + "; ".join(f"step {x['step']}: loss_total {x['loss_total']:.4f} (kd "
                             f"{x['loss_kd']:.5f})" for x in h))
             if not (st.step == BOP_JPEG_STEPS and k1 == BOP_JPEG_STEPS and k2 > 0
+                    and redrawn[0] > 0
                     and all(math.isfinite(v) for x in h for v in x.values())
                     and all(x["loss_kd"] > 0 for x in h)
                     and f"[valid @ step {BOP_JPEG_STEPS}]" in printed):
                 raise AssertionError(f"train_kd.main on the JPEG frames ({tag}): steps, K1 / K2 "
                                      "launches, losses or the evaluation not as expected")
-            runs[tag] = dict(seconds=secs, k1=k1, k2=k2, history=h)
+            runs[tag] = dict(seconds=secs, k1=k1, k2=k2, redrawn=redrawn[0], history=h)
     finally:
         train_kd.build_configs = orig_build
+        pipeline.BOPPoseDataset.sample = orig_sample
     cf.reset_launch_counts()
     ewd = os.path.join(tmp, "eval_jpeg")
     buf = io.StringIO()
@@ -2385,13 +2459,14 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         n_preds = len(json.load(f))
     k2 = dict(cf.launches)
     add_k2(EVAL_BATCH)
-    n_test = sum(1 for f in os.listdir(frames) if f.startswith("test_"))
-    log(f"[bop] (e) evaluate.main --data bop on the JPEG test list ({secs:.1f} s): "
-        f"{n_preds} predictions; K2 {k2}")
+    n_test = n_listed["test"]
+    log(f"[bop] (e) evaluate.main --data bop on the JPEG test list, a damaged frame among "
+        f"them ({secs:.1f} s): {n_preds} predictions; K2 {k2}")
     if not (ev["table"] in printed and n_preds == n_test and k2 and min(k2.values()) > 0):
         raise AssertionError("evaluate.main on the JPEG test list: table, predictions or K2 "
                              "launches not as expected")
-    return dict(decode_ms=decode_ms, frame_kinds=kinds, png_frame_ms=png_frame_ms,
+    return dict(decode_ms=decode_ms, damaged_ms=damaged_ms, frame_kinds=kinds,
+                png_frame_ms=png_frame_ms,
                 augmentation_ms=aug_ms,
                 loader_images_per_s=rates,
                 train_kd=runs, evaluate=dict(seconds=secs, predictions=n_preds)), k1_total

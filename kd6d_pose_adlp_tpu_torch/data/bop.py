@@ -8,7 +8,9 @@ byte-budgeted LRU (`KD6D_DECODE_CACHE_MB`, 2048 by default, 0 disables).
 Frames and masks are read without an image library (`data/imread.py`): PNG
 by `data/png.py` (any colour type and bit depth, tRNS, Adam7), JPEG (BOP's
 PBR renders; sequential or progressive, grey, colour or CMYK) by
-`data/jpeg.py`, told apart by their signatures as cv2 does.
+`data/jpeg.py`, told apart by their signatures as cv2 does; damaged files
+read as cv2 reads them, an image where libjpeg or libpng recovers and None
+where cv2 gives None.
 """
 from __future__ import annotations
 
@@ -72,13 +74,17 @@ def read_image(path: str) -> np.ndarray:
     (libs/dataset.py:59-90): uint16 -> uint8, gray -> 3ch, alpha -> white bg.
     Decoded frames are LRU-cached and returned write-protected; callers
     must copy before mutating. A palette or RGB PNG with tRNS reads as BGRA
-    and is composited on white like any alpha. A file that cannot be
-    decoded (`imread`'s docstring lists what) raises
-    `native.UnsupportedImage` naming it."""
+    and is composited on white like any alpha. Where cv2.imread gives None
+    (a missing, empty or damaged file) it raises FileNotFoundError, as the
+    JAX package does; a file that cv2 reads and the port does not decode
+    (`imread`'s docstring lists what) raises `native.UnsupportedImage`
+    naming it."""
     cached = _DECODE_CACHE.get(path)
     if cached is not None:
         return cached
     img = imread.read(path)
+    if img is None:
+        raise FileNotFoundError(path)
     if img.dtype == np.uint16:
         img = (img / 256).astype(np.uint8)
     if img.ndim == 2:
@@ -98,8 +104,9 @@ def get_single_bop_annotation(img_path: str, obj2cls: Dict[str, int]
     """(K, merged_mask(int32), class_ids, Rs, Ts) — reference libs/utils.py:238-301.
 
     The whole annotation (mask PNGs decoded + merged) is LRU-cached per
-    image path; arrays come back write-protected and shared. A missing mask
-    file skips its instance, as a failed cv2.imread does in the JAX package."""
+    image path; arrays come back write-protected and shared. A mask that
+    reads as None (missing, empty or damaged) skips its instance, as a
+    failed cv2.imread does in the JAX package."""
     img_path = img_path.strip()
     ckey = (img_path, tuple(sorted(obj2cls.items())))
     cached = _DECODE_CACHE.get(ckey)
@@ -122,9 +129,9 @@ def get_single_bop_annotation(img_path: str, obj2cls: Dict[str, int]
     inst = 1
     for i, pose in enumerate(annot_poses):
         mask_file = os.path.join(gt_dir, "mask_visib", f"{base}_{i:06d}.png")
-        if not os.path.exists(mask_file):
-            continue
         mv = imread.read(mask_file)
+        if mv is None:
+            continue
         if merged is None:
             merged = np.zeros(mv.shape[:2], np.int32)
         obj_id = str(pose["obj_id"])

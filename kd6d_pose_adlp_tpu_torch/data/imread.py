@@ -7,20 +7,43 @@ chooses, never by its name.
 16 bits to their high byte, and the image turned by the EXIF orientation of
 a JPEG's APP1 block or a PNG's eXIf chunk as cv2's ExifTransform turns it
 (orientations 2-8: a flip, a rotation or a transpose; `read`, as
-IMREAD_UNCHANGED, never turns). What the two decoders decode is in their
-docstrings. A file in another format, or one that they do not handle
-(arithmetic-coded, lossless, hierarchical or 12-bit JPEG, DNL, truncated or
-damaged data, a progressive JPEG that libjpeg would smooth), raises
-`UnsupportedImage` (a ValueError) naming the file.
+IMREAD_UNCHANGED, never turns). What the two decoders decode, and how they
+recover damaged data, is in their docstrings.
+
+Both return None where cv2.imread does: for a missing or unreadable file, an
+empty one, bytes that no format cv2 reads begins with, and damage that
+libjpeg or libpng stops at (`native.CorruptImage`, which `decode` raises).
+A file that cv2 reads and the port does not (arithmetic-coded, lossless or
+12-bit JPEG; BMP, TIFF, WebP, GIF, AVIF, JPEG 2000, OpenEXR, Radiance,
+Sun raster, PFM or PNM by their signatures) raises `native.UnsupportedImage`
+(a ValueError) naming the file.
 """
 from __future__ import annotations
 
 import struct
+from typing import Optional
 
 import numpy as np
 
 from . import jpeg, png
-from .native import UnsupportedImage
+from .native import CorruptImage, UnsupportedImage
+
+# the other formats cv2 reads, by the checks of their decoders' signatures
+_OTHER_FORMATS = (("BMP", lambda d: d[:2] == b"BM"),
+                  ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")),
+                  ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"),
+                  ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a")),
+                  ("AVIF", lambda d: d[4:8] == b"ftyp" and any(
+                      d[i:i + 4] in (b"avif", b"avis")
+                      for i in range(8, min(len(d), int.from_bytes(d[:4], "big")), 4))),
+                  ("JPEG 2000", lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n"
+                   or d[:4] == b"\xff\x4f\xff\x51"),
+                  ("OpenEXR", lambda d: d[:4] == b"\x76\x2f\x31\x01"),
+                  ("Radiance", lambda d: d[:6] == b"#?RGBE" or d[:10] == b"#?RADIANCE"),
+                  ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
+                  ("PFM", lambda d: d[:2] in (b"PF", b"Pf") and d[2:3].isspace()),
+                  ("PNM", lambda d: d[:1] == b"P" and d[1:2] in b"1234567" and len(d) > 2
+                   and d[2:3].isspace()))
 
 
 def _tiff_orientation(tiff: bytes) -> int:
@@ -88,11 +111,15 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarray:
     """Decode the PNG or JPEG file contents `data` as `read` (or, with
-    `color`, `read_color`) does."""
+    `color`, `read_color`) does; raises CorruptImage where that returns
+    None."""
     is_png = data[:8] == png.SIGNATURE
     if not is_png and data[:3] != jpeg.SIGNATURE:
-        raise UnsupportedImage(f"{name}: neither a PNG nor a JPEG file, the two formats "
-                               "the port decodes")
+        for fmt, match in _OTHER_FORMATS:
+            if match(data):
+                raise UnsupportedImage(f"{name}: a {fmt} file, neither a PNG nor a JPEG, the "
+                                       "two formats the port decodes")
+        raise CorruptImage(f"{name}: empty, or not an image file cv2 reads")
     if not is_png:
         img = jpeg.decode(data, name=name, color=color)
     else:
@@ -107,15 +134,19 @@ def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarra
     return _orient(img, _tiff_orientation(exif) if exif else 1)
 
 
-def read(path: str, color: bool = False) -> np.ndarray:
+def read(path: str, color: bool = False) -> Optional[np.ndarray]:
     """The PNG or JPEG in `path` as `cv2.imread(path, IMREAD_UNCHANGED)`
-    gives it, or with `color` as `cv2.imread(path)` does."""
-    with open(path, "rb") as f:
-        data = f.read()
-    return decode(data, name=path, color=color)
+    gives it, or with `color` as `cv2.imread(path)` does: None where cv2
+    gives None."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+        return decode(data, name=path, color=color)
+    except (OSError, CorruptImage):
+        return None
 
 
-def read_color(path: str) -> np.ndarray:
+def read_color(path: str) -> Optional[np.ndarray]:
     """The PNG or JPEG in `path` as `cv2.imread(path)` (IMREAD_COLOR) gives
-    it: (H, W, 3) BGR uint8."""
+    it: (H, W, 3) BGR uint8, or None where cv2 gives None."""
     return read(path, color=True)

@@ -8,11 +8,13 @@ libjpeg-turbo's default decompression, for sequential and progressive
 frames. An Adobe APP14 marker of transform 0 reads as RGB, with no colour
 conversion, as libjpeg does; a 4-component file (CMYK, or YCCK under Adobe
 transform 2) reads as (H, W, 3) BGR by OpenCV's CMYK -> BGR step, as cv2
-gives it under either flag. Lossless, arithmetic-coded, hierarchical and
-12-bit files, DNL markers, truncated files and a progressive file whose
-coefficients 1-9 are incomplete at EOI (libjpeg would smooth its blocks)
-raise `native.UnsupportedImage` (a ValueError) naming the file. `imread.py`
-chooses between this and `png.py` by signature.
+gives it under either flag. A damaged file decodes as libjpeg recovers it
+(cut data, garbage, bad codes, wrong restart markers, progressive data
+smoothed where its coefficients are incomplete); where libjpeg stops with
+an error it raises `native.CorruptImage` (cv2.imread gives None), and an
+arithmetic-coded, lossless or 12-bit file raises `native.UnsupportedImage`,
+both ValueErrors naming the file. `imread.py` chooses between this and
+`png.py` by signature and turns CorruptImage into None.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ SIGNATURE = b"\xff\xd8\xff"
 
 
 def read(path: str) -> np.ndarray:
-    """The JPEG in `path` as `cv2.imread(path, IMREAD_UNCHANGED)` gives it."""
+    """The JPEG in `path` as `cv2.imread(path, IMREAD_UNCHANGED)` gives it;
+    raises CorruptImage where that gives None."""
     with open(path, "rb") as f:
         data = f.read()
     return decode(data, name=path)

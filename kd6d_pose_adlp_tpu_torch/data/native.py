@@ -35,11 +35,20 @@ _lock = threading.Lock()
 
 
 class UnsupportedImage(ValueError):
-    """An image file the port cannot decode (a format, variant or damage
-    that `png.py` and `jpeg.py` do not handle). The BOP pipeline raises it,
-    where a missing file only skips its sample: the JAX package reads such
-    files with cv2, so skipping them would change what is trained and
-    scored."""
+    """An image file that cv2.imread reads and the port cannot decode
+    (arithmetic-coded, lossless or 12-bit JPEG, or another format cv2
+    knows). The BOP pipeline raises it, where a file cv2 cannot read only
+    skips its sample: the JAX package reads such files with cv2, so
+    skipping them would change what is trained and scored."""
+
+
+class CorruptImage(ValueError):
+    """An image file that cv2.imread gives None for: damage where libjpeg or
+    libpng stops with an error (a frame cut inside its headers, a PNG cut
+    anywhere or failing a critical chunk's CRC, ...), or bytes that no
+    format cv2 knows begins with. `imread.read` returns None for it, as
+    cv2.imread does; the message names what libjpeg or libpng met. Not an
+    UnsupportedImage."""
 
 
 def library_path():
@@ -153,39 +162,44 @@ def normalize_bgr_u8(img: np.ndarray, mean, std) -> np.ndarray:
 def png_unfilter(raw: np.ndarray, rows: int, stride: int, bpp: int) -> np.ndarray:
     """The (rows, stride) uint8 bytes of a PNG image from its inflated IDAT
     stream `raw` (rows of a filter-type byte and `stride` filtered bytes),
-    `bpp` bytes a pixel. Raises UnsupportedImage on a short stream or a
-    filter type outside 0-4."""
+    `bpp` bytes a pixel. Raises CorruptImage on a short stream or a filter
+    type outside 0-4, where libpng fails and cv2.imread gives None."""
     lib = get_lib()
     raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)
     if raw.size < rows * (stride + 1):
-        raise UnsupportedImage(f"PNG data holds {raw.size} bytes, {rows} rows of {stride} "
-                         f"need {rows * (stride + 1)}")
+        raise CorruptImage(f"PNG data holds {raw.size} bytes, {rows} rows of {stride} "
+                           f"need {rows * (stride + 1)}")
     out = np.empty((rows, stride), np.uint8)
     bad = lib.png_unfilter(raw, rows, stride, bpp, out)
     if bad:
-        raise UnsupportedImage(f"PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]}")
+        raise CorruptImage(f"PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]}")
     return out
 
 
-def _jpeg_fail(name: str, err) -> UnsupportedImage:
-    return UnsupportedImage(f"{name}: {err.value.decode(errors='replace')}")
+def _jpeg_fail(name: str, rc: int, err) -> ValueError:
+    kind = CorruptImage if rc == 1 else UnsupportedImage
+    return kind(f"{name}: {err.value.decode(errors='replace')}")
 
 
 def jpeg_decode(data: bytes, color: bool, name: str = "<bytes>") -> np.ndarray:
     """The JPEG `data` (sequential or progressive; grey, YCbCr, RGB, CMYK or
-    YCCK) decoded as libjpeg-turbo decodes it for cv2.imread: (H, W) grey or
-    (H, W, 3) BGR uint8, or (H, W, 3) BGR always when `color` (IMREAD_COLOR's
-    conversion). Raises UnsupportedImage naming `name` for what
-    `csrc/jpeg.cpp` does not decode (its header comment lists it)."""
+    YCCK) decoded as libjpeg-turbo decodes it for cv2.imread, damaged data
+    recovered as libjpeg recovers it: (H, W) grey or (H, W, 3) BGR uint8, or
+    (H, W, 3) BGR always when `color` (IMREAD_COLOR's conversion). Raises
+    CorruptImage naming `name` where libjpeg stops with an error (cv2 gives
+    None), UnsupportedImage for what `csrc/jpeg.cpp` does not decode (its
+    header comment lists both)."""
     lib = get_lib()
     info = np.zeros(4, np.int32)
     err = ctypes.create_string_buffer(256)
-    if lib.jpeg_info(data, len(data), info, err, len(err)):
-        raise _jpeg_fail(name, err)
+    rc = lib.jpeg_info(data, len(data), info, err, len(err))
+    if rc:
+        raise _jpeg_fail(name, rc, err)
     h, w, nc = int(info[0]), int(info[1]), int(info[2])
     out = np.empty((h, w) if nc == 1 and not color else (h, w, 3), np.uint8)
-    if lib.jpeg_decode(data, len(data), out, out.size, int(color), err, len(err)):
-        raise _jpeg_fail(name, err)
+    rc = lib.jpeg_decode(data, len(data), out, out.size, int(color), err, len(err))
+    if rc:
+        raise _jpeg_fail(name, rc, err)
     return out
 
 

@@ -115,12 +115,14 @@ class BOPPoseDataset:
                focus_obj: Optional[int] = None) -> Optional[Dict]:
         """One sample dict (image, mask, class_ids, rotations, translations,
         bbox_trans, meta), or None when the frame has no usable object (the
-        loader redraws, as the reference does). A missing frame or
-        annotation also gives None, as in the JAX package, and so does a mask
-        that reads with colour channels (a palette or RGB PNG), whose merge
-        fails there with an IndexError; a frame or mask that the port cannot
-        decode raises UnsupportedImage naming it, since the JAX package's cv2
-        would read it."""
+        loader redraws, as the reference does). A frame that cv2.imread
+        gives None for (missing, empty or damaged) or a missing annotation
+        also gives None, as in the JAX package, and so does a mask that
+        reads with colour channels (a palette or RGB PNG), whose merge fails
+        there with an IndexError; a mask that reads as None only drops its
+        instance. A frame or mask that cv2 reads and the port cannot decode
+        raises UnsupportedImage naming it, since the JAX package would train
+        on it."""
         cfg = self.cfg
         s = cfg.solver
         rng = np.random.default_rng((seed * 1_000_003 + index) & 0x7FFFFFFF)

@@ -147,8 +147,10 @@ class BackgroundBank:
     swapped for a random image of a directory's .png / .jpg files, read as
     cv2.imread reads them (`imread.read_color`: progressive and CMYK JPEG,
     palette, sub-8-bit, tRNS and Adam7 PNG, turned by EXIF orientation) and
-    resized bilinearly. A file the port cannot decode raises
-    `native.UnsupportedImage`; only a missing file is drawn again."""
+    resized bilinearly. A file that reads as None (missing, empty or
+    damaged, as cv2.imread gives it) is drawn again, up to four draws in
+    all as in the JAX package; a file that cv2 reads and the port does not
+    decode raises `native.UnsupportedImage`."""
 
     def __init__(self, background_dir: Optional[str]):
         self.files = []
@@ -161,12 +163,10 @@ class BackgroundBank:
         if not self.files or rng.random() < 0.5:
             return img
         bg = None
-        for _ in range(4):                   # cv2.imread gives None for a missing file
-            try:
-                bg = imread.read_color(self.files[int(rng.integers(0, len(self.files)))])
+        for _ in range(4):
+            bg = imread.read_color(self.files[int(rng.integers(0, len(self.files)))])
+            if bg is not None:
                 break
-            except FileNotFoundError:
-                continue
         if bg is None:
             return img
         bg = native.resize_linear(bg, (img.shape[1], img.shape[0]))

@@ -12,8 +12,8 @@ included; `read_image` and the background bank are bit-equal to JAX's;
 samples, slow and fast, have equal images and masks, and the poses of
 tests/test_torch_port_bop.py (R atol 1e-6, T rtol 1e-6, bbox_trans atol
 1e-4: EPnP's ~1e-13 difference from cv2 may flip a float32 rounding).
-The chunks that libpng only warns of and drops raise UnsupportedImage
-naming the file, as the damaged JPEGs of test_torch_port_jpeg.py do.
+The chunks that libpng only warns of and drops read as if absent, as in
+cv2 (tests/test_torch_port_damaged.py holds the damaged files).
 """
 import dataclasses
 import io
@@ -209,22 +209,30 @@ def test_adam7_png_equals_cv2(tmp_path, ctype, depth):
 
 
 @pytest.mark.parametrize("what, make", [
-    ("invalid tRNS for colour type 6", lambda r: png_bytes(r.integers(0, 256, (4, 5, 4)), 6, 8,
-                                                         trns=b"\0\1\0\2\0\3")),
-    ("tRNS has no entries or more than the palette",
-     lambda r: png_bytes(r.integers(0, 2, (4, 5)), 3, 1, palette=[[1, 2, 3], [4, 5, 6]],
-                         trns=b"\1\2\3")),
-    ("out-of-range samples", lambda r: png_bytes(r.integers(0, 4, (4, 5)), 0, 2,
-                                                 trns=struct.pack(">H", 4))),
-    ("PLTE", lambda r: png_bytes(r.integers(0, 2, (4, 5)), 3, 1)),
+    ((4, 5, 4), lambda r: png_bytes(r.integers(0, 256, (4, 5, 4)), 6, 8, trns=b"\0\1\0\2\0\3")),
+    ((4, 5, 3), lambda r: png_bytes(r.integers(0, 2, (4, 5)), 3, 1, palette=[[1, 2, 3], [4, 5, 6]],
+                                    trns=b"\1\2\3")),
+    ((4, 5), lambda r: png_bytes(r.integers(0, 4, (4, 5)), 0, 2, trns=struct.pack(">H", 4))),
+    (None, lambda r: png_bytes(r.integers(0, 2, (4, 5)), 3, 1)),
 ], ids=["trns_with_alpha", "long_trns", "trns_out_of_range", "no_plte"])
 def test_what_libpng_drops_raises_naming_the_file(tmp_path, what, make):
-    """Chunks that libpng warns of and drops, and a palette image without
-    its PLTE, raise through every reader; no reader skips them."""
+    """Chunks that libpng warns of and drops read as if they were absent (a
+    tRNS beside an alpha channel, longer than the palette, or out of range
+    in a grey image), bit-equal to cv2 and to JAX's `read_image`; a palette
+    image without its PLTE reads as None where cv2 gives None, and
+    `read_image` raises FileNotFoundError naming the file, as JAX's does."""
     p = _write(tmp_path, make(np.random.default_rng(60)), "bad.png")
-    for read in (imread.read, imread.read_color, tbop.read_image):
-        with pytest.raises(native.UnsupportedImage, match=f"bad.png: .*{what}"):
-            read(p)
+    want = cv2.imread(p, cv2.IMREAD_UNCHANGED)
+    if what is None:
+        assert want is None and imread.read(p) is None and imread.read_color(p) is None
+        for read in (tbop.read_image, jbop.read_image):
+            with pytest.raises(FileNotFoundError, match="bad.png"):
+                read(p)
+        return
+    assert want.shape == what
+    got = _equals_cv2(tmp_path, open(p, "rb").read(), "bad.png")
+    assert got.shape == what
+    np.testing.assert_array_equal(tbop.read_image(p), jbop.read_image(p))
 
 
 # ---------------------------------------------------------------------------

@@ -5,17 +5,20 @@ the committed fixtures under `tests/torch_port_fixtures/` that
 `chip_smoke.py` checks on the card.
 
 Tolerances: every decode is bit-equal to cv2's (IMREAD_UNCHANGED and
-IMREAD_COLOR), and so is `bop.read_image` to the JAX package's. What the
-decoder does not support raises UnsupportedImage (a ValueError) naming the
-file.
+IMREAD_COLOR), and so is `bop.read_image` to the JAX package's; damaged
+files read as cv2 reads them (tests/test_torch_port_damaged.py holds the
+kinds of damage). What the decoder does not support raises UnsupportedImage
+(a ValueError) naming the file.
 
 The fixtures: JPEG encodings of frames of the `make_bop_dataset` tree that
 chip_smoke's bop phase writes (`SyntheticPoseDataset(n_fg=15,
 single_class=0, seed=0)`, train frames 1000 + j, test frames j; two of them
 progressive), background JPEGs and PNGs (among them a progressive, a CMYK
-and an EXIF-turned JPEG, a palette + tRNS and an Adam7 PNG), and
-`manifest.json`: cv2's SHA-256 of every fixture under both reads and of
-each data-plane primitive case (`CASES`). `write_fixtures`
+and an EXIF-turned JPEG, a palette + tRNS and an Adam7 PNG), damaged copies
+of some of them (`damaged/`, written by tests/test_torch_port_damaged.py),
+and `manifest.json`: cv2's SHA-256 of every fixture under both reads (None
+where cv2 gives None) and of each data-plane primitive case (`CASES`).
+`write_fixtures`
 makes them (`PYTHONPATH=. python tests/test_torch_port_jpeg.py` writes them
 anew);
 `test_the_committed_manifest_is_cv2s` recomputes the manifest with cv2 from
@@ -88,12 +91,18 @@ def digest(a: np.ndarray) -> str:
 
 def fixture_manifest(root: str, read, read_color, ops) -> dict:
     """{"files": {path: {"read", "read_color"}}, "cases": [...]} for the
-    fixtures under `root`, by the given readers and primitives."""
+    fixtures under `root`, by the given readers and primitives; a read
+    that gives None (a damaged fixture cv2 cannot read) has the digest
+    None."""
     files = {}
-    for sub in ("frames", "backgrounds"):
+    for sub in ("frames", "backgrounds", "damaged"):
+        if not os.path.isdir(os.path.join(root, sub)):
+            continue
         for f in sorted(os.listdir(os.path.join(root, sub))):
             p = os.path.join(root, sub, f)
-            files[f"{sub}/{f}"] = dict(read=digest(read(p)), read_color=digest(read_color(p)))
+            got = read(p), read_color(p)
+            files[f"{sub}/{f}"] = dict(zip(("read", "read_color"),
+                                           (None if a is None else digest(a) for a in got)))
     cases = []
     for case in CASES:
         a = read_color(os.path.join(root, case["input"]))
@@ -402,6 +411,10 @@ def test_read_color_of_png_equals_cv2(tmp_path, kind):
 
 
 def test_unsupported_files_raise_naming_the_file(tmp_path):
+    """Damaged files that once raised read as cv2 reads them (libjpeg's
+    recovery: a progressive file smoothed where its last scans are missing,
+    cut data padded with a fake EOI); arithmetic-coded, lossless and 12-bit
+    frames and other formats still raise UnsupportedImage naming the file."""
     rng = np.random.default_rng(7)
     img = _textured(rng, 32, 48)
     ok, base = cv2.imencode(".jpg", img)
@@ -409,7 +422,7 @@ def test_unsupported_files_raise_naming_the_file(tmp_path):
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     prog = prog.tobytes()
     # cut before its last scan, the final refinement of the luma AC bands,
-    # and closed by EOI: libjpeg would smooth the blocks
+    # and closed by EOI: libjpeg smooths the blocks
     last_scan = prog.rindex(b"\xff\xda")
     sof = [s for m, s, _ in _segments(base) if m == 0xC0][0]
 
@@ -421,13 +434,23 @@ def test_unsupported_files_raise_naming_the_file(tmp_path):
             d[sof + 4] = precision
         return bytes(d)
 
-    cases = {"smoothing": (prog[:last_scan] + b"\xff\xd9", "smooths"),
-             "truncated_progressive": (prog[:len(prog) // 2], "truncated"),
-             "truncated": (base[:len(base) // 2], "truncated"),
-             "no_eoi": (base[:-2], "EOI"),
-             "arithmetic": (sof_patched(marker=0xC9), "arithmetic"),
+    recovered = {"smoothing": prog[:last_scan] + b"\xff\xd9",
+                 "truncated_progressive": prog[:len(prog) // 2],
+                 "truncated": base[:len(base) // 2],
+                 "no_eoi": base[:-2]}
+    for name, data in recovered.items():
+        p = str(tmp_path / f"{name}.jpg")
+        with open(p, "wb") as f:
+            f.write(data)
+        for got, flag in ((jpeg.read(p), cv2.IMREAD_UNCHANGED),
+                          (imread.read_color(p), cv2.IMREAD_COLOR)):
+            want = cv2.imread(p, flag)
+            assert want is not None and got.shape == want.shape, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        np.testing.assert_array_equal(tbop.read_image(p), jbop.read_image(p), err_msg=name)
+    cases = {"arithmetic": (sof_patched(marker=0xC9), "arithmetic"),
              "lossless": (sof_patched(marker=0xC3), "lossless"),
-             "12bit": (sof_patched(precision=12), "8-bit"),
+             "12bit": (sof_patched(precision=12), "12-bit"),
              "not_a_jpeg": (b"GIF89a" + base[6:], "not a JPEG")}
     for name, (data, what) in cases.items():
         p = str(tmp_path / f"{name}.jpg")
