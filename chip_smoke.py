@@ -225,7 +225,16 @@ Phases:
            against cv2's digests (None where cv2 gives None), the damaged
            frames' decode ms beside the clean ones', and train_kd (slow and
            fast) and evaluate through that tree to their end, the samples
-           redrawn logged.
+           redrawn logged. TIFF (the committed
+           tests/torch_port_fixtures_rasters/, their own manifest): a
+           second train list, the JPEG one with an 8-bit grey LZW, a 16-bit
+           RGB Deflate + predictor 2 and an 8-bit palette PackBits tiled
+           TIFF frame, and a second background directory, the JPEG one with
+           a float TIFF, a tiled TIFF and a cut and a bit-flipped one under
+           .jpg / .png names: every one against cv2's digests in (f);
+           imread.read ms of each TIFF frame (scripts/bench_decode.py's
+           rows) and the loader's images/s on that tree, each on a line of
+           its own, in (e); train_kd (slow and fast) runs on that tree.
   tools    reference checkpoints and the tools on the training entry
            point's path at full width (darknet_tiny_h, FPN 128, P6/P7, a
            darknet53 teacher, 256², B=16). (a) a reference-layout file
@@ -406,6 +415,11 @@ BOP_JPEG_DECODES = 10         # decodes of each fixture frame timed
 AUG_REPS = 8                  # calls of each augmentation timed
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "torch_port_fixtures")
+# the raster fixtures: TIFF train frames 7-9 of (e)'s second list, TIFF
+# backgrounds and damaged ones (their own manifest)
+RASTER_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                               "torch_port_fixtures_rasters")
+RASTER_DECODES = 10           # decodes of each 640x480 TIFF frame timed, a round
 # (e)'s damaged files: fixture -> (split, frame id) in the JPEG lists; the
 # mask of a listed frame cut to half its bytes; the damaged backgrounds
 DAMAGED_FRAMES = {"train_000000_cut.jpg": ("train", 4), "train_000003_cut.jpg": ("train", 5),
@@ -2154,13 +2168,17 @@ def bop_bitexact_phase():
            "resize_linear": lambda a, w, h: native.resize_linear(a, (w, h)),
            "f32_affine": lambda a, s, t: a.astype(np.float32) * np.float32(s) + np.float32(t),
            "f64_affine": lambda a, s, t: a.astype(np.float64) * s + t}
+    with open(os.path.join(RASTER_FIXTURES, "manifest.json")) as f:
+        rasters = json.load(f)["files"]
     t0 = time.perf_counter()
     wrong = []
-    for rel, want in manifest["files"].items():
-        path = os.path.join(FIXTURES, rel)
-        for what, got in (("read", imread.read(path)), ("read_color", imread.read_color(path))):
-            if (None if got is None else fixture_digest(got)) != want[what]:
-                wrong.append(f"{rel} {what}")
+    for root, files in ((FIXTURES, manifest["files"]), (RASTER_FIXTURES, rasters)):
+        for rel, want in files.items():
+            path = os.path.join(root, rel)
+            for what, got in (("read", imread.read(path)),
+                              ("read_color", imread.read_color(path))):
+                if (None if got is None else fixture_digest(got)) != want[what]:
+                    wrong.append(f"{os.path.basename(root)}/{rel} {what}")
     for case in manifest["cases"]:
         a = imread.read_color(os.path.join(FIXTURES, case["input"]))
         for op in case["ops"]:
@@ -2177,11 +2195,31 @@ def bop_bitexact_phase():
         f"bytes, {n_none} of them None as cv2 gives them), "
         f"{n_cases} primitive cases (HSV both ways, GaussianBlur 7x7 at sigma 0, -1, 0.37, "
         f"0.93, blur 5-11, normalize float32 / float64 / max == min, resize up, down and the "
-        f"exact 2x) in {time.perf_counter() - t0:.2f} s: {len(wrong)} differ")
+        f"exact 2x); {len(rasters)} TIFF fixtures x 2 reads (8-bit grey LZW, 16-bit Deflate + "
+        f"predictor 2 and 8-bit palette PackBits tiled frames; float (None under "
+        f"IMREAD_COLOR) and tiled backgrounds under .jpg / .png names; cut and bit-flipped "
+        f"copies, {sum(v['read'] is None for v in rasters.values())} of them None as cv2 gives "
+        f"them) "
+        f"in {time.perf_counter() - t0:.2f} s: {len(wrong)} differ")
     if wrong:
         raise AssertionError(f"the port's decodes or primitives differ from cv2's digests: "
                              f"{wrong}")
-    return dict(files=n_files, damaged=len(damaged), damaged_none=n_none, cases=n_cases)
+    return dict(files=n_files, damaged=len(damaged), damaged_none=n_none, cases=n_cases,
+                raster_files=len(rasters))
+
+
+def tiff_frame_ms() -> dict:
+    """{frame: median ms of imread.read} of each committed 640x480 TIFF
+    frame: scripts/bench_decode.py's --rasters rows, RASTER_DECODES reads a
+    round."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_decode", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                     "bench_decode.py"))
+    bench_decode = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_decode)
+    return bench_decode.raster_rows(RASTER_DECODES)
 
 
 class _GateOpen:
@@ -2252,12 +2290,14 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
     (cut frames, a zero-byte frame, a test frame with a wrong restart
     marker; one listed frame's mask cut): decode ms a 640x480 frame of each
     kind; the loader's images/s at B=16 on 1
-    and 4 threads, every augmentation on beside off, slow and fast;
-    train_kd.main --data bop on the JPEG train list with every augmentation
-    on and the fixture backgrounds (among them progressive, CMYK and
-    EXIF-turned JPEGs, palette + tRNS and Adam7 PNGs, and damaged ones),
-    slow and fast, the samples redrawn counted; evaluate.main on the JPEG
-    test list. Returns (summary, K1 launches)."""
+    and 4 threads, every augmentation on beside off, slow and fast; the
+    TIFF frames' decode ms and the loader's images/s with them and the TIFF
+    backgrounds, apart; train_kd.main --data bop on the JPEG train list with
+    the TIFF frames, every augmentation on and the fixture backgrounds
+    (among them progressive, CMYK and EXIF-turned JPEGs, palette + tRNS and
+    Adam7 PNGs, TIFFs, and damaged ones), slow and fast, the samples redrawn
+    counted; evaluate.main on the JPEG test list. Returns (summary, K1
+    launches)."""
     import contextlib
     import dataclasses
     import io
@@ -2275,6 +2315,11 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
     shutil.copytree(os.path.join(FIXTURES, "backgrounds"), backgrounds)
     for f in DAMAGED_BACKGROUNDS:
         shutil.copy(os.path.join(damaged, f), backgrounds)
+    tiff_backgrounds = os.path.join(root, "backgrounds_tiff")   # those and the TIFF ones
+    shutil.copytree(backgrounds, tiff_backgrounds)
+    for sub in ("backgrounds", "damaged"):
+        for f in sorted(os.listdir(os.path.join(RASTER_FIXTURES, sub))):
+            shutil.copy(os.path.join(RASTER_FIXTURES, sub, f), tiff_backgrounds)
     lists, n_listed, decode_ms, damaged_ms = {}, {}, {}, {}
     for split in ("train", "test"):
         names = []
@@ -2305,6 +2350,14 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         lists[split], n_listed[split] = os.path.join(root, f"jpeg_{split}_list.txt"), len(names)
         with open(lists[split], "w") as f:
             f.write("\n".join(names))
+    # the JPEG train list with the TIFF frames
+    tiff_names = []
+    for f in sorted(os.listdir(os.path.join(RASTER_FIXTURES, "frames"))):
+        tiff_names.append(f"train/000001/rgb/{f[len('train_'):]}")
+        shutil.copy(os.path.join(RASTER_FIXTURES, "frames", f), os.path.join(root, tiff_names[-1]))
+    lists["train_tiff"] = os.path.join(root, "tiff_train_list.txt")
+    with open(lists["train"]) as f, open(lists["train_tiff"], "w") as g:
+        g.write("\n".join(f.read().split("\n") + tiff_names))
     # a mask of a listed train frame cut inside its IDAT: cv2 gives None, and
     # both packages drop that instance (the frame's only one)
     mask = os.path.join(root, "train", "000001", "mask_visib", DAMAGED_MASK)
@@ -2316,7 +2369,7 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         raise AssertionError(f"{mask}, cut, still reads")
     with open(yaml_path) as f:
         text = f.read()
-    text = text.replace(f"'{root}/train_list.txt'", f"'{lists['train']}'").replace(
+    text = text.replace(f"'{root}/train_list.txt'", f"'{lists['train_tiff']}'").replace(
         f"'{root}/test_list.txt'", f"'{lists['test']}'").replace(
         "SOLVER:\n", "SOLVER:\n" + "".join(f"  {k}: {v}\n" for k, v in JPEG_AUGS.items()))
     jpeg_yaml = os.path.join(root, "config_jpeg.yaml")
@@ -2324,7 +2377,7 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         f.write(text)
     cfg = load_yaml_config(jpeg_yaml)
     s = cfg.solver
-    if (cfg.data.train_list, cfg.data.test_list) != (lists["train"], lists["test"]) or (
+    if (cfg.data.train_list, cfg.data.test_list) != (lists["train_tiff"], lists["test"]) or (
             s.aug_color_h, s.aug_color_s, s.aug_color_v, s.aug_sharpen, s.aug_smooth,
             s.aug_noise, s.aug_occlusion) != tuple(JPEG_AUGS.values()):
         raise AssertionError("the JPEG tree's config does not hold its lists and augmentations")
@@ -2345,6 +2398,11 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         f"{min(by_kind['baseline']):.2f}-{max(by_kind['baseline']):.2f}, progressive "
         f"{min(by_kind['progressive']):.2f}-{max(by_kind['progressive']):.2f} (PNG frames of "
         f"(a): {png_frame_ms:.2f} ms)")
+    tiff_ms = tiff_frame_ms()
+    log("[bop] (e) TIFF frames (640x480), imread.read ms (median of three rounds of "
+        f"{RASTER_DECODES}): " + ", ".join(f"{f} {ms:.2f}" for f, ms in tiff_ms.items())
+        + " (train_000007.tif 8-bit grey LZW, train_000008.tif 16-bit RGB Deflate with "
+        "predictor 2, train_000009.tif 8-bit palette PackBits in 64x64 tiles)")
     log("[bop] (e) damaged frames, imread.read ms (mean of "
         f"{BOP_JPEG_DECODES}): " + ", ".join(f"{f} {ms:.2f}" for f, ms in damaged_ms.items())
         + f" (baseline cut to 14.7 KB, progressive cut to 19.0 KB, zero bytes: None, a test "
@@ -2358,32 +2416,41 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         f"{RES}x{RES} crop (mean of {AUG_REPS}): " + ", ".join(
             f"{k} {v['frame']:.2f} / {v['crop']:.2f}" for k, v in aug_ms.items()))
 
-    rates = {}
-    for fast in (False, True):
-        for tag, c in (("augs_off", no_aug), ("augs_on", every_aug)):
-            c = c.replace(data=dataclasses.replace(c.data, fast_pipeline=fast))
-            ds = BOPPoseDataset(c, lists["train"], train=True)
-            for p in ds.images:                 # frames decoded into the cache
-                try:
-                    bop.read_image(p)
-                except FileNotFoundError:       # the zero-byte frame, None as in cv2
-                    continue
-                bop.get_single_bop_annotation(p, ds.obj2cls)
-            for n_threads in (1, 4):
-                it = iter(PrefetchLoader(ds, BOP_BATCH, train=True, num_threads=n_threads,
-                                         seed=n_threads))
-                next(it)
-                t0 = time.perf_counter()
-                for _ in range(BOP_LOADER_BATCHES):
-                    b, _ = next(it)
-                rates[f"{'fast' if fast else 'slow'}_{tag}_{n_threads}"] = (
-                    BOP_LOADER_BATCHES * BOP_BATCH / (time.perf_counter() - t0))
-                it.close()
-                if tuple(b.images.shape) != (BOP_BATCH, RES, RES, 3):
-                    raise AssertionError(f"JPEG loader batch {tuple(b.images.shape)}")
+    def loader_rates(cfgs, train_list):
+        rates = {}
+        for fast in (False, True):
+            for tag, c in cfgs:
+                c = c.replace(data=dataclasses.replace(c.data, fast_pipeline=fast))
+                ds = BOPPoseDataset(c, train_list, train=True)
+                for p in ds.images:             # frames decoded into the cache
+                    try:
+                        bop.read_image(p)
+                    except FileNotFoundError:   # the zero-byte frame, None as in cv2
+                        continue
+                    bop.get_single_bop_annotation(p, ds.obj2cls)
+                for n_threads in (1, 4):
+                    it = iter(PrefetchLoader(ds, BOP_BATCH, train=True, num_threads=n_threads,
+                                             seed=n_threads))
+                    next(it)
+                    t0 = time.perf_counter()
+                    for _ in range(BOP_LOADER_BATCHES):
+                        b, _ = next(it)
+                    rates[f"{'fast' if fast else 'slow'}_{tag}_{n_threads}"] = (
+                        BOP_LOADER_BATCHES * BOP_BATCH / (time.perf_counter() - t0))
+                    it.close()
+                    if tuple(b.images.shape) != (BOP_BATCH, RES, RES, 3):
+                        raise AssertionError(f"loader batch {tuple(b.images.shape)}")
+        return rates
+
+    rates = loader_rates((("augs_off", no_aug), ("augs_on", every_aug)), lists["train"])
     log(f"[bop] (e) PrefetchLoader images/s on the JPEG frames at B={BOP_BATCH}, every "
         "augmentation on beside off, frames decoded and cached: "
         + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    tiff_rates = loader_rates((("augs_on", every_aug.replace(solver=dataclasses.replace(
+        every_aug.solver, aug_background_dir=tiff_backgrounds))),), lists["train_tiff"])
+    log(f"[bop] (e) PrefetchLoader images/s on the JPEG and TIFF frames and the TIFF "
+        f"backgrounds at B={BOP_BATCH}, every augmentation on, frames decoded and cached: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in tiff_rates.items()))
 
     k1_key = ("sinkhorn_potentials", cfg.solver.max_pos, cfg.kd.max_teacher_cells)
     orig_build = train_kd.build_configs
@@ -2391,7 +2458,7 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
     def with_backgrounds(args):
         c, c_t = orig_build(args)
         return c.replace(solver=dataclasses.replace(
-            c.solver, aug_background_dir=backgrounds)), c_t
+            c.solver, aug_background_dir=tiff_backgrounds)), c_t
 
     # the samples that come back None (the zero-byte frame, the frame whose
     # only mask is cut): the loader redraws them, as the JAX package's does
@@ -2428,8 +2495,9 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
             k1_total += k1
             k2 = sum(cf.launches.values())
             add_k2(cfg.test.ims_per_batch)
-            log(f"[bop] (e) train_kd.main --data bop, JPEG frames with the damaged ones, every "
-                f"augmentation on, {tag} ({secs:.1f} s): step {st.step}, K1 {k1}, K2 "
+            log(f"[bop] (e) train_kd.main --data bop, JPEG and TIFF frames with the damaged "
+                f"ones, every augmentation on, the TIFF backgrounds among the others, {tag} "
+                f"({secs:.1f} s): step {st.step}, K1 {k1}, K2 "
                 f"{dict(cf.launches)}, samples redrawn {redrawn[0]}; "
                 + "; ".join(f"step {x['step']}: loss_total {x['loss_total']:.4f} (kd "
                             f"{x['loss_kd']:.5f})" for x in h))
@@ -2466,9 +2534,9 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         raise AssertionError("evaluate.main on the JPEG test list: table, predictions or K2 "
                              "launches not as expected")
     return dict(decode_ms=decode_ms, damaged_ms=damaged_ms, frame_kinds=kinds,
-                png_frame_ms=png_frame_ms,
+                png_frame_ms=png_frame_ms, tiff_ms=tiff_ms,
                 augmentation_ms=aug_ms,
-                loader_images_per_s=rates,
+                loader_images_per_s=rates, tiff_loader_images_per_s=tiff_rates,
                 train_kd=runs, evaluate=dict(seconds=secs, predictions=n_preds)), k1_total
 
 

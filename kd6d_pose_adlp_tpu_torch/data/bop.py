@@ -8,9 +8,11 @@ byte-budgeted LRU (`KD6D_DECODE_CACHE_MB`, 2048 by default, 0 disables).
 Frames and masks are read without an image library (`data/imread.py`): PNG
 by `data/png.py` (any colour type and bit depth, tRNS, Adam7), JPEG (BOP's
 PBR renders; sequential or progressive, grey, colour or CMYK) by
-`data/jpeg.py`, told apart by their signatures as cv2 does; damaged files
-read as cv2 reads them, an image where libjpeg or libpng recovers and None
-where cv2 gives None.
+`data/jpeg.py`, and TIFF (ITODD's grey and depth images, 16-bit camera
+frames) by `data/tiff.py`, told apart by their signatures as cv2 does;
+damaged files read as cv2 reads them, an image where its decoder recovers
+and None where cv2 gives None. A float32 frame (a float TIFF) is passed on
+as float32, as the JAX package passes it, and the warp casts it.
 """
 from __future__ import annotations
 
@@ -74,11 +76,13 @@ def read_image(path: str) -> np.ndarray:
     (libs/dataset.py:59-90): uint16 -> uint8, gray -> 3ch, alpha -> white bg.
     Decoded frames are LRU-cached and returned write-protected; callers
     must copy before mutating. A palette or RGB PNG with tRNS reads as BGRA
-    and is composited on white like any alpha. Where cv2.imread gives None
-    (a missing, empty or damaged file) it raises FileNotFoundError, as the
-    JAX package does; a file that cv2 reads and the port does not decode
-    (`imread`'s docstring lists what) raises `native.UnsupportedImage`
-    naming it."""
+    and is composited on white like any alpha; a float32 image (a float
+    TIFF) is returned as float32, as in the JAX package. Where
+    cv2.imread gives None (a missing, empty or damaged file, an OpenEXR
+    file) it raises FileNotFoundError, as the JAX package does; where
+    cv2.imread raises, `native.ImageSizeError`; a file that cv2 reads and
+    the port does not decode (`imread`'s docstring lists what) raises
+    `native.UnsupportedImage` naming it."""
     cached = _DECODE_CACHE.get(path)
     if cached is not None:
         return cached

@@ -1,22 +1,26 @@
-"""Image files as `cv2.imread` reads them, without an image library: PNG
-(`png.py`) or JPEG (`jpeg.py`), chosen by the file's signature as cv2
-chooses, never by its name.
+"""Image files as `cv2.imread` reads them, without an image library, the
+decoder chosen by the file's signature as cv2's findDecoder chooses it,
+never by its name: PNG (`png.py`), JPEG (`jpeg.py`) and TIFF (`tiff.py`).
 
 `read(path)` is `cv2.imread(path, IMREAD_UNCHANGED)`; `read_color(path)` is
-`cv2.imread(path)` (IMREAD_COLOR): grey to three channels, alpha dropped,
-16 bits to their high byte, and the image turned by the EXIF orientation of
-a JPEG's APP1 block or a PNG's eXIf chunk as cv2's ExifTransform turns it
-(orientations 2-8: a flip, a rotation or a transpose; `read`, as
-IMREAD_UNCHANGED, never turns). What the two decoders decode, and how they
-recover damaged data, is in their docstrings.
+`cv2.imread(path)` (IMREAD_COLOR). For PNG and JPEG that is grey to three
+channels, alpha dropped, 16 bits to their high byte, and the image turned by
+the EXIF orientation of a JPEG's APP1 block or a PNG's eXIf chunk as cv2's
+ExifTransform turns it (orientations 2-8: a flip, a rotation or a
+transpose; `read`, as IMREAD_UNCHANGED, never turns). A TIFF reads as
+cv2's TIFF decoder gives it under either flag, dtype included (float32 and
+uint16 under IMREAD_UNCHANGED); `tiff.py` says how it converts for
+IMREAD_COLOR.
 
 Both return None where cv2.imread does: for a missing or unreadable file, an
-empty one, bytes that no format cv2 reads begins with, and damage that
-libjpeg or libpng stops at (`native.CorruptImage`, which `decode` raises).
-A file that cv2 reads and the port does not (arithmetic-coded, lossless or
-12-bit JPEG; BMP, TIFF, WebP, GIF, AVIF, JPEG 2000, OpenEXR, Radiance,
-Sun raster, PFM or PNM by their signatures) raises `native.UnsupportedImage`
-(a ValueError) naming the file.
+empty one, bytes that no format cv2 reads begins with, an OpenEXR file (the
+cv2 these files were held against is built without OpenEXR), and damage or
+a layout that cv2's decoder stops at (`native.CorruptImage`, which `decode`
+raises). A file that cv2 reads and the port does not (BMP, Radiance,
+WebP, Sun raster, PNM, PAM, PFM, JPEG 2000, GIF and AVIF by their
+signatures, the TIFF features `tiff.py` lists, arithmetic-coded, lossless
+or 12-bit JPEG) raises `native.UnsupportedImage` (a ValueError) naming the
+file and the format or feature.
 """
 from __future__ import annotations
 
@@ -25,25 +29,45 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg, png
+from . import jpeg, png, tiff
 from .native import CorruptImage, UnsupportedImage
 
-# the other formats cv2 reads, by the checks of their decoders' signatures
-_OTHER_FORMATS = (("BMP", lambda d: d[:2] == b"BM"),
-                  ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")),
-                  ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"),
-                  ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a")),
-                  ("AVIF", lambda d: d[4:8] == b"ftyp" and any(
-                      d[i:i + 4] in (b"avif", b"avis")
-                      for i in range(8, min(len(d), int.from_bytes(d[:4], "big")), 4))),
-                  ("JPEG 2000", lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n"
-                   or d[:4] == b"\xff\x4f\xff\x51"),
-                  ("OpenEXR", lambda d: d[:4] == b"\x76\x2f\x31\x01"),
-                  ("Radiance", lambda d: d[:6] == b"#?RGBE" or d[:10] == b"#?RADIANCE"),
-                  ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
-                  ("PFM", lambda d: d[:2] in (b"PF", b"Pf") and d[2:3].isspace()),
-                  ("PNM", lambda d: d[:1] == b"P" and d[1:2] in b"1234567" and len(d) > 2
-                   and d[2:3].isspace()))
+
+def _no_decoder(fmt: str):
+    def decode(data: bytes, name: str, color: bool):
+        raise UnsupportedImage(f"{name}: a {fmt} file, a format cv2 reads and the port does "
+                               "not decode")
+    return decode
+
+
+def _openexr(data: bytes, name: str, color: bool):
+    raise CorruptImage(f"{name}: an OpenEXR file; the cv2 the port follows is built without "
+                       "OpenEXR and reads it as None")
+
+
+# cv2's decoders in the order findDecoder tries them, each with its
+# signature check; PNG and JPEG, None here, are decoded in `decode`
+_DECODERS = (
+    ("BMP", lambda d: d[:2] == b"BM", _no_decoder("BMP")),
+    ("Radiance", lambda d: d[:6] == b"#?RGBE" or d[:10] == b"#?RADIANCE",
+     _no_decoder("Radiance")),
+    ("JPEG", lambda d: d[:3] == jpeg.SIGNATURE, None),
+    ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", _no_decoder("WebP")),
+    ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95", _no_decoder("Sun raster")),
+    ("PNM", lambda d: d[:1] == b"P" and d[1:2] in b"1234567" and len(d) > 2
+     and d[2:3].isspace(), _no_decoder("PNM")),
+    ("PFM", lambda d: d[:2] in (b"PF", b"Pf") and d[2:3].isspace(), _no_decoder("PFM")),
+    ("TIFF", tiff.is_tiff, tiff.decode),
+    ("PNG", lambda d: d[:8] == png.SIGNATURE, None),
+    ("JPEG 2000", lambda d: d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n"
+     or d[:4] == b"\xff\x4f\xff\x51", _no_decoder("JPEG 2000")),
+    ("OpenEXR", lambda d: d[:4] == b"\x76\x2f\x31\x01", _openexr),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), _no_decoder("GIF")),
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and any(
+        d[i:i + 4] in (b"avif", b"avis")
+        for i in range(8, min(len(d), int.from_bytes(d[:4], "big")), 4)),
+     _no_decoder("AVIF")),
+)
 
 
 def _tiff_orientation(tiff: bytes) -> int:
@@ -110,16 +134,16 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
 
 
 def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarray:
-    """Decode the PNG or JPEG file contents `data` as `read` (or, with
-    `color`, `read_color`) does; raises CorruptImage where that returns
-    None."""
-    is_png = data[:8] == png.SIGNATURE
-    if not is_png and data[:3] != jpeg.SIGNATURE:
-        for fmt, match in _OTHER_FORMATS:
-            if match(data):
-                raise UnsupportedImage(f"{name}: a {fmt} file, neither a PNG nor a JPEG, the "
-                                       "two formats the port decodes")
+    """Decode the file contents `data` as `read` (or, with `color`,
+    `read_color`) does; raises CorruptImage where that returns None."""
+    for fmt, match, fn in _DECODERS:
+        if match(data):
+            break
+    else:
         raise CorruptImage(f"{name}: empty, or not an image file cv2 reads")
+    if fn is not None:
+        return fn(data, name, color)
+    is_png = fmt == "PNG"
     if not is_png:
         img = jpeg.decode(data, name=name, color=color)
     else:
@@ -135,9 +159,9 @@ def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarra
 
 
 def read(path: str, color: bool = False) -> Optional[np.ndarray]:
-    """The PNG or JPEG in `path` as `cv2.imread(path, IMREAD_UNCHANGED)`
+    """The image in `path` as `cv2.imread(path, IMREAD_UNCHANGED)`
     gives it, or with `color` as `cv2.imread(path)` does: None where cv2
-    gives None."""
+    gives None; `native.ImageSizeError` where cv2.imread raises."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -147,6 +171,6 @@ def read(path: str, color: bool = False) -> Optional[np.ndarray]:
 
 
 def read_color(path: str) -> Optional[np.ndarray]:
-    """The PNG or JPEG in `path` as `cv2.imread(path)` (IMREAD_COLOR) gives
-    it: (H, W, 3) BGR uint8, or None where cv2 gives None."""
+    """The image in `path` as `cv2.imread(path)` (IMREAD_COLOR) gives it:
+    (H, W, 3) BGR uint8, or None where cv2 gives None."""
     return read(path, color=True)

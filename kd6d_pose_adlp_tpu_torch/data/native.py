@@ -1,9 +1,10 @@
 """ctypes bindings of the port's host data plane (`csrc/dataplane.cpp`, the
 counterpart of `kd6d_pose_adlp_tpu/data/native.py`; `csrc/jpeg.cpp`, the
 sequential and progressive JPEG decoder; `csrc/cvarith.cpp`, cv2's uint8 colour, filter and
-resize arithmetic of the augmentations).
+resize arithmetic of the augmentations; `csrc/rasters.cpp`, the LZW, PackBits
+and predictor loops of the TIFF decoder).
 
-The three sources are built with g++ at first use into one library in
+The four sources are built with g++ at first use into one library in
 `kd6d_pose_adlp_tpu_torch/_build/`, named by a hash of the sources and flags
 as the CUDA libraries are (`utils/cuda_build.py`), and loaded once per
 process. There is no fallback: the BOP pipeline's warps, normalisation,
@@ -28,27 +29,44 @@ from ..utils.cuda_build import BUILD_DIR, CSRC
 # holds them bit-equal to its native path); no contraction into FMAs, as
 # csrc/cvarith.cpp fuses exactly where cv2 does, with std::fma
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
-SOURCES = ("dataplane.cpp", "jpeg.cpp", "cvarith.cpp")
+SOURCES = ("dataplane.cpp", "jpeg.cpp", "cvarith.cpp", "rasters.cpp")
 
 _lib = None
 _lock = threading.Lock()
 
 
 class UnsupportedImage(ValueError):
-    """An image file that cv2.imread reads and the port cannot decode
-    (arithmetic-coded, lossless or 12-bit JPEG, or another format cv2
-    knows). The BOP pipeline raises it, where a file cv2 cannot read only
-    skips its sample: the JAX package reads such files with cv2, so
-    skipping them would change what is trained and scored."""
+    """An image file that cv2.imread reads and the port cannot decode (a
+    format other than PNG, JPEG and TIFF, the TIFF features `tiff.py`
+    lists, or an arithmetic-coded, lossless or 12-bit JPEG). The BOP
+    pipeline raises it, where a file cv2 cannot read only skips its sample:
+    the JAX package reads such files with cv2, so skipping them would change
+    what is trained and scored."""
 
 
 class CorruptImage(ValueError):
-    """An image file that cv2.imread gives None for: damage where libjpeg or
-    libpng stops with an error (a frame cut inside its headers, a PNG cut
-    anywhere or failing a critical chunk's CRC, ...), or bytes that no
-    format cv2 knows begins with. `imread.read` returns None for it, as
-    cv2.imread does; the message names what libjpeg or libpng met. Not an
-    UnsupportedImage."""
+    """An image file that cv2.imread gives None for: damage where its decoder
+    stops with an error (a JPEG cut inside its headers, a PNG cut anywhere
+    or failing a critical chunk's CRC, a TIFF cut short, ...), a layout
+    cv2's decoder refuses, an OpenEXR file (the cv2 the port follows is
+    built without OpenEXR), or bytes that no format cv2 knows begins with.
+    `imread.read` returns None for it, as cv2.imread does; the message names
+    what the decoder met. Not an UnsupportedImage."""
+
+
+class ImageSizeError(ValueError):
+    """A file whose header gives a size that cv2.imread raises cv2.error for
+    (validateInputImageSize: a width or height outside 1 to 2^20, or more
+    than 2^30 pixels) where its decoder accepted the header. `imread.read`
+    raises it instead of returning None, as cv2.imread raises: the BOP
+    pipeline's sample then gives None, as the JAX package's does for any
+    exception, and the background bank stops, as it does there."""
+
+
+def check_size(w: int, h: int, name: str) -> None:
+    """Raise ImageSizeError where cv2.imread's size check fails."""
+    if not (0 < w <= 1 << 20 and 0 < h <= 1 << 20 and w * h <= 1 << 30):
+        raise ImageSizeError(f"{name}: a {w}x{h} image, a size cv2.imread raises an error for")
 
 
 def library_path():
@@ -107,6 +125,13 @@ def get_lib() -> ctypes.CDLL:
             for name in ("bgr2hsv_u8", "hsv2bgr_u8", "gaussian_blur7_u8", "box_blur_u8",
                          "normalize_minmax_f32", "normalize_minmax_f64", "resize_linear_u8"):
                 getattr(lib, name).restype = None
+            lib.tiff_lzw.argtypes = [ctypes.c_char_p, i64, u8p, i64]
+            lib.tiff_packbits.argtypes = [ctypes.c_char_p, i64, u8p, i64]
+            lib.tiff_hor_acc.argtypes = [u8p, i64, i64, c, c]
+            lib.tiff_fp_acc.argtypes = [u8p, i64, i64, c, c]
+            for name in ("tiff_lzw", "tiff_packbits"):
+                getattr(lib, name).restype = c
+            lib.tiff_hor_acc.restype = lib.tiff_fp_acc.restype = None
             _lib = lib
     return _lib
 
@@ -201,6 +226,32 @@ def jpeg_decode(data: bytes, color: bool, name: str = "<bytes>") -> np.ndarray:
     if rc:
         raise _jpeg_fail(name, rc, err)
     return out
+
+
+def tiff_lzw(src: bytes, size: int):
+    """libtiff's LZW decode of a strip or tile into `size` bytes: (bytes,
+    rc), rc 0 when they were all decoded, 1 after the error libtiff reports
+    (the bytes past what was decoded are 0), 2 for old-style LZW."""
+    out = np.empty(size, np.uint8)
+    rc = get_lib().tiff_lzw(src, len(src), out, size)
+    return out, rc
+
+
+def tiff_packbits(src: bytes, size: int):
+    """libtiff's PackBits decode into `size` bytes: (bytes, rc) as
+    `tiff_lzw`."""
+    out = np.empty(size, np.uint8)
+    rc = get_lib().tiff_packbits(src, len(src), out, size)
+    return out, rc
+
+
+def tiff_predict(buf: np.ndarray, rows: int, row_bytes: int, bytes_per_sample: int,
+                 stride: int, floating: bool) -> None:
+    """Undo TIFF predictor 2 (`floating` False: native-order integer
+    samples) or 3 (floating point) in place on `rows` rows of `row_bytes`
+    bytes of the uint8 array `buf`, samples `stride` apart."""
+    fn = get_lib().tiff_fp_acc if floating else get_lib().tiff_hor_acc
+    fn(buf, rows, row_bytes, bytes_per_sample, stride)
 
 
 def _image(img: np.ndarray, what: str, channels=None) -> np.ndarray:

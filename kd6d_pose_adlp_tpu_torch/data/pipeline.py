@@ -120,7 +120,10 @@ class BOPPoseDataset:
         also gives None, as in the JAX package, and so does a mask that
         reads with colour channels (a palette or RGB PNG), whose merge fails
         there with an IndexError; a mask that reads as None only drops its
-        instance. A frame or mask that cv2 reads and the port cannot decode
+        instance. A frame or mask whose size cv2.imread raises an error for
+        (`native.ImageSizeError`) gives None too, as any exception there
+        does. A float32 frame (a float TIFF) is warped as JAX warps it, cast
+        to uint8. A frame or mask that cv2 reads and the port cannot decode
         raises UnsupportedImage naming it, since the JAX package would train
         on it."""
         cfg = self.cfg

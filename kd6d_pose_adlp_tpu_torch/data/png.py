@@ -82,9 +82,10 @@ def _chunks(data: bytes, name: str):
         pos = end
 
 
-def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+def unpack_samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
     """(h, w, ch) samples of unfiltered rows: uint16 at 16 bits, else uint8
-    (sub-byte samples unpacked, most significant bits first)."""
+    (sub-byte samples unpacked, most significant bits first; one channel;
+    bytes past the w-th sample of a row ignored). Also TIFF's."""
     h = rows.shape[0]
     if depth == 16:
         return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
@@ -128,7 +129,7 @@ def _pixels(raw: np.ndarray, passes, w: int, h: int, ch: int, depth: int, name: 
             rows = native.png_unfilter(raw[pos:], ph, stride, bpp)
         except CorruptImage as e:
             raise CorruptImage(f"{name}: {e}") from None
-        out[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
+        out[y0::dy, x0::dx] = unpack_samples(rows, pw, ch, depth)
         pos += ph * (stride + 1)
     return out
 

@@ -145,12 +145,13 @@ class BackgroundBank:
     """Random background replacement (reference libs/transform.py
     RandomBackground): with p=0.5 the pixels outside the instance mask are
     swapped for a random image of a directory's .png / .jpg files, read as
-    cv2.imread reads them (`imread.read_color`: progressive and CMYK JPEG,
-    palette, sub-8-bit, tRNS and Adam7 PNG, turned by EXIF orientation) and
-    resized bilinearly. A file that reads as None (missing, empty or
-    damaged, as cv2.imread gives it) is drawn again, up to four draws in
-    all as in the JAX package; a file that cv2 reads and the port does not
-    decode raises `native.UnsupportedImage`."""
+    cv2.imread reads them, by signature whatever the name
+    (`imread.read_color`: progressive and CMYK JPEG, palette, sub-8-bit,
+    tRNS and Adam7 PNG, turned by EXIF orientation; TIFF) and resized
+    bilinearly. A file that reads as None (missing, empty or damaged, a
+    float TIFF, which IMREAD_COLOR refuses, as cv2.imread gives it) is drawn
+    again, up to four draws in all as in the JAX package; a file that cv2
+    reads and the port does not decode raises `native.UnsupportedImage`."""
 
     def __init__(self, background_dir: Optional[str]):
         self.files = []

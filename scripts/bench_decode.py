@@ -11,6 +11,14 @@ where that source refuses the file), and the host's CPU.
     python scripts/bench_decode.py --sources old/jpeg.cpp \\
         kd6d_pose_adlp_tpu_torch/csrc/jpeg.cpp --reps 10
 
+With --rasters it times instead the port's whole read (`imread.read`,
+IMREAD_UNCHANGED) of each committed 640x480 TIFF frame of
+tests/torch_port_fixtures_rasters/ (8-bit grey LZW, 16-bit RGB Deflate with
+predictor 2, 8-bit palette PackBits in tiles): one row a frame, the median
+of three rounds.
+
+    python scripts/bench_decode.py --rasters --reps 10
+
 Needs g++ and numpy; no image library.
 """
 from __future__ import annotations
@@ -72,6 +80,25 @@ def cpu_name() -> str:
     return platform.processor()
 
 
+def raster_rows(reps: int) -> dict:
+    """{frame: median ms of imread.read} over three rounds of `reps`."""
+    from kd6d_pose_adlp_tpu_torch.data import imread
+
+    frames = os.path.join(REPO, "tests", "torch_port_fixtures_rasters", "frames")
+    files = {f: os.path.join(frames, f) for f in sorted(os.listdir(frames))}
+    times = {name: [] for name in files}
+    for _ in range(3):
+        for name, path in files.items():
+            img = imread.read(path)
+            if img is None or img.shape[:2] != (480, 640):
+                raise SystemExit(f"{name}: read as {None if img is None else img.shape}")
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                imread.read(path)
+            times[name].append(1e3 * (time.perf_counter() - t0) / reps)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
 def main(argv=None) -> int:
     fixtures = os.path.join(REPO, "tests", "torch_port_fixtures")
     default_files = [os.path.join(fixtures, d, f) for d in ("frames", "damaged")
@@ -81,7 +108,13 @@ def main(argv=None) -> int:
                     default=[os.path.join(REPO, "kd6d_pose_adlp_tpu_torch", "csrc", "jpeg.cpp")])
     ap.add_argument("--files", nargs="+", default=default_files)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--rasters", action="store_true",
+                    help="time imread.read on each committed 640x480 TIFF frame")
     args = ap.parse_args(argv)
+    if args.rasters:
+        print(json.dumps(dict(cpu=cpu_name(), reps=args.reps, frame="640x480",
+                              median_ms=raster_rows(args.reps))))
+        return 0
     datas = {os.path.relpath(p, fixtures) if p.startswith(fixtures) else p: open(p, "rb").read()
              for p in args.files}
     with tempfile.TemporaryDirectory() as tmp:

@@ -696,7 +696,7 @@ def test_jpeg_frames_raise(trees, tmp_path):
                 for it in its:
                     it.close()
                 continue
-            what = "neither a PNG nor a JPEG"
+            what = "a BMP file"
             with pytest.raises(native.UnsupportedImage, match=f"{name}: .*{what}"):
                 tds.sample(0, seed=1)
             with pytest.raises(native.UnsupportedImage, match=f"{name}: .*{what}"):

@@ -41,8 +41,10 @@ from test_torch_port_jpeg import (  # noqa: E402
 from test_torch_port_pool import one_torch_thread  # noqa: E402,F401 (autouse fixture)
 
 DAMAGED = os.path.join(FIXTURES, "damaged")
-# what a read may still raise UnsupportedImage for
-UNSUPPORTED = ("arithmetic", "lossless", "12-bit", "neither a PNG nor a JPEG")
+# what a read may still raise UnsupportedImage for: the three JPEG processes,
+# and a signature cv2 reads and the port does not decode (every format but
+# PNG, JPEG and TIFF, which test_torch_port_rasters.py holds to cv2)
+UNSUPPORTED = ("arithmetic", "lossless", "12-bit", "a format cv2 reads and the port does not")
 
 
 def _write(tmp_path, data: bytes, name: str) -> str:
