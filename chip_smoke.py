@@ -229,12 +229,14 @@ Phases:
            tests/torch_port_fixtures_rasters/, their own manifest): a
            second train list, the JPEG one with an 8-bit grey LZW, a 16-bit
            RGB Deflate + predictor 2 and an 8-bit palette PackBits tiled
-           TIFF frame, and a second background directory, the JPEG one with
-           a float TIFF, a tiled TIFF and a cut and a bit-flipped one under
-           .jpg / .png names: every one against cv2's digests in (f);
-           imread.read ms of each TIFF frame (scripts/bench_decode.py's
-           rows) and the loader's images/s on that tree, each on a line of
-           its own, in (e); train_kd (slow and fast) runs on that tree.
+           TIFF frame, and a frame whose IFD is damaged (cv2 gives None),
+           and a second background directory, the JPEG one with a float
+           TIFF, a tiled TIFF, a cut and a bit-flipped one and two with a
+           damaged IFD under .jpg / .png names: every one against cv2's
+           digests in (f); imread.read ms of each TIFF frame
+           (scripts/bench_decode.py's rows) and the loader's images/s on
+           that tree, each on a line of its own, in (e); train_kd (slow and
+           fast) runs on that tree and redraws the damaged frame.
   tools    reference checkpoints and the tools on the training entry
            point's path at full width (darknet_tiny_h, FPN 128, P6/P7, a
            darknet53 teacher, 256², B=16). (a) a reference-layout file
@@ -420,6 +422,9 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 RASTER_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                                "torch_port_fixtures_rasters")
 RASTER_DECODES = 10           # decodes of each 640x480 TIFF frame timed, a round
+# a raster fixture whose IFD is damaged (cv2 gives None) listed as this train
+# frame in (e)'s TIFF list: train_kd redraws it
+DAMAGED_TIFF_FRAME = ("train_000010_g4.tif", 10)
 # (e)'s damaged files: fixture -> (split, frame id) in the JPEG lists; the
 # mask of a listed frame cut to half its bytes; the damaged backgrounds
 DAMAGED_FRAMES = {"train_000000_cut.jpg": ("train", 4), "train_000003_cut.jpg": ("train", 5),
@@ -2198,8 +2203,10 @@ def bop_bitexact_phase():
         f"exact 2x); {len(rasters)} TIFF fixtures x 2 reads (8-bit grey LZW, 16-bit Deflate + "
         f"predictor 2 and 8-bit palette PackBits tiled frames; float (None under "
         f"IMREAD_COLOR) and tiled backgrounds under .jpg / .png names; cut and bit-flipped "
-        f"copies, {sum(v['read'] is None for v in rasters.values())} of them None as cv2 gives "
-        f"them) "
+        f"copies, and copies with one bit flipped in the IFD (Compression read as CCITT Group "
+        f"4 on an 8-bit frame, SampleFormat lost on a float background, Photometric read as "
+        f"MinIsWhite on RGB tiles), {sum(v['read'] is None for v in rasters.values())} of "
+        f"them None as cv2 gives them) "
         f"in {time.perf_counter() - t0:.2f} s: {len(wrong)} differ")
     if wrong:
         raise AssertionError(f"the port's decodes or primitives differ from cv2's digests: "
@@ -2350,11 +2357,17 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
         lists[split], n_listed[split] = os.path.join(root, f"jpeg_{split}_list.txt"), len(names)
         with open(lists[split], "w") as f:
             f.write("\n".join(names))
-    # the JPEG train list with the TIFF frames
+    # the JPEG train list with the TIFF frames and one whose IFD is damaged
     tiff_names = []
     for f in sorted(os.listdir(os.path.join(RASTER_FIXTURES, "frames"))):
         tiff_names.append(f"train/000001/rgb/{f[len('train_'):]}")
         shutil.copy(os.path.join(RASTER_FIXTURES, "frames", f), os.path.join(root, tiff_names[-1]))
+    bad_tiff = f"train/000001/rgb/{DAMAGED_TIFF_FRAME[1]:06d}.tif"
+    tiff_names.append(bad_tiff)
+    shutil.copy(os.path.join(RASTER_FIXTURES, "damaged", DAMAGED_TIFF_FRAME[0]),
+                os.path.join(root, bad_tiff))
+    if imread.read(os.path.join(root, bad_tiff)) is not None:
+        raise AssertionError(f"{bad_tiff} ({DAMAGED_TIFF_FRAME[0]}): reads, where cv2 gives None")
     lists["train_tiff"] = os.path.join(root, "tiff_train_list.txt")
     with open(lists["train"]) as f, open(lists["train_tiff"], "w") as g:
         g.write("\n".join(f.read().split("\n") + tiff_names))
@@ -2461,14 +2474,16 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
             c.solver, aug_background_dir=tiff_backgrounds)), c_t
 
     # the samples that come back None (the zero-byte frame, the frame whose
-    # only mask is cut): the loader redraws them, as the JAX package's does
-    orig_sample, lock, redrawn = BOPPoseDataset.sample, threading.Lock(), [0]
+    # only mask is cut, the TIFF frame whose IFD is damaged): the loader
+    # redraws them, as the JAX package's does
+    orig_sample, lock, redrawn = BOPPoseDataset.sample, threading.Lock(), [0, 0]
 
-    def counted(self, *a, **kw):
-        out = orig_sample(self, *a, **kw)
+    def counted(self, index, *a, **kw):
+        out = orig_sample(self, index, *a, **kw)
         if out is None:
             with lock:
                 redrawn[0] += 1
+                redrawn[1] += self.images[index % len(self.images)].endswith(bad_tiff)
         return out
 
     runs, k1_total = {}, 0
@@ -2480,7 +2495,7 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
             wd = os.path.join(tmp, f"run_jpeg_{tag}")
             sf.reset_launch_counts()
             cf.reset_launch_counts()
-            redrawn[0] = 0
+            redrawn[:] = [0, 0]
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -2498,17 +2513,19 @@ def bop_jpeg_phase(torch, sf, cf, tmp, root, yaml_path, wf, png_frame_ms, add_k2
             log(f"[bop] (e) train_kd.main --data bop, JPEG and TIFF frames with the damaged "
                 f"ones, every augmentation on, the TIFF backgrounds among the others, {tag} "
                 f"({secs:.1f} s): step {st.step}, K1 {k1}, K2 "
-                f"{dict(cf.launches)}, samples redrawn {redrawn[0]}; "
+                f"{dict(cf.launches)}, samples redrawn {redrawn[0]} ({redrawn[1]} of them "
+                f"{bad_tiff}, whose IFD is damaged); "
                 + "; ".join(f"step {x['step']}: loss_total {x['loss_total']:.4f} (kd "
                             f"{x['loss_kd']:.5f})" for x in h))
             if not (st.step == BOP_JPEG_STEPS and k1 == BOP_JPEG_STEPS and k2 > 0
-                    and redrawn[0] > 0
+                    and redrawn[0] > 0 and redrawn[1] > 0
                     and all(math.isfinite(v) for x in h for v in x.values())
                     and all(x["loss_kd"] > 0 for x in h)
                     and f"[valid @ step {BOP_JPEG_STEPS}]" in printed):
                 raise AssertionError(f"train_kd.main on the JPEG frames ({tag}): steps, K1 / K2 "
                                      "launches, losses or the evaluation not as expected")
-            runs[tag] = dict(seconds=secs, k1=k1, k2=k2, redrawn=redrawn[0], history=h)
+            runs[tag] = dict(seconds=secs, k1=k1, k2=k2, redrawn=redrawn[0],
+                             redrawn_damaged_tiff=redrawn[1], history=h)
     finally:
         train_kd.build_configs = orig_build
         pipeline.BOPPoseDataset.sample = orig_sample

@@ -26,22 +26,45 @@ What cv2 gives depends on the depth it reads into:
     ones other than a palette, are None.
   - 16 bits (16-bit grey, RGB or RGBA under IMREAD_UNCHANGED) and float32
     are read as stored: RGB comes out BGR, RGBA BGRA, MinIsWhite is not
-    inverted. Any strip or tile that fails gives None.
+    inverted; 16-bit grey over 3 or 4 samples is OpenCV's fixed-point grey
+    of the first three, float grey keeps its samples. Any strip or tile
+    that fails gives None.
   - The Orientation tag turns the result as EXIF orientations turn a JPEG;
     5 to 8 give None unless the image is square, as in cv2.
 
-The IFD is read by libtiff's rules (`_Layout`): which bad tags fail the
-directory and which are ignored, strip arrays read up to the strip count,
-byte counts estimated where missing, a Compression number libtiff does not
-know leaving no codec (its strips decode to zeros under the 8-bit read).
+A file is decided in the order that libtiff 4.7 and cv2's grfmt_tiff.cpp
+decide it, and fails (`native.CorruptImage`: cv2 gives None) at the first
+step where they fail:
+  1. TIFFReadDirectory (`_Layout`): the entry count, SamplesPerPixel and
+     Compression first, then the tags that size the image and the rest in
+     the file's order (a tag's first entry; unknown tags and codec tags of
+     another codec ignored; a bad size, planar, strip, sample or
+     ExtraSamples tag fails the directory, a bad Photometric, Orientation,
+     FillOrder, Predictor or ColorMap is ignored), extra samples added for
+     channels the photometric has no colour for, a palette without its
+     ColorMap read as grey or RGB, strip arrays read up to the strip count
+     and byte counts estimated where missing or implausible, and the JPEG
+     subsampling taken from the first strip.
+  2. cv2's readHeader (`_header`): the photometric, the channels (3 where
+     SamplesPerPixel is missing and the photometric is not grey), bits
+     read as 8 past 8 bits for a photometric above RGB, and the type; then
+     the image size (`native.ImageSizeError` where cv2.imread raises) and
+     readData's limits on a strip or tile.
+  3. The codec's and predictor's set-up (`_codec`), and for the 8-bit
+     reads TIFFRGBAImageOK and TIFFRGBAImageBegin (`_rgba_ok`).
+  4. The read: a strip or tile outside the file, or whose JPEG header
+     disagrees with the IFD (size, components, precision, sampling), gives
+     None; one whose data fails to decode is read as described above.
 
-Raises `native.UnsupportedImage` naming the file and the feature for what
-the port does not decode: CCITT, old-style JPEG, LogLuv, ThunderScan, NeXT
-and Pixar compressions (LZMA, ZSTD, WebP and the others that cv2's libtiff
-is built without read as None); signed, 32-bit integer and 64-bit samples; 16-bit or
-float separate planes (cv2 reads them from memory it never wrote); CMYK,
-Lab and YCbCr without JPEG; 16-bit palettes; old-style LZW. Damage that
-cv2 gives None for raises `native.CorruptImage`.
+`native.UnsupportedImage`, naming the file and the feature, is raised only
+where every check of these steps passes and the strips or tiles lie in the
+file, for what the port does not decode: CCITT, LogLuv, ThunderScan and
+NeXT compressions (old-style JPEG, LZMA, ZSTD, WebP, Pixar log and the
+others that cv2's libtiff is built without read as None); signed, 32-bit
+integer and 64-bit samples; 16-bit or float separate planes, and 16-bit or
+float samples where SamplesPerPixel is missing (cv2 reads both from memory
+it never wrote); CMYK, Lab and YCbCr without JPEG; JPEG of 12 bits;
+old-style LZW.
 """
 from __future__ import annotations
 
@@ -60,18 +83,23 @@ _SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12
 _INT_TYPES = {1: "B", 6: "b", 3: "H", 8: "h", 4: "I", 9: "i", 16: "Q", 17: "q"}
 # compressions cv2's libtiff decodes and the port does not; those libtiff
 # knows without being built with them (JBIG, LZMA, ZSTD, WebP, JPEG XL,
-# LERC) read as None; a number libtiff does not know reads as uncompressed
-_UNPORTED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-             32771: "CCITT RLEW", 32766: "NeXT", 32809: "ThunderScan", 32908: "Pixar log",
-             32909: "Pixar log", 34676: "SGI LogL", 34677: "SGI LogLuv"}
-_NOT_CONFIGURED = {34661, 34925, 50000, 50001, 50002, 34887}
+# LERC, Pixar log, old-style JPEG) read as None; a number libtiff does not know reads as
+# uncompressed
+_UNPORTED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 32771: "CCITT RLEW", 32766: "NeXT", 32809: "ThunderScan", 34676: "SGI LogL",
+             34677: "SGI LogLuv"}
+_NOT_CONFIGURED = {6, 34661, 34925, 50000, 50001, 50002, 34887, 32909}
+# the codecs that take a Predictor tag (libtiff's _TIFFCheckFieldIsValidForCodec)
+_PREDICTED = (5, 8, 32946)
 _BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 # TIFFTAG numbers
 (_WIDTH, _LENGTH, _BPS, _COMPRESSION, _PHOTOMETRIC, _FILLORDER, _STRIPOFFSETS, _ORIENTATION,
- _SPP, _ROWSPERSTRIP, _STRIPBYTECOUNTS, _PLANAR, _PREDICTOR, _COLORMAP, _TILEWIDTH,
- _TILELENGTH, _TILEOFFSETS, _TILEBYTECOUNTS, _EXTRASAMPLES, _SAMPLEFORMAT, _JPEGTABLES) = (
-    256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320, 322, 323, 324, 325,
-    338, 339, 347)
+ _SPP, _ROWSPERSTRIP, _STRIPBYTECOUNTS, _MINSAMPLE, _MAXSAMPLE, _PLANAR, _PREDICTOR, _COLORMAP,
+ _TILEWIDTH, _TILELENGTH, _TILEOFFSETS, _TILEBYTECOUNTS, _INKSET, _EXTRASAMPLES, _SAMPLEFORMAT,
+ _SMIN, _SMAX, _JPEGTABLES, _YCBCRSUBSAMPLING) = (
+    256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 280, 281, 284, 317, 320, 322, 323, 324,
+    325, 332, 338, 339, 340, 341, 347, 530)
+# the colours of a photometric (libtiff's _TIFFGetMaxColorChannels)
+_COLOURS = {0: 1, 1: 1, 3: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, 32845: 3, 4: 4, 5: 4}
 
 
 def is_tiff(data: bytes) -> bool:
@@ -80,8 +108,10 @@ def is_tiff(data: bytes) -> bool:
 
 def _ifd(data: bytes, name: str):
     """(byte order, {tag: (type, count, value field)} of the first IFD's
-    entries (a tag's first), the IFD's size in bytes with its out-of-line
-    values); CorruptImage where libtiff's TIFFOpen fails."""
+    entries in the file's order (a tag's first: libtiff ignores the others),
+    the IFD's size in bytes with its out-of-line values, or None where an
+    entry has a type of no known size); CorruptImage where libtiff's
+    TIFFFetchDirectory fails."""
     order = "<" if data[:2] == b"II" else ">"
     big = data[2:4] in (b"+\0", b"\0+")
     try:
@@ -97,6 +127,8 @@ def _ifd(data: bytes, name: str):
             first, size, cfmt, inline = off + 2, 12, "I", 4
     except struct.error:
         raise CorruptImage(f"{name}: the TIFF header or first IFD is outside the file") from None
+    if not 0 < n <= 4096:
+        raise CorruptImage(f"{name}: a TIFF IFD of {n} entries")
     if first + n * size > len(data):
         raise CorruptImage(f"{name}: the first TIFF IFD is cut")
     entries, space = {}, (16 if big else 8) + first - off + n * size + inline
@@ -104,12 +136,11 @@ def _ifd(data: bytes, name: str):
         e = data[first + i * size:first + (i + 1) * size]
         tag, typ = struct.unpack(order + "HH", e[:4])
         count = struct.unpack(order + cfmt, e[4:4 + inline])[0]
-        nbytes = _SIZES.get(typ, 0) * count
-        if nbytes > inline:
-            space += nbytes
-        if tag in entries:
-            continue
-        entries[tag] = (typ, count, e[4 + inline:4 + 2 * inline])
+        if space is not None:
+            space = None if typ not in _SIZES else space + (
+                _SIZES[typ] * count if _SIZES[typ] * count > inline else 0)
+        if tag not in entries:
+            entries[tag] = (typ, count, e[4 + inline:4 + 2 * inline])
     return order, entries, space
 
 
@@ -136,49 +167,43 @@ class _Tags:
         p = struct.unpack(self.order + ("Q" if len(field) == 8 else "I"), field)[0]
         return self.data[p:p + n] if p + n <= len(self.data) else None
 
-    def ints(self, tag: int, limit=None):
-        """The integer values of `tag` (the first `limit`), None if absent;
-        _Bad if libtiff cannot read them as unsigned integers."""
-        if tag not in self.entries:
-            return None
+    def ints(self, tag: int, limit=None, hi=None):
+        """The integer values of `tag` (the first `limit`); _Bad if libtiff
+        cannot read them as unsigned integers of at most `hi`."""
         typ = self.entries[tag][0]
         raw = self.raw(tag, limit) if typ in _INT_TYPES else None
         if raw is None:
             raise _Bad(tag)
         vals = struct.unpack(self.order + _INT_TYPES[typ] * (len(raw) // _SIZES[typ]), raw)
-        if any(v < 0 for v in vals):
+        if any(v < 0 or (hi is not None and v > hi) for v in vals):
             raise _Bad(tag)
         return list(vals)
 
-    def one(self, tag: int, default, strict: bool, hi: int = 0xFFFF, ok=None):
-        """A single-valued tag: a bad one fails the directory (`strict`:
-        CorruptImage) or is ignored (the default)."""
-        try:
-            vals = self.ints(tag)
-            if vals is None:
-                return default
-            if len(vals) != 1 or vals[0] > hi or (ok is not None and not ok(vals[0])):
+    def one(self, tag: int, hi: int = 0xFFFF) -> int:
+        """TIFFReadDirEntryShort (`hi` 0xFFFF) or Long: one value."""
+        if self.entries[tag][1] != 1:
+            raise _Bad(tag)
+        return self.ints(tag, hi=hi)[0]
+
+    def per_sample(self, tag: int, spp: int) -> int:
+        """TIFFReadDirEntryPersampleShort after TIFFReadDirEntryShort: one
+        value, or at least `spp` values whose first `spp` are equal."""
+        count = self.entries[tag][1]
+        if count == 1:
+            return self.one(tag)
+        vals = self.ints(tag, hi=0xFFFF) if count >= spp else []
+        if not vals or len(set(vals[:spp])) != 1:
+            raise _Bad(tag)
+        return vals[0]
+
+    def bytes(self, tag: int) -> bytes:
+        """TIFFReadDirEntryByteArray."""
+        if self.entries[tag][0] in (1, 2, 7):
+            raw = self.raw(tag)
+            if raw is None:
                 raise _Bad(tag)
-            return vals[0]
-        except _Bad:
-            if strict:
-                raise CorruptImage(f"{self.name}: TIFF tag {tag} unreadable") from None
-            return default
-
-    def per_sample(self, tag: int, default, spp: int):
-        """BitsPerSample / SampleFormat: one value, or one a sample, all
-        equal (TIFFReadDirEntryPersampleShort); anything else fails."""
-        try:
-            vals = self.ints(tag)
-        except _Bad:
-            raise CorruptImage(f"{self.name}: TIFF tag {tag} unreadable") from None
-        if vals is None:
-            return default
-        if vals and vals[0] <= 0xFFFF and (len(vals) == 1 or (
-                len(vals) >= spp and len(set(vals[:spp])) == 1)):
-            return vals[0]
-        raise CorruptImage(f"{self.name}: TIFF tag {tag} of {len(vals)} values")
-
+            return raw
+        return bytes(self.ints(tag, hi=0xFF))
 
 def _inflate(raw: bytes, size: int):
     """libtiff's ZIPDecode: (bytes, ok), the output cut at `size` and what
@@ -209,101 +234,190 @@ def _inflate(raw: bytes, size: int):
     return b"".join(out), False
 
 
+def _howmany(x: int, y: int) -> int:
+    """libtiff's TIFFhowmany_32: 0 where x + y - 1 overflows."""
+    return (x + y - 1) // y if x < 0xFFFFFFFF - (y - 1) else 0
+
+
 class _Layout:
-    """The first IFD as libtiff's TIFFReadDirectory and cv2's readHeader
-    take it: a bad size, tile, PlanarConfig, RowsPerStrip, SamplesPerPixel,
-    ExtraSamples, BitsPerSample or SampleFormat fails the directory; a bad
-    Photometric, Predictor, FillOrder, Orientation or ColorMap is ignored (a
-    missing Photometric fails cv2); strip offsets and byte counts are read
-    up to the strip count, and missing or unreadable byte counts estimated
-    as libtiff estimates them."""
+    """The first IFD as libtiff's TIFFReadDirectory takes it, step by step
+    in its order; CorruptImage where it fails."""
 
     def __init__(self, data: bytes, name: str):
         self.order, entries, space = _ifd(data, name)
         self.name = name
         t = _Tags(self.order, entries, data, name)
-        # none means uncompressed, a value a sample is read as one (libtiff's
-        # TIFFReadDirEntryPersampleShort, before SamplesPerPixel is known); an
-        # unknown one leaves no codec (decoding fails); one libtiff lacks
-        # fails the directory
-        self.compression = t.per_sample(_COMPRESSION, 1, 1)
-        if self.compression in _NOT_CONFIGURED:
-            raise CorruptImage(f"{name}: TIFF compression {self.compression}, which cv2's "
-                               "libtiff is built without")
-        self.w = t.one(_WIDTH, None, True, 2**32 - 1)
-        self.h = t.one(_LENGTH, None, True, 2**32 - 1)
-        if self.w is None or self.h is None:
-            raise CorruptImage(f"{name}: the TIFF IFD lacks ImageWidth or ImageLength")
-        self.spp = t.one(_SPP, 1, True, ok=lambda v: v > 0)
-        self.planar = t.one(_PLANAR, 1, True, ok=lambda v: v in (1, 2))
-        self.bps = t.per_sample(_BPS, 1, self.spp)
-        self.sf = t.per_sample(_SAMPLEFORMAT, 1, self.spp)
-        if not 1 <= self.sf <= 6:
-            raise CorruptImage(f"{name}: TIFF sample format {self.sf}")
-        try:
-            self.extra = t.ints(_EXTRASAMPLES) or []
-        except _Bad:
-            raise CorruptImage(f"{name}: TIFF ExtraSamples unreadable") from None
-        if len(self.extra) > self.spp or any(v > 2 for v in self.extra):
-            raise CorruptImage(f"{name}: TIFF ExtraSamples {self.extra}")
-        self.photometric = t.one(_PHOTOMETRIC, None, False)
-        if self.photometric is None:
-            raise CorruptImage(f"{name}: a TIFF without a readable Photometric tag")
-        self.predictor = t.one(_PREDICTOR, 1, False)
-        self.fillorder = t.one(_FILLORDER, 1, False, ok=lambda v: v in (1, 2))
-        self.orientation = t.one(_ORIENTATION, 1, False, ok=lambda v: 1 <= v <= 8)
-        try:
-            self.colormap = t.ints(_COLORMAP)
-        except _Bad:
-            self.colormap = None
-        if self.colormap is not None and len(self.colormap) != 3 << min(self.bps, 16):
-            self.colormap = None                         # "incorrect count; tag ignored"
-        self.jpegtables = t.raw(_JPEGTABLES) if entries.get(_JPEGTABLES, (0,))[0] == 7 else None
-        self.tiled = _TILEWIDTH in entries or _TILELENGTH in entries
-        if self.tiled:
-            self.cw = t.one(_TILEWIDTH, 0, True, 2**32 - 1)
-            self.ch = t.one(_TILELENGTH, 0, True, 2**32 - 1)
-            offs, counts = _TILEOFFSETS, _TILEBYTECOUNTS
-        else:
-            rps = t.one(_ROWSPERSTRIP, 2**32 - 1, True, 2**32 - 1, ok=lambda v: v > 0)
-            self.cw, self.ch = self.w, (self.h if rps == 2**32 - 1 else rps)
-            offs, counts = _STRIPOFFSETS, _STRIPBYTECOUNTS
-        if self.w <= 0 or self.h <= 0 or self.cw <= 0 or self.ch <= 0:
-            raise CorruptImage(f"{name}: a TIFF of a zero size")
+
+        def strict(read, tag, *args, **kw):
+            try:
+                return read(tag, *args, **kw)
+            except _Bad:
+                raise CorruptImage(f"{name}: TIFF tag {tag} unreadable") from None
+
+        def lenient(tag, default, ok=lambda v: True):
+            if tag not in entries:
+                return default
+            try:
+                v = t.one(tag)
+            except _Bad:
+                return default
+            return v if ok(v) else default
+
+        # SamplesPerPixel, then Compression (one value, or one a sample)
+        self.spp_tag = _SPP in entries
+        self.spp = strict(t.one, _SPP) if self.spp_tag else 1
+        if self.spp == 0:
+            raise CorruptImage(f"{name}: a TIFF of 0 samples a pixel")
+        self.compression = strict(t.per_sample, _COMPRESSION, self.spp) \
+            if _COMPRESSION in entries else 1
+        # the first pass, in the file's order: the tags that size the image
+        w = h = None
+        self.planar, self.extra, rps, tiled = 1, [], None, False
+        tile = [0, 0]                                    # TileWidth, TileLength
+        for tag in entries:
+            if tag in (_WIDTH, _LENGTH, _TILEWIDTH, _TILELENGTH, _ROWSPERSTRIP):
+                v = strict(t.one, tag, hi=0xFFFFFFFF)
+                if tag == _WIDTH:
+                    w = v
+                elif tag == _LENGTH:
+                    h = v
+                elif tag == _ROWSPERSTRIP:
+                    if v == 0:
+                        raise CorruptImage(f"{name}: TIFF RowsPerStrip 0")
+                    rps = v
+                    if not tiled:                        # sets the tile size too
+                        tile = [w or 0, v]
+                else:
+                    tile[tag - _TILEWIDTH], tiled = v, True
+            elif tag == _PLANAR:
+                self.planar = strict(t.one, tag)
+                if self.planar not in (1, 2):
+                    raise CorruptImage(f"{name}: TIFF PlanarConfig {self.planar}")
+            elif tag == _EXTRASAMPLES:
+                vals = strict(t.ints, tag, hi=0xFFFF)
+                vals = [2 if v == 999 else v for v in vals]      # Corel's unassociated alpha
+                if len(vals) > self.spp or any(v > 2 for v in vals):
+                    raise CorruptImage(f"{name}: TIFF ExtraSamples {vals}")
+                self.extra = vals
+        if w is None and h is None:
+            raise CorruptImage(f"{name}: the TIFF IFD lacks ImageWidth and ImageLength")
+        self.w, self.h, self.tiled = w or 0, h or 0, tiled
         planes = self.spp if self.planar == 2 else 1
-        self.across = -(-self.w // self.cw)
-        self.per_plane = self.across * -(-self.h // self.ch)
+        if tiled:
+            self.cw, self.ch = tile
+            dx = self.w if self.cw == 0xFFFFFFFF else self.cw
+            dy = self.h if self.ch == 0xFFFFFFFF else self.ch
+            self.across = _howmany(self.w, dx) if dx else 0
+            self.per_plane = self.across * _howmany(self.h, dy) if dy else 0
+        else:
+            self.cw, self.across = self.w, 1
+            self.ch = self.h if rps is None or rps == 0xFFFFFFFF else rps
+            self.per_plane = 1 if rps is None or rps == 0xFFFFFFFF else _howmany(self.h, rps)
         n = self.per_plane * planes
-        try:
-            self.offsets = t.ints(offs, n)
-        except _Bad:
-            raise CorruptImage(f"{name}: TIFF strip or tile offsets unreadable") from None
-        if self.offsets is None or (len(self.offsets) < n and n > 1_000_000):
-            raise CorruptImage(f"{name}: the TIFF IFD lacks its strip or tile offsets, or "
-                               f"lists {n} of them")
-        self.offsets = (self.offsets + [0] * n)[:n]      # trimmed, or padded with 0
-        if entries.get(counts, (3,))[0] not in _SIZES:
-            raise CorruptImage(f"{name}: TIFF byte counts of an unknown type")
-        try:
-            self.counts = t.ints(counts, n)
-        except _Bad:                                     # ignored, then estimated
-            self.counts = None
-        row_bytes = (self.cw * (1 if self.planar == 2 else self.spp) * self.bps + 7) // 8
-        if self.counts is None or (n == 1 and not self.tiled and self.compression == 1 and (
-                self.counts[0] > len(data) - self.offsets[0]
-                or self.counts[0] < row_bytes * self.h)):
-            self.counts = self._estimate(len(data), space, row_bytes, n, planes)
-        self.counts = (self.counts + [0] * n)[:n]
+        if not 0 < n <= 0x7FFFFFFF:
+            raise CorruptImage(f"{name}: a TIFF of {n} strips or tiles")
+        if _STRIPOFFSETS not in entries and _TILEOFFSETS not in entries:
+            raise CorruptImage(f"{name}: the TIFF IFD lacks its strip or tile offsets")
+        # the second pass, in the file's order: the rest
+        self.bps, self.sf, self.colormap, bps_read = 1, 1, None, False
+        arrays = {}
+        for tag in entries:
+            if tag in (_BPS, _SAMPLEFORMAT, _MINSAMPLE, _MAXSAMPLE):
+                v = strict(t.per_sample, tag, self.spp)
+                if tag == _BPS:
+                    self.bps, bps_read = v, True
+                elif tag == _SAMPLEFORMAT:
+                    if not 1 <= v <= 6:
+                        raise CorruptImage(f"{name}: TIFF sample format {v}")
+                    self.sf = v
+            elif tag in (_SMIN, _SMAX):
+                typ, count, _ = entries[tag]
+                if count != self.spp or typ not in (1, 3, 4, 5, 6, 8, 9, 10, 11, 12, 16, 17) \
+                        or t.raw(tag) is None:
+                    raise CorruptImage(f"{name}: TIFF tag {tag} unreadable")
+            elif tag in (_STRIPOFFSETS, _TILEOFFSETS, _STRIPBYTECOUNTS, _TILEBYTECOUNTS):
+                # the strile arrays, read up to the strip count, padded with 0
+                vals = strict(t.ints, tag, n)
+                if len(vals) < n and n > 1_000_000:
+                    raise CorruptImage(f"{name}: a TIFF strip array of {len(vals)} of {n} values")
+                arrays[tag in (_STRIPOFFSETS, _TILEOFFSETS)] = (vals + [0] * n)[:n]
+            elif tag == _COLORMAP:
+                # ignored before BitsPerSample, past 24 bits or of another count
+                if bps_read and self.bps <= 24 and entries[tag][1] == 3 << self.bps:
+                    try:
+                        self.colormap = t.ints(tag, hi=0xFFFF)
+                    except _Bad:
+                        pass
+        self.offsets, counts = arrays[True], arrays.get(False)
+        self.photometric = lenient(_PHOTOMETRIC, None)
+        self.orientation = lenient(_ORIENTATION, 1, lambda v: 1 <= v <= 8)
+        self.fillorder = lenient(_FILLORDER, 1, lambda v: v in (1, 2))
+        self.inkset = lenient(_INKSET, 1)
+        self.predictor = lenient(_PREDICTOR, 1) if self.compression in _PREDICTED else 1
+        self.jpegtables = None
+        if self.compression == 7 and _JPEGTABLES in entries:
+            try:
+                self.jpegtables = t.bytes(_JPEGTABLES) or None
+            except _Bad:
+                pass
+        self.ycbcr = None
+        if entries.get(_YCBCRSUBSAMPLING, (0, 0))[1] == 2:
+            try:
+                self.ycbcr = tuple(t.ints(_YCBCRSUBSAMPLING, hi=0xFFFF))
+            except _Bad:
+                pass
+        ph = self.photometric
+        # channels the photometric has no colour for are extra samples
+        colours = _COLOURS.get(0 if ph is None else ph, 0)
+        if colours and self.spp - len(self.extra) > colours:
+            self.extra = self.extra + [0] * (self.spp - colours - len(self.extra))
+        if ph == 3 and self.colormap is None:           # a palette without its ColorMap
+            if self.bps < 8:
+                raise CorruptImage(f"{name}: a TIFF palette without a ColorMap")
+            self.photometric = 2 if self.spp == 3 else 1
+        # byte counts: estimated where missing or implausible
+        row_bytes = ((self.cw if tiled else self.w) * (1 if self.planar == 2 else self.spp)
+                     * self.bps + 7) // 8
+        estimate = counts is None
+        if counts is None:
+            if (self.planar == 1 and n > 1) or (self.planar == 2 and n != self.spp):
+                raise CorruptImage(f"{name}: the TIFF IFD lacks its strip or tile byte counts")
+        elif n == 1 and not tiled:
+            off, size = self.offsets[0], len(data)
+            estimate = (counts[0] == 0 and off != 0) or (self.compression == 1 and (
+                (off <= size and counts[0] > size - off) or counts[0] < row_bytes * self.h))
+        elif self.planar == 1 and n > 2 and self.compression == 1 and counts[0] != counts[1] \
+                and counts[0] and counts[1]:
+            estimate = True
+        if estimate:
+            if self.compression != 1 and space is None:
+                raise CorruptImage(f"{name}: a TIFF IFD entry of an unknown type")
+            counts = self._estimate(len(data), space, row_bytes, n, planes)
+        self.counts = counts
+        if self.compression == 7 and ph == 6 and self.planar == 1 and self.spp == 3 \
+                and self.ycbcr is None:
+            sof = _jpeg_sof(data[self.offsets[0]:self.offsets[0] + self.counts[0]])
+            if sof is not None and len(sof[3]) == 3 and sof[3][0][0] in (1, 2, 4) and \
+                    sof[3][0][1] in (1, 2, 4) and all(c == (1, 1) for c in sof[3][1:]):
+                self.ycbcr = sof[3][0]
+        # a zero scanline, tile or strip size fails the directory
+        sub = self.ycbcr or (2, 2)
+        if self.w == 0 or self.h == 0 or self.bps == 0 or (
+                self.photometric == 6 and self.planar == 1 and self.spp == 3
+                and not (sub[0] in (1, 2, 4) and sub[1] in (1, 2, 4))):
+            raise CorruptImage(f"{name}: a TIFF of a zero scanline, strip or tile size")
 
     def _estimate(self, size: int, space: int, row_bytes: int, n: int, planes: int):
         """libtiff's EstimateStripByteCounts."""
         if self.compression != 1:
-            left = max(size - space, 0) // planes
+            left = (size if size < space else size - space) // planes
             counts = [left] * n
-            if self.offsets[-1] > size - left:
+            if self.offsets[-1] + left > size:
                 counts[-1] = max(size - self.offsets[-1], 0)
             return counts
-        return [row_bytes * (self.ch if self.tiled else min(self.ch, self.h))] * n
+        if self.tiled:
+            return [row_bytes * self.ch] * n
+        return [row_bytes * (self.h // self.per_plane)] * n
 
     def chunk_shape(self, index: int):
         """(rows, columns) the strip or tile `index` of a plane decodes to."""
@@ -360,16 +474,89 @@ def _decode_chunk(data: bytes, lay: _Layout, k: int, rows: int, cols: int, nsamp
     return buf.reshape(rows, row_bytes), True
 
 
-def _jpeg_chunk(data: bytes, lay: _Layout, k: int, rows: int, cols: int):
-    """An 8-bit JPEG strip or tile decoded as libtiff's JPEG codec does
-    it: (rows, cols, channels) uint8 (RGB order), or None."""
+def _jpeg_sof(raw: bytes):
+    """(precision, height, width, [(h, v) sampling a component]) of the
+    first frame header of a JPEG stream, or None where none comes before a
+    scan or the stream's end."""
+    if raw[:2] != b"\xff\xd8":
+        return None
+    pos = 2
+    while pos + 4 <= len(raw):
+        if raw[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = raw[pos + 1]
+        if marker in (0xFF, 0x01) or 0xD0 <= marker <= 0xD7:
+            pos += 2 - (marker == 0xFF)
+            continue
+        if marker in (0xD9, 0xDA):
+            return None
+        n = struct.unpack(">H", raw[pos + 2:pos + 4])[0]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            body = raw[pos + 4:pos + 2 + n]
+            if len(body) < 6 or len(body) < 6 + 3 * body[5]:
+                return None
+            p, h, w, nc = struct.unpack(">BHHB", body[:6])
+            return p, h, w, [(body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15) for i in range(nc)]
+        pos += 2 + n
+    return None
+
+
+def _jpeg_tables(tables: bytes):
+    """The marker segments of a JPEGTables stream as libjpeg's tables-only
+    header read takes them (JPEGSetupDecode): bytes between segments
+    skipped, a segment cut by the stream's end filled with the fake EOI
+    bytes libjpeg reads there; None where it is no tables-only stream (no
+    SOI, or a frame or scan header)."""
+    if tables[:2] != b"\xff\xd8":
+        return None
+    out, pos = [], 2
+    while pos + 1 < len(tables):
+        if tables[pos] != 0xFF or tables[pos + 1] == 0xFF:
+            pos += 1
+            continue
+        marker = tables[pos + 1]
+        if marker == 0xD9:
+            break
+        if marker == 0x01 or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xCC) or marker == 0xDA:
+            return None
+        n = struct.unpack(">H", (tables[pos + 2:pos + 4] + b"\xff\xd9")[:2])[0]
+        seg = tables[pos:pos + 2 + n]
+        out.append(seg + (b"\xff\xd9" * n)[:2 + n - len(seg)])
+        pos += 2 + n
+    return b"".join(out)
+
+
+def _jpeg_chunk(data: bytes, lay: _Layout, k: int, rows: int, cols: int, nsamp: int, y0: int):
+    """A JPEG strip or tile decoded as libtiff's JPEG codec does it:
+    (rows, cols, nsamp) uint8 (RGB order), or None where JPEGPreDecode
+    fails: the stream's frame is wider or taller than the strip (a last
+    strip may be taller), or its components, precision or sampling differ
+    from the IFD's. A smaller frame fills the top left and leaves zeros."""
     off, cnt = lay.offsets[k], lay.counts[k] if k < len(lay.counts) else 0
     if cnt <= 0 or off + cnt > len(data):
         return None
     raw = data[off:off + cnt]
-    tables = lay.jpegtables or b""
-    if tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9" and raw[:2] == b"\xff\xd8":
-        raw = tables[:-2] + raw[2:]
+    sof = _jpeg_sof(raw)
+    if sof is None:
+        return None
+    prec, fh, fw, comps = sof
+    seg_w, seg_h = (lay.cw, lay.ch) if lay.tiled else (lay.w, min(lay.h - y0, lay.ch))
+    if (fw > seg_w or fh > seg_h) and not (
+            fw == seg_w and fh > seg_h and y0 + seg_h == lay.h and not lay.tiled):
+        return None
+    sampling = (lay.ycbcr or (2, 2)) if lay.photometric == 6 and lay.planar == 1 else (1, 1)
+    if len(comps) != nsamp or prec != lay.bps or comps[0] != sampling or any(
+            c != (1, 1) for c in comps[1:]):
+        return None
+    if lay.jpegtables is not None:
+        tables = _jpeg_tables(lay.jpegtables)
+        if tables is None:
+            return None
+        raw = b"\xff\xd8" + tables + raw[2:]
     # libtiff sets the colour space itself: an Adobe marker makes csrc/jpeg.cpp
     # convert YCbCr (transform 1) or take RGB as stored (transform 0)
     transform = 1 if lay.photometric == 6 else 0
@@ -381,7 +568,11 @@ def _jpeg_chunk(data: bytes, lay: _Layout, k: int, rows: int, cols: int):
         return None
     if img.ndim == 3:
         img = img[:, :, ::-1]
-    return img.reshape(img.shape[0], img.shape[1], -1)
+    img = img.reshape(img.shape[0], img.shape[1], -1)
+    block = np.zeros((rows, cols, nsamp), np.uint8)
+    n, m = min(rows, img.shape[0]), min(cols, img.shape[1])
+    block[:n, :m] = img[:n, :m]
+    return block
 
 
 def _samples(data: bytes, lay: _Layout, keep_partial: bool, skew: bool = False):
@@ -401,14 +592,11 @@ def _samples(data: bytes, lay: _Layout, keep_partial: bool, skew: bool = False):
             y0, x0 = (i // lay.across) * lay.ch, (i % lay.across) * lay.cw
             rows, cols = lay.chunk_shape(i)
             if lay.compression == 7:
-                block = _jpeg_chunk(data, lay, k, rows, cols)
+                block = _jpeg_chunk(data, lay, k, rows, cols, nsamp, y0)
                 if block is None:
                     if p == 0 or not keep_partial:
                         return None
                     continue
-                if block.shape[:2] != (rows, cols) or block.shape[2] != nsamp:
-                    raise UnsupportedImage(f"{lay.name}: a JPEG strip or tile of another "
-                                           "size or sample count than the TIFF's")
             else:
                 buf, ok = _decode_chunk(data, lay, k, rows, cols, nsamp, keep_partial)
                 if buf is None:
@@ -484,74 +672,170 @@ def _rgba(img: np.ndarray, lay: _Layout) -> np.ndarray:
     return out
 
 
-def _check_rgba_ok(lay: _Layout) -> bool:
-    """TIFFRGBAImageOK (with what the port decodes)."""
-    ph, bps, spp = lay.photometric, lay.bps, lay.spp
-    if bps not in (1, 2, 4, 8, 16) or (lay.planar == 2 and spp > 1 and bps < 8):
+def _rgba_ok(lay: _Layout):
+    """TIFFRGBAImageOK, then TIFFRGBAImageBegin's choice of a routine:
+    False where libtiff refuses the file, the name of the feature where it
+    reads one the port does not, else True."""
+    ph, bps, spp, comp = lay.photometric, lay.bps, lay.spp, lay.compression
+    if bps not in (1, 2, 4, 8, 16) or lay.sf == 3:
         return False
+    colours = spp - len(lay.extra)
+    contig = lay.planar == 1 or spp == 1
+    if ph in (0, 1, 3) and lay.planar == 1 and spp != 1 and bps < 8:
+        return False
+    if (ph == 2 and colours < 3) or (ph == 5 and (lay.inkset != 1 or spp < 4)) or (
+            ph == 8 and (spp != 3 or colours != 3 or bps not in (8, 16))) or (
+            ph == 32844 and comp != 34676) or (ph == 32845 and (
+                comp not in (34676, 34677) or lay.planar != 1 or spp != 3 or colours != 3)):
+        return False
+    if ph in (32844, 32845):
+        return "SGI Log"
+    if ph == 6 and comp == 7 and contig:                 # libjpeg gives RGB
+        ph = 2
     if ph in (0, 1):
-        return not (lay.planar == 1 and spp != 1 and bps < 8)
-    if ph == 3:
-        return lay.colormap is not None
+        return True
     if ph == 2:
-        return spp - len(lay.extra) >= 3 and bps in (8, 16)
-    if ph == 6 and lay.compression == 7:
-        return bps == 8
-    if ph in (5, 6, 8, 32844, 32845):                    # CMYK, YCbCr, CIELab, LogL, LogLuv
-        raise UnsupportedImage(f"{lay.name}: TIFF photometric {ph}"
-                               f"{' without JPEG' if ph == 6 else ''}")
+        return bps in (8, 16)
+    if not contig:
+        if ph == 5 and bps == 8 and spp == 4:
+            return "CMYK"
+        if ph == 6 and bps == 8 and spp == 3 and (lay.ycbcr or (2, 2)) == (1, 1):
+            return "YCbCr without JPEG"
+        return False
+    if ph == 3:
+        return bps != 16
+    if ph == 5:
+        return "CMYK" if bps == 8 else False
+    if ph == 6:
+        hs, vs = lay.ycbcr or (2, 2)
+        ok = bps == 8 and spp == 3 and (hs, vs) in (
+            (4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
+        return "YCbCr without JPEG" if ok else False
+    if ph == 8:
+        return "CIELab"
     return False
+
+
+def _codec(lay: _Layout):
+    """The codec's and the predictor's set-up (TIFFStartStrip's
+    setupdecode): False where libtiff fails it, the name of the codec where
+    cv2's libtiff decodes one the port does not, else True."""
+    comp, bps, sf, pred = lay.compression, lay.bps, lay.sf, lay.predictor
+    if comp in _NOT_CONFIGURED:
+        return False
+    if comp in (2, 3, 4, 32771):                         # Fax3SetupState
+        ok = bps == 1 and (lay.spp == 1 or lay.planar == 2)
+    elif comp in (32766, 32809):                         # NeXT 2 bits, ThunderScan 4
+        ok = bps == (2 if comp == 32766 else 4)
+    elif comp in (34676, 34677):                         # LogLuvSetupDecode
+        ok = lay.photometric in (32844, 32845)
+    else:                                                # cv2 sets LogLuv's float format
+        ok = lay.photometric != 32845
+    if not ok:
+        return False
+    if comp in _UNPORTED:
+        return f"compression {_UNPORTED[comp]}"
+    if pred == 1 or (pred == 2 and bps in (8, 16, 32, 64)) or (
+            pred == 3 and sf == 3 and bps in (16, 24, 32, 64)):
+        return True
+    return False                                         # PredictorSetup
+
+
+def _readable(data: bytes, lay: _Layout, keep_partial: bool) -> bool:
+    """Whether cv2 reads every strip or tile of the first plane, for a file
+    the port reads no further: each lies in the file (TIFFFillStrip), and
+    its JPEG header agrees with the IFD, or (not `keep_partial`) its data
+    decodes; a codec the port lacks is judged by the first alone."""
+    nsamp = 1 if lay.planar == 2 else lay.spp
+    for i in range(lay.per_plane):
+        rows, cols = lay.chunk_shape(i)
+        if lay.compression in _UNPORTED:
+            o, c = lay.offsets[i], lay.counts[i]
+            ok = 0 < c and o + c <= len(data)
+        elif lay.compression == 7:
+            ok = _jpeg_chunk(data, lay, i, rows, cols, nsamp, (i // lay.across) * lay.ch) \
+                is not None
+        else:
+            buf, ok = _decode_chunk(data, lay, i, rows, cols, nsamp, keep_partial)
+            ok = buf is not None and (ok or keep_partial)
+        if not ok:
+            return False
+    return True
+
+
+def _header(lay: _Layout, color: bool):
+    """cv2's readHeader: (channels, depth) of the image it reads into, the
+    samples a pixel it takes (`ncn`), and the feature the port leaves out
+    where cv2 reads one (else None); CorruptImage where it refuses the
+    file."""
+    name, ph, sf = lay.name, lay.photometric, lay.sf
+    if ph is None:
+        raise CorruptImage(f"{name}: a TIFF without a readable Photometric tag")
+    grey = ph in (0, 1)
+    ncn = lay.spp if lay.spp_tag else (1 if grey else 3)
+    bps = lay.bps
+    if ph == 32845:                                      # LogLuv: float RGB
+        return (3, 8) if color else (3, 32), ncn, "SGI LogLuv"
+    if bps > 8 and (ph > 2 or ncn not in (1, 3, 4)):
+        bps = 8
+    unported = None
+    if bps == 4 and ph == 3:
+        pass
+    elif bps in (1, 8) and (bps == 8 or sf in (1, 2)):
+        pass
+    elif (bps == 16 and sf == 1) or (bps == 32 and sf == 3):
+        pass
+    elif (bps in (10, 12, 14, 16) and sf == 2) or (bps in (10, 12, 14) and sf == 1) \
+            or (bps == 32 and sf in (1, 2)) or (bps == 64 and sf == 3):
+        unported = f"samples of {bps} bits, sample format {sf}"
+    else:
+        raise CorruptImage(f"{name}: TIFF samples of {bps} bits, sample format {sf}, "
+                           "which cv2 refuses")
+    if color:
+        kind = 3, 8
+    elif ph == 3 or bps == 4:
+        kind = 1 if bps == 1 else 3, 8
+    elif bps <= 8:
+        kind = 1 if grey or ncn == 2 else ncn, 8
+    else:
+        kind = 1 if grey and bps == 16 else ncn, bps
+    return kind, ncn, unported
 
 
 def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarray:
     """The TIFF's first page as cv2.imread gives it (IMREAD_UNCHANGED, or
     IMREAD_COLOR with `color`); raises CorruptImage where that gives None."""
-    lay = _Layout(data, name)
-    bps, spp, ph, sf = lay.bps, lay.spp, lay.photometric, lay.sf
-    grey = ph in (0, 1)
-    # readHeader: the type cv2 reads into (None where it refuses)
-    if bps == 4 and ph == 3:
-        pass
-    elif bps in (1, 8) and (bps == 8 or sf in (1, 2)):
-        pass
-    elif bps == 16 and sf == 1:
-        pass
-    elif bps == 32 and sf == 3:
-        pass
-    elif (bps in (10, 12, 14, 16) and sf == 2) or (bps in (10, 12, 14) and sf == 1) \
-            or (bps == 32 and sf in (1, 2)) or (bps == 64 and sf == 3):
-        raise UnsupportedImage(f"{name}: TIFF samples of {bps} bits, sample format {sf}")
-    else:
-        raise CorruptImage(f"{name}: TIFF samples of {bps} bits, sample format {sf}, "
-                           "which cv2 refuses")
-    if spp > 4 or spp < 1 or (bps == 32 and spp == 2):
-        raise CorruptImage(f"{name}: a TIFF of {spp} samples a pixel at {bps} bits")
-    if bps == 16 and ph == 3:
-        raise UnsupportedImage(f"{name}: a 16-bit TIFF palette")
-    if lay.compression == 7 and bps != 8:
-        raise UnsupportedImage(f"{name}: a {bps}-bit JPEG TIFF")
-    if lay.predictor not in (1, 2, 3) or (lay.predictor == 2 and bps not in (8, 16, 32)) \
-            or (lay.predictor == 3 and sf != 3):
-        raise CorruptImage(f"{name}: TIFF predictor {lay.predictor} at {bps} bits, format {sf}")
-    if ph == 3 or bps == 4:
-        channels, depth = (1 if bps == 1 else 3), 8
-    elif spp == 2:
-        channels, depth = 1, 8
-    else:
-        channels, depth = (1 if grey else spp), (bps if bps in (16, 32) else 8)
-    if color:
-        channels, depth = 3, 8
+    lay = _Layout(data, name)                            # 1. TIFFReadDirectory
+    (channels, depth), ncn, unported = _header(lay, color)     # 2. readHeader, readData
     check_size(lay.w, lay.h, name)
-    # cv2's readData asserts: tiles or strips of at most 2^24 rows and
-    # columns and under 1 GiB
-    if lay.cw > 1 << 24 or lay.ch > 1 << 24 or \
-            lay.cw * lay.ch * min(spp, 4) * max(1, bps // 8) >= 1 << 30:
-        raise CorruptImage(f"{name}: a TIFF strip or tile of {lay.cw}x{lay.ch}, which cv2 refuses")
+    tw, th = lay.cw or lay.w, lay.ch or lay.h
+    # readData's buffer: RGBA for the 8-bit reads, else the samples as stored
+    if not (0 < tw <= 1 << 24 and 0 < th <= 1 << 24) or ncn > 4 or lay.bps > 64 or \
+            tw * th * (4 if depth == 8 else ncn * max(1, lay.bps // 8)) >= 1 << 30:
+        raise CorruptImage(f"{name}: a TIFF strip or tile of {tw}x{th}, {ncn} samples, "
+                           "which cv2 refuses")
+    steps = [_rgba_ok(lay)] if depth == 8 else []        # 3. TIFFRGBAImageOK, set-up
+    steps.append(_codec(lay))
+    if False in steps:
+        raise CorruptImage(f"{name}: libtiff refuses TIFF photometric {lay.photometric}, "
+                           f"{lay.bps}-bit samples, compression {lay.compression}, "
+                           f"predictor {lay.predictor}")
+    if depth > 8 and lay.planar == 2 and lay.spp > 1:
+        unported = unported or f"{lay.bps}-bit samples in separate planes, which cv2 reads " \
+                               "from memory it never wrote"
+    if depth > 8 and ncn != lay.spp:
+        unported = unported or f"{lay.bps}-bit samples without SamplesPerPixel, which cv2 " \
+                               "reads from memory it never wrote"
+    unported = unported or next((s for s in steps if isinstance(s, str)), None)
+    if unported is not None:                             # 4. the read, as far as it goes
+        if not _readable(data, lay, keep_partial=depth == 8):
+            raise CorruptImage(f"{name}: a TIFF strip or tile that cv2 fails to read")
+        raise UnsupportedImage(f"{name}: TIFF {unported}")
+    ph, bps, spp = lay.photometric, lay.bps, lay.spp
     if depth == 8:
-        if not _check_rgba_ok(lay):
-            raise CorruptImage(f"{name}: TIFFRGBAImageOK refuses {bps}-bit samples, "
-                               f"photometric {ph}")
-        skew = (lay.planar == 1 or spp == 1) and grey and (bps == 16 or (bps == 8 and spp == 2))
+        # libtiff's grey and palette routines skip a clipped tile's row by
+        # bytes, not samples
+        skew = (lay.planar == 1 or spp == 1) and ph in (0, 1, 3) and bps in (8, 16)
         img = _samples(data, lay, keep_partial=True, skew=skew)
         if img is None:
             raise CorruptImage(f"{name}: a TIFF strip or tile outside the file")
@@ -562,17 +846,17 @@ def decode(data: bytes, name: str = "<bytes>", color: bool = False) -> np.ndarra
         else:
             out = rgba[:, :, [2, 1, 0, 3][:channels]].astype(np.uint8)
     else:
-        if lay.planar == 2 and spp > 1:
-            raise UnsupportedImage(f"{name}: {bps}-bit TIFF samples in separate planes, "
-                                   "which cv2 reads from memory it never wrote")
-        if lay.compression == 7:
-            raise UnsupportedImage(f"{name}: a {bps}-bit JPEG TIFF")
         img = _samples(data, lay, keep_partial=False)
         if img is None:
             raise CorruptImage(f"{name}: a TIFF strip or tile that fails to decode")
-        if depth == 32:
-            img = img.view(np.float32)
-        out = img[:, :, 0] if channels == 1 else img[:, :, [2, 1, 0, 3][:channels]]
+        if channels == 1 and spp > 1:                    # OpenCV's fixed-point grey of RGB
+            v = img[:, :, :3].astype(np.int64)
+            out = ((v[:, :, 0] * 4899 + v[:, :, 1] * 9617 + v[:, :, 2] * 1868 + 8192)
+                   >> 14).astype(img.dtype)
+        else:
+            if depth == 32:
+                img = img.view(np.float32)
+            out = img[:, :, 0] if channels == 1 else img[:, :, [2, 1, 0, 3][:channels]]
     o = lay.orientation
     if 5 <= o <= 8 and lay.w != lay.h:
         raise CorruptImage(f"{name}: TIFF orientation {o} of a non-square image")

@@ -17,9 +17,13 @@ included, None where cv2 gives None, and `native.ImageSizeError` where
 cv2.imread raises; `read_image` and the background bank are bit-equal to
 JAX's; samples have equal images and masks and the poses of
 tests/test_torch_port_bop.py (R atol 1e-6, T rtol 1e-6, bbox_trans atol
-1e-4). The bit flips land in the strips and tiles: a flip in the IFD can
-change a tag to a value that libtiff reads in ways the port does not follow
-in every case (ROADMAP).
+1e-4). The damaged copies are held to cv2 the same way: bit flips in the
+strips and tiles, seeded bit flips in the first IFD's count and entries,
+whole-file mutations (cuts, flips, inserted and deleted bytes), and one
+case of each kind of IFD damage the flips met, where `UnsupportedImage` is
+allowed only where cv2 gives an image and the message names a feature the
+port leaves out (`UNPORTED`); and a tree whose frame and background have a
+damaged IFD, against the JAX package, which redraws where cv2 gives None.
 """
 import dataclasses
 import hashlib
@@ -240,26 +244,31 @@ def _write(tmp_path, data: bytes, name: str) -> str:
     return p
 
 
+def _same_read(path: str, color: bool, flag: int):
+    """One read of `path` against cv2.imread's under `flag` (None, or
+    ImageSizeError where cv2 raises)."""
+    try:
+        want = cv2.imread(path, flag)
+    except cv2.error:
+        with pytest.raises(native.ImageSizeError, match="size"):
+            imread.read(path, color=color)
+        return None
+    got = imread.read(path, color=color)
+    if want is None:
+        assert got is None, (path, flag, got.dtype, got.shape)
+        return None
+    assert got is not None, (path, flag, want.dtype, want.shape)
+    assert (got.dtype, got.shape) == (want.dtype, want.shape), (path, flag, got.dtype,
+                                                                 got.shape, want.shape)
+    np.testing.assert_array_equal(got, want, err_msg=f"{path} flag {flag}")
+    return want
+
+
 def _same_as_cv2(path: str):
     """Both reads of `path` against cv2.imread's (None, or ImageSizeError
     where cv2 raises); returns cv2's IMREAD_UNCHANGED read."""
-    first = None
-    for color, flag in ((False, cv2.IMREAD_UNCHANGED), (True, cv2.IMREAD_COLOR)):
-        try:
-            want = cv2.imread(path, flag)
-        except cv2.error:
-            with pytest.raises(native.ImageSizeError, match="size"):
-                imread.read(path, color=color)
-            continue
-        got = imread.read(path, color=color)
-        if want is None:
-            assert got is None, (path, flag, got.dtype, got.shape)
-            continue
-        assert got is not None, (path, flag, want.dtype, want.shape)
-        assert (got.dtype, got.shape) == (want.dtype, want.shape), (path, flag, got.dtype,
-                                                                     got.shape, want.shape)
-        np.testing.assert_array_equal(got, want, err_msg=f"{path} flag {flag}")
-        first = want if first is None and flag == cv2.IMREAD_UNCHANGED else first
+    first = _same_read(path, False, cv2.IMREAD_UNCHANGED)
+    _same_read(path, True, cv2.IMREAD_COLOR)
     return first
 
 
@@ -361,6 +370,12 @@ def test_reads_equal_cv2(tmp_path, kind):
 DAMAGE_SOURCES = ("lzw_pred_uint8_3", "deflate_pred_uint16_3", "pred3_comp8", "packbits_uint8_1",
                   "tiles_uint8_4", "planes8_uint8_3", "pil_rgb_jpeg", "grey1_ph0")
 FLIPS = 12
+COPIES = 100
+# the features data/tiff.py leaves out, as its UnsupportedImage messages
+# name them: a damaged copy may raise it only where cv2 gives an image
+UNPORTED = ("CCITT", "ThunderScan", "NeXT", "SGI Log", "sample format", "separate planes",
+            "without SamplesPerPixel", "CMYK", "CIELab", "YCbCr without JPEG",
+            "old-style (pre-TIFF 5.0) LZW", "12-bit")
 
 
 def test_cut_and_flipped_copies_read_as_cv2(tmp_path):
@@ -385,6 +400,145 @@ def test_cut_and_flipped_copies_read_as_cv2(tmp_path):
             n_read += got is not None
     print(f"{n_read} damaged copies read, {n_none} None")
     assert n_read > 0 and n_none > 0
+
+
+def _as_cv2_or_unported(path: str):
+    """`_same_as_cv2`, except that a read may raise UnsupportedImage where
+    cv2 gives an image under that flag and the message names a feature of
+    `UNPORTED`; returns cv2's IMREAD_UNCHANGED read, or "unsupported"."""
+    first = None
+    for color, flag in ((False, cv2.IMREAD_UNCHANGED), (True, cv2.IMREAD_COLOR)):
+        try:
+            want = _same_read(path, color, flag)
+        except native.UnsupportedImage as e:
+            assert cv2.imread(path, flag) is not None, (path, flag, str(e))
+            assert any(f in str(e) for f in UNPORTED), str(e)
+            want = "unsupported"
+        first = want if flag == cv2.IMREAD_UNCHANGED else first
+    return first
+
+
+def _ifd_span(data: bytes):
+    """(byte order, offset of the first IFD, its entry count)."""
+    order = "<" if data[:2] == b"II" else ">"
+    ifd = struct.unpack(order + "I", data[4:8])[0]
+    return order, ifd, struct.unpack(order + "H", data[ifd:ifd + 2])[0]
+
+
+_SWEEPS = {}
+
+
+def _sweep_copies(kind: str) -> dict:
+    """The damaged copies of `kind` drawn from one np.random.default_rng(20)
+    over DAMAGE_SOURCES in order, COPIES a source: ("ifd", i) flips one bit
+    at a uniform position in the first IFD's count and 12-byte entries;
+    ("mutate", i) is test_torch_port_damaged._mutate's cut, byte or bit
+    flip, inserted or deleted bytes anywhere in the file."""
+    if not _SWEEPS:
+        from test_torch_port_damaged import _mutate
+
+        for sweep in ("ifd", "mutate"):
+            rng = np.random.default_rng(20)
+            for src in DAMAGE_SOURCES:
+                data = KINDS[src]()
+                _, ifd, n = _ifd_span(data)
+                for i in range(COPIES):
+                    if sweep == "ifd":
+                        d = bytearray(data)
+                        d[int(rng.integers(ifd, ifd + 2 + 12 * n))] ^= 1 << int(rng.integers(8))
+                        d = bytes(d)
+                    else:
+                        d = _mutate(rng, data)
+                    _SWEEPS.setdefault(src, {})[(sweep, i)] = d
+    return _SWEEPS[kind]
+
+
+@pytest.mark.parametrize("kind", DAMAGE_SOURCES)
+def test_ifd_bit_flips_read_as_cv2(tmp_path, kind):
+    """COPIES copies of each source with one bit flipped in its first IFD
+    (the seeded draws of `_sweep_copies`) read as cv2 reads them."""
+    got = [_as_cv2_or_unported(_write(tmp_path, d, f"{kind}_ifd{i}.tif"))
+           for (sweep, i), d in _sweep_copies(kind).items() if sweep == "ifd"]
+    n_none, n_unported = sum(g is None for g in got), sum(isinstance(g, str) for g in got)
+    print(f"{kind}: {len(got) - n_none - n_unported} IFD-flipped copies read, {n_none} None, "
+          f"{n_unported} unsupported")
+    assert len(got) == COPIES
+
+
+@pytest.mark.parametrize("kind", DAMAGE_SOURCES)
+def test_whole_file_mutations_read_as_cv2(tmp_path, kind):
+    """COPIES seeded whole-file mutations of each source read as cv2 reads
+    them."""
+    got = [_as_cv2_or_unported(_write(tmp_path, d, f"{kind}_mut{i}.tif"))
+           for (sweep, i), d in _sweep_copies(kind).items() if sweep == "mutate"]
+    assert len(got) == COPIES
+
+
+def _patch(data: bytes, tag: int, field: str, value) -> bytes:
+    """`data` with the `field` ("tag", "type", "count" or "value", the last
+    as 4 bytes or a number) of `tag`'s first IFD entry set to `value`."""
+    order, ifd, n = _ifd_span(data)
+    for i in range(n):
+        p = ifd + 2 + 12 * i
+        if struct.unpack(order + "H", data[p:p + 2])[0] == tag:
+            at, fmt = {"tag": (0, "H"), "type": (2, "H"), "count": (4, "I"),
+                       "value": (8, "I")}[field]
+            raw = value if isinstance(value, bytes) else struct.pack(order + fmt, value)
+            return data[:p + at] + raw + data[p + at + len(raw):]
+    raise KeyError(tag)
+
+
+def _insert_in_tables(data: bytes) -> bytes:
+    """Four bytes inserted inside the JPEGTables stream's last Huffman
+    table, the count left as it was: its end is cut, junk follows."""
+    order, ifd, n = _ifd_span(data)
+    off = next(struct.unpack(order + "I", data[p + 8:p + 12])[0]
+               for p in range(ifd + 2, ifd + 2 + 12 * n, 12)
+               if struct.unpack(order + "H", data[p:p + 2])[0] == 347)
+    at = off + 177
+    return data[:at] + bytes([0x8B, 0x33, 0x78, 0x45]) + data[at:]
+
+
+# one case of each kind of IFD damage the sweeps met: (source, how) and
+# whether cv2 gives an image ("image"), None, or an image the port leaves
+# out ("unsupported")
+IFD_CASES = {
+    "g4_on_8bit_rgb": ("lzw_pred_uint8_3", (259, "value", 4), None),
+    "g3_on_jpeg": ("pil_rgb_jpeg", (259, "value", 3), None),
+    "old_style_jpeg": ("pil_rgb_jpeg", (259, "value", 6), None),
+    "ycbcr_without_jpeg": ("lzw_pred_uint8_3", (262, "value", 6), "unsupported"),
+    "separated_one_sample": ("packbits_uint8_1", (262, "value", 5), None),
+    "sampleformat_lost_275": ("pred3_comp8", (339, "tag", 275), None),
+    "sampleformat_lost_371": ("pred3_comp8", (339, "tag", 371), None),
+    "sampleformat_lost_33107": ("pred3_comp8", (339, "tag", 33107), None),
+    "jpeg_wider_ifd": ("pil_rgb_jpeg", (256, "value", 0x1035), "image"),
+    "jpeg_taller_strip": ("pil_rgb_jpeg", (278, "value", 0x24), None),
+    "spp_lost_uint16": ("deflate_pred_uint16_3", (277, "tag", 8469), "unsupported"),
+    "spp_lost_float": ("pred3_comp8", (277, "tag", 309), "unsupported"),
+    "compression_count_129": ("planes8_uint8_3", (259, "count", 129), None),
+    "compression_count_65": ("planes8_uint8_3", (259, "count", 65), None),
+    "compression_count_33": ("tiles_uint8_4", (259, "count", 33), None),
+    "compression_lost_tiles": ("tiles_uint8_4", (259, "tag", 258), None),
+    "photometric_unknown": ("deflate_pred_uint16_3", (262, "value", 0x8002), None),
+    "photometric_ycbcr_float": ("pred3_comp8", (262, "value", 6), None),
+    "photometric_miniswhite_rgb16": ("deflate_pred_uint16_3", (262, "value", 0), "image"),
+    "photometric_miniswhite_tiles": ("tiles_uint8_4", (262, "value", 0), "image"),
+    "compression_lost_strips": ("lzw_pred_uint8_3", (259, "tag", 16643), "image"),
+    "bytecounts_past_file": ("planes8_uint8_3", (279, "value", 0x800017B4), None),
+    "bytecounts_none": ("pred3_comp8", (279, "count", 0), "image"),
+    "rows_per_strip_over_1gib": ("grey1_ph0", (278, "value", 0x800025), None),
+    "bits_12_packbits": ("packbits_uint8_1", (258, "value", 12), None),
+    "jpeg_tables_cut": ("pil_rgb_jpeg", _insert_in_tables, "image"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IFD_CASES))
+def test_each_kind_of_ifd_damage_reads_as_cv2(tmp_path, case):
+    kind, how, expect = IFD_CASES[case]
+    data = KINDS[kind]()
+    data = how(data) if callable(how) else _patch(data, *how)
+    got = _as_cv2_or_unported(_write(tmp_path, data, case + ".tif"))
+    assert (got if got is None or isinstance(got, str) else "image") == expect, case
 
 
 def test_openexr_reads_as_none(tmp_path):
@@ -584,6 +738,101 @@ def test_one_loader_batch_matches_jax(raster_tree):
     np.testing.assert_allclose(tb.bbox_trans.numpy(), np.asarray(jb.bbox_trans), atol=1e-4)
 
 
+def _g4_frame(img: np.ndarray) -> bytes:
+    """The frame as an 8-bit grey LZW TIFF whose Compression reads CCITT
+    Group 4 (one bit flipped): cv2 gives None (Group 4 takes 1-bit samples)."""
+    return _patch(tiff_bytes(cv2.cvtColor(img, cv2.COLOR_BGR2GRAY), comp=5, rps=16), 259,
+                  "value", 4)
+
+
+def _float_without_format(img: np.ndarray) -> bytes:
+    """A float Deflate TIFF with predictor 3 whose SampleFormat tag reads
+    275 (one bit flipped): cv2 gives None (predictor 3 takes floats)."""
+    return _patch(tiff_bytes(img.astype(np.float32) / 255, comp=8, pred=3), 339, "tag", 275)
+
+
+@pytest.fixture(scope="module")
+def damaged_raster_tree(tmp_path_factory):
+    """raster_tree with a fifth train frame of a damaged IFD (`_g4_frame`)
+    and, among the TIFF backgrounds, one of a damaged IFD
+    (`_float_without_format`)."""
+    root = tmp_path_factory.mktemp("damaged_raster_bop")
+    yaml_path = make_bop_dataset.write_dataset(str(root), n_train=5, n_test=1, n_fg=3,
+                                               single_class=None, seed=6)
+    scene = root / "train" / "000001"
+    names = []
+    for j in range(5):
+        img = cv2.imread(str(scene / "rgb" / f"{j:06d}.png"), cv2.IMREAD_UNCHANGED)
+        files = _frame_files(img)
+        name = sorted(files)[j] if j < 4 else f"{j:06d}.tif"
+        with open(scene / "rgb" / name, "wb") as f:
+            f.write(files[name] if j < 4 else _g4_frame(img))
+        names.append(f"train/000001/rgb/{name}")
+    with open(root / "raster_list.txt", "w") as f:
+        f.write("\n".join(names))
+    rng = _rng("damaged tree backgrounds")
+    _backgrounds(str(root / "bg"), rng)
+    with open(root / "bg" / "float_no_format_as.png", "wb") as f:
+        f.write(_float_without_format(_smooth(rng, 90, 120, 3)))
+    for p in (scene / "rgb" / "000004.tif", root / "bg" / "float_no_format_as.png"):
+        assert _same_as_cv2(str(p)) is None and cv2.imread(str(p)) is None
+    return yaml_path, str(root / "raster_list.txt"), str(root / "bg")
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["slow", "fast"])
+def test_samples_on_the_damaged_tree_match_jax(damaged_raster_tree, fast):
+    """Samples of every frame under three seeds equal JAX's, None (a redraw)
+    for the damaged frame in both, with the damaged background in the bank."""
+    yaml_path, list_file, bg_dir = damaged_raster_tree
+    jc, tc = _cfg_pair(yaml_path, list_file, bg_dir, fast)
+    jds = jpipe.BOPPoseDataset(jc, list_file, train=True)
+    tds = tpipe.BOPPoseDataset(tc, list_file, train=True)
+    n = 0
+    for seed in (1, 2, 3):
+        for idx in range(5):
+            got, want = tds.sample(idx, seed=seed), jds.sample(idx, seed=seed)
+            assert (got is None) == (want is None), (idx, seed)
+            assert idx < 4 or got is None
+            if got is None:
+                continue
+            n += 1
+            for key in ("image", "mask"):
+                assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape
+                np.testing.assert_array_equal(got[key], want[key])
+            np.testing.assert_array_equal(got["class_ids"], want["class_ids"])
+            np.testing.assert_allclose(got["rotations"], want["rotations"], atol=1e-6)
+            np.testing.assert_allclose(got["translations"], want["translations"], rtol=1e-6)
+            np.testing.assert_allclose(got["bbox_trans"], want["bbox_trans"], atol=1e-4)
+    assert n >= 8
+
+
+def test_one_loader_epoch_on_the_damaged_tree_matches_jax(damaged_raster_tree):
+    """One epoch of the loader (three batches of two over the five frames,
+    the damaged one redrawn) equals JAX's, and so does the background bank
+    that skips the damaged background."""
+    yaml_path, list_file, bg_dir = damaged_raster_tree
+    port, jax_bank = TT.BackgroundBank(bg_dir), JT.BackgroundBank(bg_dir)
+    assert port.files == jax_bank.files
+    img = np.random.default_rng(4).integers(0, 256, (128, 128, 3), dtype=np.uint8)
+    mask = np.zeros((128, 128), np.int32)
+    mask[40:80, 30:70] = 1
+    for seed in range(12):
+        r_port, r_jax = np.random.default_rng(seed), np.random.default_rng(seed)
+        np.testing.assert_array_equal(port(img, mask, r_port), jax_bank(img, mask, r_jax))
+        assert r_port.bit_generator.state == r_jax.bit_generator.state
+    jc, tc = _cfg_pair(yaml_path, list_file, bg_dir, False)
+    its = [iter(pipe.PrefetchLoader(pipe.BOPPoseDataset(c, list_file, train=True), batch_size=2,
+                                    train=True, num_threads=1, seed=5))
+           for pipe, c in ((tpipe, tc), (jpipe, jc))]
+    for _ in range(3):
+        (tb, _), (jb, _) = next(its[0]), next(its[1])
+        np.testing.assert_array_equal(tb.images.numpy(), np.asarray(jb.images))
+        np.testing.assert_array_equal(tb.class_ids.numpy(), np.asarray(jb.class_ids))
+        np.testing.assert_allclose(tb.bbox_trans.numpy(), np.asarray(jb.bbox_trans), atol=1e-4)
+    for it in its:
+        it.close()
+
+
 # ---------------------------------------------------------------------------
 # the committed fixtures (chip_smoke's (e) and (f))
 # ---------------------------------------------------------------------------
@@ -607,6 +856,10 @@ def cv2_manifest(root: str) -> dict:
 # (name, SyntheticPoseDataset index): train frames 7-9 of chip_smoke's tree
 FRAMES = (("frames/train_000007.tif", 1007), ("frames/train_000008.tif", 1008),
           ("frames/train_000009.tif", 1009))
+# the damaged-IFD fixtures (each under 20 KB): a train frame (id 10 of
+# chip_smoke's (e)) and two backgrounds
+IFD_FIXTURES = ("damaged/train_000010_g4.tif", "damaged/bg_14_no_format.png",
+                "damaged/bg_16_miniswhite.jpg")
 
 
 def write_raster_fixtures(root: str = FIXTURES) -> dict:
@@ -614,7 +867,8 @@ def write_raster_fixtures(root: str = FIXTURES) -> dict:
     640x480 frames (an 8-bit grey LZW TIFF, a 16-bit RGB Deflate TIFF with
     predictor 2, an 8-bit palette PackBits TIFF in tiles) of the renderer's
     frames, blurred so that they cost few bytes; TIFF backgrounds of at most
-    160x120 under .jpg / .png names; damaged copies (cut, bit-flipped)."""
+    160x120 under .jpg / .png names; damaged copies (cut, bit-flipped in the
+    data and in the IFD)."""
     from kd6d_pose_adlp_tpu_torch.data.synthetic import SyntheticPoseDataset
 
     for sub in ("frames", "backgrounds", "damaged"):
@@ -634,7 +888,16 @@ def write_raster_fixtures(root: str = FIXTURES) -> dict:
            "backgrounds/bg_15.jpg": tiff_bytes(small[:, :, ::-1], comp=5, pred=2, tile=(32, 32))}
     damaged = {"damaged/bg_15_flipped.jpg": _flip(bgs["backgrounds/bg_15.jpg"], 1000, 3),
                "damaged/bg_15_cut.jpg": bgs["backgrounds/bg_15.jpg"][:len(
-                   bgs["backgrounds/bg_15.jpg"]) * 2 // 3]}
+                   bgs["backgrounds/bg_15.jpg"]) * 2 // 3],
+               # one bit flipped in the IFD: a frame whose Compression reads
+               # CCITT Group 4 and a float background without SampleFormat
+               # (None), a background in clipped tiles whose Photometric reads
+               # MinIsWhite (grey of its first sample, inverted)
+               IFD_FIXTURES[0]: _g4_frame(cv2.resize(imgs[0], (160, 120),
+                                                          interpolation=cv2.INTER_AREA)),
+               IFD_FIXTURES[1]: _float_without_format(small[:60, :80, ::-1] * 1.0),
+               IFD_FIXTURES[2]: _patch(tiff_bytes(small[:60, :80, ::-1], comp=5, pred=2,
+                                                  tile=(32, 32)), 262, "value", 0)}
     for rel, data in {**frames, **bgs, **damaged}.items():
         with open(os.path.join(root, rel), "wb") as f:
             f.write(data)
@@ -661,7 +924,8 @@ def test_the_raster_fixtures_manifest_is_cv2s():
     assert sorted(name for name, _ in FRAMES) == sorted(f for f in committed["files"]
                                                         if f.startswith("frames/"))
     none = {rel for rel, v in committed["files"].items() if v["read_color"] is None}
-    assert none == {"backgrounds/bg_14.png", "damaged/bg_15_cut.jpg"}
+    assert none == {"backgrounds/bg_14.png", "damaged/bg_15_cut.jpg", *IFD_FIXTURES[:2]}
+    assert all(os.path.getsize(os.path.join(FIXTURES, rel)) < 20 * 1024 for rel in IFD_FIXTURES)
 
 
 if __name__ == "__main__":
