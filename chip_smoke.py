@@ -46,7 +46,16 @@ Phases:
            both dtypes, held the same way, times logged. The stem segment
            in both forms and both types against its plain version (fp32
            atol 1e-4, bf16 within one bf16 rounding), timed beside the
-           library chain in the same type.
+           library chain in the same type. K2 past the widths where its
+           implicit GEMM's window of two image rows fits in shared memory
+           (K2_WIDE: every instance of its row-segment form, fp32 at C > 4
+           @4x700-1000, fp32 at C <= 4 @4x2200, bf16 @4x3400, and the wide
+           plan's s2 shape, 32->32 @960², each counted under
+           conv_fused.ROWS_NAME), held and timed as the serving shapes are;
+           the wide plan's eval-mode DarkNet (tiny-h-wide) at input_res
+           1920, B = 1, in both types: its stem segment held stage by stage
+           against the plain segment, its K2 launches read (fp32's s2 conv
+           on the row-segment form).
            Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
            problems of P = T = 64 points in [0, 1]², a quarter of the
            weights zero) against its plain version: each of the four
@@ -56,11 +65,16 @@ Phases:
            padded ones), and the divergence built from them (rtol 1e-4,
            atol 1e-6); the same at the edges of its thread mapping (N, P, T
            = 3, 1, 1; 5, 1, 128; 3, 128, 128; 7, 64, 37 balanced; 8, 37,
-           128 balanced and biased; 4, 128, 5) and at the 128-point cap
-           with the main path's N, every cloud keeping at least one real
-           point; P = 129 must raise. Timed by CUDA-graph replay beside its
-           bound and the plain version, at the main shape and (logged) at
-           the cap. No single PyTorch call computes it.
+           128 balanced and biased; 4, 128, 5) and at P = T = 128 with the
+           main path's N, every cloud keeping at least one real point; then
+           past the small routes (K1_WIDE: a 74-step schedule, scaling 0.9,
+           at the main shape; then k1_wide's global route at N = 16, P =
+           129, T = 64; N = 8, P = T = 1,000 at 74 steps; N = 2, P = T =
+           5,000, past one block's shared memory; N = 16, P = T = 256; and
+           its shared route at N = 128, P = T = 256; each shape's route
+           logged). Timed by CUDA-graph replay beside its bound and the
+           plain version, at the main shape, each K1_WIDE shape and (logged)
+           at P = T = 128. No single PyTorch call computes it.
   serving  builds the full-width darknet_tiny_h PoseNet from a seeded
            generator and answers requests of 8 synthetic 256² uint8 crops
            through build_infer_fn(device="cuda"): 4 requests on the default
@@ -103,6 +117,9 @@ Phases:
            (metrics 1e-3, gradients 1e-2, BN statistics 1e-4); the folded
            teacher's outputs and votes against the unfolded one's in fp32
            (each field within 1e-4 of its largest magnitude, masks equal).
+           Then the B=2 step card vs CPU again with max_pos =
+           max_teacher_cells = 256 (K1 on its shared route), under the same
+           gates.
   eval     240 synthetic images (10 chunks of 24 at 256², mixed classes)
            through the evaluators on the card. A planted scene (fabricated
            network outputs that decode to the ground truth, every fourth
@@ -167,7 +184,9 @@ Phases:
            the teacher folded, calibrated on 4 eval batches and int8, K1
            once per step, finite losses; then export_model --check (bf16,
            B=8) on that run's final.ckpt: the round trip passes, bf16 K2
-           once per shape in each of the eager and the loaded request.
+           once per shape in each of the eager and the loaded request. (g)
+           train_kd.main --scaling 0.9 for 3 steps: finite losses, K1 once
+           per step, each solve on the 74-step schedule.
   zebra    the dense binary-code head at full width (darknet_tiny_h, FPN 128,
            P6/P7, 15 classes, 256², 16-bit codes over the 152 box-surface
            vertices a class). (a) one distilling zebra step, B=2, fp32, with a
@@ -486,6 +505,39 @@ K2_EDGES = ((1, 3, 8, 255, 255), (1, 3, 8, 41, 61), (1, 3, 8, 33, 30),
             (1, 3, 8, 37, 29), (2, 3, 8, 5, 2), (1, 3, 8, 6, 3), (2, 3, 8, 3, 4),
             (1, 8, 16, 3, 3), (2, 8, 16, 17, 30),
             (2, 16, 64, 20, 20), (2, 5, 12, 9, 7)) + IGEMM_EDGES
+# K2 past the widths where conv3x3_igemm's window of two image rows fits in
+# shared memory (B, C, O, H, W, dtype), one shape for each tiling of its
+# row-segment form: fp32 at C > 4 with O <= 16, 32, 64 and past 64 (the
+# window fits up to ~860, 920, 780 and 550 columns), fp32 at C <= 4 (taps
+# paired, ~1,700-2,100), bf16 (~2,900-3,300); then the wide plan's eval
+# segment's s2 conv at WIDE_SEGMENT_RES (32 -> 32 @960²), the shape the main
+# path gives the form. Each stages row segments (its launches count under
+# conv_fused.ROWS_NAME), is held as K2_EDGES are and timed as a row of the
+# kernels line
+K2_WIDE = ((1, 12, 8, 4, 900, "float32"), (1, 32, 32, 4, 1000, "float32"),
+           (1, 32, 64, 4, 900, "float32"), (1, 32, 128, 4, 700, "float32"),
+           (1, 4, 16, 4, 2200, "float32"), (1, 3, 32, 4, 2200, "float32"),
+           (1, 3, 64, 4, 2200, "float32"), (1, 4, 128, 4, 2200, "float32"),
+           (1, 16, 16, 4, 3400, "bfloat16"), (1, 32, 32, 4, 3400, "bfloat16"),
+           (1, 32, 64, 4, 3400, "bfloat16"), (1, 32, 128, 4, 3400, "bfloat16"),
+           (1, 32, 32, 960, 960, "float32"))
+# the wide plan's eval segment (tiny-h-wide: 3 -> 32, 32 -> 32) at this
+# input_res, B = 1: its s2 conv at 960 columns in fp32 stages row segments
+WIDE_SEGMENT_RES = 1920
+# K1 past the small routes (N, P, T, scaling): a 74-step schedule (scaling
+# 0.9) at the main shape; then k1_wide, whose global route takes N below
+# two thirds of the SM count: P = 129 (its smallest), 1,000 points at 74
+# steps, 5,000 points (past one block's shared memory: the global route at
+# any N), and the train phase's 256-point step at B = 2; its shared route
+# at the same clouds at B = 16 (N = 128)
+K1_WIDE = ((128, 64, 64, 0.9), (16, 129, 64, 0.5), (8, 1000, 1000, 0.9),
+           (2, 5000, 5000, 0.5), (16, 256, 256, 0.5), (128, 256, 256, 0.5))
+K1_WIDE_ITERS = 10          # timed calls of a K1_WIDE shape of > 1e9 pairs
+# the train phase's 256-point KD step (max_pos = max_teacher_cells) and the
+# cli phase's train_kd --scaling run (its steps)
+WIDE_CLOUD = 256
+CLI_SCALING = 0.9
+CLI_SCALING_STEPS = 3
 # K3's edge shapes (B, C, O, H, W): each serving-instance kernel at B = 1
 # (both with a ragged last tile), M = H * (W + 2) odd (the 4-byte path) at
 # each instance, a ragged last tile at B = 2, then conv3x3_igemm at the
@@ -836,6 +888,64 @@ def conv_edges(torch, cf, dev, g, stacked: bool, dtype):
                 raise AssertionError(f"{name} disagrees on an offset slab at {C}->{O} {dtype}")
 
 
+def k2_wide(torch, F, cf, dev):
+    """K2 past the widths where its window fits (K2_WIDE), rows of the
+    kernels line, and the wide plan's eval-mode DarkNet at WIDE_SEGMENT_RES
+    in both types, its stem segment held stage by stage against the plain
+    segment (segment_gate). Returns (rows, the segment runs' readings, their
+    K2 launches by (name, C, O, dtype, H, W))."""
+    from kd6d_pose_adlp_tpu_torch.models import darknet
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    rows = []
+    for B, C, O, H, W, dname in K2_WIDE:
+        cf.reset_launch_counts()
+        r, _ = conv_rows(torch, F, cf, dev, g, B, "wide", C, O, H, W, getattr(torch, dname),
+                         stacked_too=False)
+        if not (cf.launches.get((cf.ROWS_NAME, C, O, dname))
+                and not cf.launches.get(("conv3x3_bn_act_flat", C, O, dname))):
+            raise AssertionError(f"K2 at {C}->{O} @{H}x{W} {dname} did not stage row "
+                                 f"segments: launches {dict(cf.launches)}")
+        rows += [dict(x, name=cf.ROWS_NAME) for x in r]
+
+    res, runs, launches = WIDE_SEGMENT_RES, {}, {}
+    x = torch.rand((1, res, res, 3), generator=g, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        torch.manual_seed(0)
+        net = darknet.DarkNet("tiny-h-wide", dtype=dtype).to(dev).eval()
+        u1, u2 = net.features[0][0], net.features[1][0]
+        with torch.no_grad():
+            cf.reset_launch_counts()
+            t0 = time.perf_counter()
+            pyr = net(x)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            by = dict(cf.launches)
+            (sc1, bi1), (sc2, bi2) = u1.folded_affine(), u2.folded_affine()
+            err, ok = segment_gate(torch, cf, (pyr[0].permute(0, 2, 3, 1),
+                                               pyr[1].permute(0, 2, 3, 1)),
+                                   x.to(dtype).contiguous(), u1.packed_weight(), sc1, bi1,
+                                   u2.packed_weight(), sc2, bi2)
+        s2_name = cf.ROWS_NAME if dtype == torch.float32 else "conv3x3_bn_act_flat"
+        want = {("conv3x3_bn_act_flat", 3, 32, dname): 1, (s2_name, 32, 32, dname): 1}
+        hw = {(3, 32): (res, res), (32, 32): (res // 2, res // 2)}
+        finite = all(bool(torch.isfinite(t).all()) for t in pyr)
+        runs[dname] = dict(max_abs_err=err, seconds=secs, finite=finite,
+                           launches={":".join(map(str, k)): v for k, v in by.items()})
+        log(f"[kernel] tiny-h-wide eval forward at {res}² B=1 {dname} ({secs:.2f} s incl. "
+            f"its first calls): stem segment vs plain, stage by stage, {err:.3e}; K2 "
+            f"launches {by}; outputs finite {finite}")
+        if not (ok and finite and by == want):
+            raise AssertionError(f"the wide plan's eval segment at {res}² {dname} disagrees "
+                                 f"with its plain version or missed its kernels")
+        for key, v in by.items():
+            key += hw[key[1:3]]
+            launches[key] = launches.get(key, 0) + v
+    return rows, runs, launches
+
+
 def potential_errors(got, want, a, b) -> dict:
     """K1 against its plain version: for each potential (a_x, b_y, a_y, b_x),
     max|got - want| and, over its real (weight > 0) and its padded points
@@ -859,7 +969,9 @@ def potentials_agree(pots: dict) -> bool:
 
 
 def sinkhorn_kernel(torch, sf, dev):
-    """K1 at the KD loss's shape against its plain version, and its time."""
+    """K1 at the KD loss's shape against its plain version, and its time;
+    then at K1_WIDE, each held by the same gate and timed. Returns the
+    rows of the kernels line, the main shape's first."""
     from kd6d_pose_adlp_tpu_torch.config import Config
     from kd6d_pose_adlp_tpu_torch.ops import sinkhorn as sk
 
@@ -912,10 +1024,10 @@ def sinkhorn_kernel(torch, sf, dev):
         f"{div_err:.3e} (|divergence| up to {div.abs().max().item():.3e})")
     if not ok:
         raise AssertionError("sinkhorn_potentials disagrees with its plain version")
-    # other sizes the kernel takes (P != T, the 128-point cap, the balanced
-    # and biased forms) and the edges of its thread mapping (one point; 4, 2
-    # and 1 lanes per row; a row of exactly 128 columns; passes that split
-    # a warp); above 128 it raises
+    # other sizes of the small routes (P != T, P = T = 128, the balanced
+    # and biased forms) and the edges of their thread mapping (one point; 4,
+    # 2 and 1 lanes per row; a row of exactly 128 columns; passes that split
+    # a warp); past 128 points, K1_WIDE below
     for (n, p_, t_), kw_ in (((8, 37, 128), dict(kw, reach=None, debias=False)),
                              ((4, 128, 5), dict(kw, debias=True)),
                              ((3, 1, 1), kw),
@@ -927,19 +1039,9 @@ def sinkhorn_kernel(torch, sf, dev):
             f"debias={kw_['debias']}: {show(pe)}; divergence {de:.3e}")
         if not ok:
             raise AssertionError(f"sinkhorn_potentials disagrees at P={p_}, T={t_}")
-    try:
-        sf.solve_potentials(*problems(1, 129, 4)[:2], torch.zeros((1, 129), device=dev),
-                            torch.zeros((1, 4), device=dev), **kw)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("sinkhorn_potentials took P = 129")
-
-    kern = lambda *t: sf.solve_potentials(*t, **kw)
-    plain = lambda *t: sf.solve_potentials_plain(*t, **kw)
     n_eps = len(sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)[0])
 
-    def bound(args_, p_, t_):
+    def bound(args_, p_, t_, n_eps=n_eps):
         """(bound s, bytes, expf count, SFU ops, bound_by) of one solve: per
         eps 4 softmin passes (x over y, y over x, x over x, y over y), one
         expf per (row, column) and one logf per row; ~10 fp32 operations per
@@ -953,23 +1055,25 @@ def sinkhorn_kernel(torch, sf, dev):
         return (max(byte_s_, op_s_), nbytes, pairs_, sfu_,
                 "bytes" if byte_s_ >= op_s_ else "operations")
 
-    def timed(args_):
+    def timed(args_, kw_=kw, iters=50):
+        kern = lambda *t: sf.solve_potentials(*t, **kw_)
+        plain = lambda *t: sf.solve_potentials_plain(*t, **kw_)
         copies = [tuple(t.clone() for t in args_) for _ in range(n_copies(4 * sum(
             t.numel() for t in args_)))]
-        ms_, eager_ = time_cuda(torch, kern, copies), time_cuda(torch, kern, copies,
-                                                                graph=False)
+        ms_ = time_cuda(torch, kern, copies, iters=iters)
+        eager_ = time_cuda(torch, kern, copies, iters=iters, graph=False)
         with torch.no_grad():
-            plain_ = time_cuda(torch, plain, copies, iters=20)
+            plain_ = time_cuda(torch, plain, copies, iters=min(iters, 20))
         return ms_, eager_, plain_
 
-    # the 128-point cap at the main path's N, held by the same gate and timed
-    # (logged, not a row of the kernels line)
+    # P = T = 128, the small routes' largest clouds, at the main path's N,
+    # held by the same gate and timed (logged, not a row of the kernels line)
     cap_args, cap_pots, ok, cap_div, _ = compare(*problems(N, 128, 128), **kw)
     if not ok:
         raise AssertionError("sinkhorn_potentials disagrees at P = T = 128")
     cap_ms, _, cap_plain = timed(cap_args)
     cap_bound_s, *_, cap_by = bound(cap_args, 128, 128)
-    log(f"[kernel] sinkhorn_potentials at the cap, N={N} P=T=128: {show(cap_pots)}; "
+    log(f"[kernel] sinkhorn_potentials at N={N} P=T=128: {show(cap_pots)}; "
         f"divergence {cap_div:.3e}; {cap_ms * 1e3:.1f} us (bound {cap_bound_s * 1e6:.1f} us "
         f"by {cap_by}, plain {cap_plain * 1e3:.1f} us)")
 
@@ -980,14 +1084,45 @@ def sinkhorn_kernel(torch, sf, dev):
                max_abs_err=err, potentials=pots, divergence_max_abs_err=div_err, ms=ms,
                plain_ms=plain_ms, bound_ms=1e3 * bound_s, bound_by=bound_by,
                library_ms=None, eager_ms=eager_ms, bytes=nbytes,
-               expf=pairs, sfu_ops=sfu_ops, P=P, T=T,
-               cap=dict(N=N, P=128, T=128, ms=cap_ms, plain_ms=cap_plain,
-                        bound_ms=1e3 * cap_bound_s))
+               expf=pairs, sfu_ops=sfu_ops, N=N, P=P, T=T, eps_steps=n_eps,
+               p128=dict(N=N, P=128, T=128, ms=cap_ms, plain_ms=cap_plain,
+                         bound_ms=1e3 * cap_bound_s))
     log(f"[kernel] sinkhorn_potentials: {ms * 1e3:.1f} us  (bound "
         f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']}: {pairs / 1e6:.1f} M expf; "
         f"plain {plain_ms * 1e3:.1f} us; no single PyTorch call computes it; eager call "
         f"incl. host {eager_ms * 1e3:.1f} us)")
-    return row
+    rows = [row]
+
+    # past the small routes' limits (K1_WIDE), each against its plain version
+    # by the same gate, timed beside its bound and the plain version
+    for n, p_, t_, scaling in K1_WIDE:
+        kw_ = dict(kw, scaling=scaling)
+        n_eps_ = len(sk.schedule(kd.p, kd.blur, scaling, kd.reach, 2.0)[0])
+        shape = f"N={n} P={p_} T={t_} eps={n_eps_}"
+        # the global route is the one that asks for a workspace
+        k1_route = ("small" if max(p_, t_) <= 128 else "global"
+                    if sf._lib().sinkhorn_potentials_workspace(n, p_, t_) else "shared")
+        args_, pe, ok, de, dv = compare(*problems(n, p_, t_), **kw_)
+        log(f"[kernel] sinkhorn_potentials {shape} ({k1_route} route): max|kernel-plain| "
+            f"(over max|plain| at "
+            f"real, padded points): {show(pe)}; divergence {de:.3e} (|divergence| up to "
+            f"{dv.abs().max().item():.3e})")
+        if not ok:
+            raise AssertionError(f"sinkhorn_potentials disagrees at {shape}")
+        bound_s_, nbytes_, pairs_, sfu_, by_ = bound(args_, p_, t_, n_eps_)
+        ms_, eager_, plain_ = timed(args_, kw_, iters=K1_WIDE_ITERS if (
+            n * n_eps_ * (p_ + t_) ** 2 > 1e9) else 50)
+        rows.append(dict(
+            name="sinkhorn_potentials", shape=shape, route="cuda", source=SINKHORN_SRC,
+            replaces=REPLACES["sinkhorn_potentials"],
+            max_abs_err=max(e["max_abs_err"] for e in pe.values()), potentials=pe,
+            divergence_max_abs_err=de, ms=ms_, plain_ms=plain_, bound_ms=1e3 * bound_s_,
+            bound_by=by_, library_ms=None, eager_ms=eager_, bytes=nbytes_, expf=pairs_,
+            sfu_ops=sfu_, N=n, P=p_, T=t_, eps_steps=n_eps_, k1_route=k1_route))
+        log(f"[kernel] sinkhorn_potentials {shape}: {ms_ * 1e3:.1f} us (bound "
+            f"{bound_s_ * 1e6:.1f} us by {by_}: {pairs_ / 1e6:.1f} M expf; plain "
+            f"{plain_ * 1e3:.1f} us; eager call incl. host {eager_ * 1e3:.1f} us)")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1507,6 +1642,8 @@ def train_phase(torch, sf, dev, tf32_defaults):
     if not (gd_rel[worst_d] <= RTOL_GRADIENTS and md_rel <= 1e-3):
         raise AssertionError("under PyTorch's default flags the KD step on the card "
                              "misses the CPU")
+    wide = wide_cloud_step(torch, sf, dev, cfg, cfg_t, consts, ds, student_sd, teacher_sd,
+                           small, uniform)
 
     bf16, k1_bf16 = train_bf16(torch, sf, dev, cfg, cfg_t, batches, consts, teacher_sd,
                                med)
@@ -1523,7 +1660,43 @@ def train_phase(torch, sf, dev, tf32_defaults):
                          bn_stat_rel=st_rel),
         default_flags_vs_cpu=dict(card=md, metric_rel_max=md_rel,
                                   grad_rel_worst=gd_rel[worst_d], grad_rel_worst_tensor=worst_d,
-                                  grad_rel=gd_rel)), k1 + k1_bf16
+                                  grad_rel=gd_rel),
+        wide_cloud=wide), k1 + k1_bf16
+
+
+def wide_cloud_step(torch, sf, dev, cfg, cfg_t, consts, ds, student_sd, teacher_sd, small,
+                    uniform):
+    """The train phase's B=2 step, card vs CPU, with max_pos =
+    max_teacher_cells = WIDE_CLOUD: K1 once, on its shared route, and the
+    same gates as the main configuration's step (metrics 1e-3, the worst
+    gradient RTOL_GRADIENTS, BN statistics 1e-4, num_pos equal)."""
+    import dataclasses
+
+    cloud = lambda c: c.replace(  # noqa: E731
+        solver=dataclasses.replace(c.solver, max_pos=WIDE_CLOUD),
+        kd=dataclasses.replace(c.kd, max_teacher_cells=WIDE_CLOUD))
+    cfg_w, cfg_tw = cloud(cfg), cloud(cfg_t)
+    sf.reset_launch_counts()
+    card = one_step(torch, cfg_w, cfg_tw, consts, student_sd, teacher_sd, small, uniform, dev)
+    k1 = dict(sf.launches)
+    cpu = one_step(torch, cfg_w, cfg_tw, ds.consts(device="cpu"), student_sd, teacher_sd,
+                   small, uniform, "cpu")
+    d = step_diff(torch, card, cpu)
+    n_eps = len(sf.schedule(cfg.kd.p, cfg.kd.blur, cfg.kd.scaling, cfg.kd.reach, 2.0)[0])
+    out = dict(N=small.images.shape[0] * 8, P=WIDE_CLOUD, T=WIDE_CLOUD, eps_steps=n_eps,
+               k1=k1.get(("sinkhorn_potentials", WIDE_CLOUD, WIDE_CLOUD), 0), card=card[0],
+               cpu=cpu[0], **{k: v for k, v in d.items() if k != "param_max_abs"})
+    log(f"[train] one step B=2 with max_pos = max_teacher_cells = {WIDE_CLOUD}, card vs "
+        f"CPU: metrics {card[0]} vs {cpu[0]} (largest relative difference "
+        f"{d['metric_rel']:.2e}); worst ||g_card - g_cpu|| / ||g_cpu|| "
+        f"{d['grad_rel_worst']:.2e}; BN statistics {d['bn_stat_rel']:.2e}; K1 launches {k1}")
+    if not (card[0]["loss_kd"] > 0 and card[0]["num_pos"] == cpu[0]["num_pos"]
+            and d["metric_rel"] <= 1e-3 and d["grad_rel_worst"] <= RTOL_GRADIENTS
+            and d["bn_stat_rel"] <= 1e-4 and k1 == {("sinkhorn_potentials", WIDE_CLOUD,
+                                                     WIDE_CLOUD): 1}):
+        raise AssertionError(f"the KD step at {WIDE_CLOUD}-point clouds on the card and on "
+                             "the CPU disagree, or K1 did not run once")
+    return out
 
 
 def step_diff(torch, a, b):
@@ -1984,6 +2157,45 @@ def cli_phase(torch, sf, cf, dev, tf32_defaults):
         raise AssertionError("export_model --check on the run's final.ckpt failed")
     runs["quant_teacher"] = dict(seconds=q_secs, k1=k1_q, k2=k2_q, history=h_q,
                                  export_bytes=meta["bytes"])
+
+    # (g) train_kd.main --scaling CLI_SCALING: every solve on its long
+    # schedule (each solve_potentials call's schedule recorded)
+    from kd6d_pose_adlp_tpu_torch.ops import sinkhorn as sk
+    eps_steps = len(sk.schedule(cfg.kd.p, cfg.kd.blur, CLI_SCALING, cfg.kd.reach, 2.0)[0])
+    solve, seen = sf.solve_potentials, []
+
+    def recording(*a, **kw):
+        seen.append(len(sk.schedule(kw["p"], kw["blur"], kw["scaling"], kw["reach"],
+                                    kw["diameter"])[0]))
+        return solve(*a, **kw)
+
+    sf.reset_launch_counts()
+    cf.reset_launch_counts()
+    sf.solve_potentials = recording
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            st_s, h_s = train_kd.main(args[:-2] + [
+                "--working_dir", os.path.join(wd, "scaling"), "--scaling", str(CLI_SCALING),
+                "--max_iters", str(CLI_SCALING_STEPS), "--vis_every", "0"])
+        torch.cuda.synchronize()
+    finally:
+        sf.solve_potentials = solve
+    s_secs = time.perf_counter() - t0
+    k1_s = dict(sf.launches)
+    log(f"[cli] (g) train_kd.main --scaling {CLI_SCALING} --max_iters {CLI_SCALING_STEPS} "
+        f"({s_secs:.1f} s): step {st_s.step}, K1 {k1_s}, schedules of {seen} eps steps; "
+        + "; ".join(f"step {x['step']}: loss_total {x['loss_total']:.4f} (kd "
+                    f"{x['loss_kd']:.5f})" for x in h_s))
+    if not (st_s.step == CLI_SCALING_STEPS and k1_s == {k1_key: CLI_SCALING_STEPS}
+            and seen == [eps_steps] * CLI_SCALING_STEPS
+            and h_s and all(math.isfinite(v) for x in h_s for v in x.values())
+            and all(x["loss_kd"] > 0 for x in h_s)):
+        raise AssertionError(f"train_kd.main --scaling {CLI_SCALING}: steps, K1 launches, "
+                             "schedules or losses not as expected")
+    runs["scaling"] = dict(seconds=s_secs, k1=k1_s[k1_key], history=h_s, N=B * 8,
+                           P=k1_key[1], T=k1_key[2], eps_steps=eps_steps)
 
     buf = io.StringIO()
     cf.reset_launch_counts()
@@ -4311,8 +4523,12 @@ def main(argv=None) -> int:
 
     result = {"card": card}
     # launches of each main path's run, by batch: serving at B=8, eval at 24
-    rows, launches, k1_row, k1_launches = [], {BATCH: {}, EVAL_BATCH: {}, VIS_BATCH: {}}, \
-        None, None
+    rows, launches, k1_rows, k1_launches = [], {BATCH: {}, EVAL_BATCH: {}, VIS_BATCH: {}}, \
+        [], None
+
+    # K1's launches at the K1_WIDE shapes, keyed (N, P, T, eps steps): the
+    # train phase's 256-point step and the cli phase's train_kd --scaling run
+    k1_by_shape = {}
 
     def add_launches(by_batch):
         for b, by in by_batch.items():
@@ -4321,13 +4537,18 @@ def main(argv=None) -> int:
 
     if "kernel" in phases:
         rows, result["segment"] = kernel_phase(torch, F, cf, dev)
-        k1_row = sinkhorn_kernel(torch, sf, dev)
+        wide_rows, result["wide_segment"], launches[1] = k2_wide(torch, F, cf, dev)
+        rows += wide_rows
+        k1_rows = sinkhorn_kernel(torch, sf, dev)
     if "serving" in phases:
         result["serving"], launches[BATCH] = serving_phase(torch, cf, dev, tf32_defaults)
     if "pose" in phases:
         result["pose"] = pose_phase(torch, dev)
     if "train" in phases:
         result["train"], k1_launches = train_phase(torch, sf, dev, tf32_defaults)
+        # the 256-point step's launch on the card
+        wide = result["train"]["wide_cloud"]
+        k1_by_shape[(wide["N"], wide["P"], wide["T"], wide["eps_steps"])] = wide["k1"]
     if "eval" in phases:
         result["eval"], launches[EVAL_BATCH] = eval_phase(torch, cf, dev)
     if "export" in phases:
@@ -4335,6 +4556,8 @@ def main(argv=None) -> int:
         add_launches(k2_export)
     if "cli" in phases:
         result["cli"], k1_cli, k2_cli = cli_phase(torch, sf, cf, dev, tf32_defaults)
+        scaled = result["cli"]["train_kd"]["scaling"]
+        k1_by_shape[(scaled["N"], scaled["P"], scaled["T"], scaled["eps_steps"])] = scaled["k1"]
         k1_launches = (k1_launches or 0) + k1_cli
         add_launches(k2_cli)
     if "zebra" in phases:
@@ -4361,16 +4584,21 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for r in rows:
-        r["launches"] = launches[r["B"]].get((r["name"], r["C"], r["O"], r["dtype"]), 0)
-        r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{r['H']}^2 "
+        # the wide segment's launches are keyed by the conv's H and W too
+        key, by = (r["name"], r["C"], r["O"], r["dtype"]), launches.get(r["B"], {})
+        r["launches"] = by.get(key + (r["H"], r["W"]), by.get(key, 0))
+        hw = f"{r['H']}^2" if r["H"] == r["W"] else f"{r['H']}x{r['W']}"
+        r = dict(r, name=f"{r['name']}[{r['shape']} {r['C']}->{r['O']} @{hw} "
                          f"B={r['B']} {r['dtype']}]")
         kernels.append({k: r[k] for k in keys})
-    if k1_row is not None:
-        # K1's launches are those of the train phase's run, the cli
-        # phase's pooled runs (loop.train, train_kd.main and its resume),
+    for i, k1_row in enumerate(k1_rows):
+        # the main shape's launches are those of the train phase's run, the
+        # cli phase's pooled runs (loop.train, train_kd.main and its resume),
         # the bop phase's live steps and train_kd.main runs, and the dist
-        # phase's ranks and train_kd --distributed
-        k1_row["launches"] = k1_launches
+        # phase's ranks and train_kd --distributed; a K1_WIDE shape's, those
+        # of the run at that shape and schedule (0 where none runs)
+        k1_row["launches"] = k1_launches if i == 0 else k1_by_shape.get(
+            (k1_row["N"], k1_row["P"], k1_row["T"], k1_row["eps_steps"]), 0)
         kernels.append({k: k1_row[k] for k in keys}
                        | {"name": f"sinkhorn_potentials[{k1_row['shape']}]"})
         rows.append(k1_row)

@@ -107,6 +107,14 @@
 //   fills it where the source is aligned; the flat bf16 strip cannot be
 //   (a shifted window, transposed into columns) and is gathered through
 //   registers, 4-byte column pairs where the slab's rows allow;
+// - the flat form stages, of each channel octet, the window of NCOL + 2 (W
+//   + 2) + 2 columns that a tile's nine taps read; past the width where a
+//   ring of those windows no longer fits in 227 KB of shared memory (fp32
+//   about 780-920 columns at C > 4, 1,950-2,110 at C <= 4; bf16 about
+//   3,200), it stages instead the three row segments [m0 + dy (W + 2),
+//   + NCOL + 2) that tap rows dy = 0, 1, 2 read (SEG), one after another,
+//   so its shared memory no longer depends on W: the taps' row stride in
+//   the strip becomes NCOL + 2, and the products are the same;
 // - fp32 runs 3xTF32 m16n8k8 (split_tf32; one plain TF32 product misses by
 //   ~1e-3 of each term), two taps of four channels a k8 step at C <= 4;
 //   bf16 m16n8k16, kept as bf16 in shared memory;
@@ -814,6 +822,9 @@ struct IgCfg {
   static constexpr int kSteps = STACKED ? 2 : (kF32 && !QUAD ? 9 : 5);  // steps a stage
   static constexpr int kRows = 2 * kK;                             // stacked rows a stage
   static constexpr int kCols = kIgWarps * NG * 8;
+  // the row-segment form (SEG) of the flat strip: per tap row dy, the
+  // kCols + 2 columns from m0 + dy * Wp that the row's three dx taps read
+  static constexpr int kSegCols = kCols + 2;
   static constexpr int kWBytes = kSteps * MT * 32 * 16;            // A fragments
   // stages in the ring: the cp.async forms keep two in flight while one is
   // multiplied; the flat bf16 strip is gathered through registers
@@ -839,11 +850,11 @@ struct IgCfg {
 // registers into 16-byte columns of 8 channels: column pairs by 4-byte
 // loads where the slab's rows are 4-byte aligned (`vec`), else by 2-byte
 // loads.
-template <typename T, bool STACKED, int MT, int NG, bool QUAD>
+template <typename T, bool STACKED, int MT, int NG, bool QUAD, bool SEG>
 __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict__ x,
                                          const T* __restrict__ w,
                                          int st, int o0, int b, int m0, int C, int O, int L,
-                                         int M, int S, bool vec) {
+                                         int M, int S, int Wp, bool vec) {
   using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
   const int tid = threadIdx.x;
   // weights: word e of the stage's fragments, for output o and reduction
@@ -965,9 +976,19 @@ __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict
     }
   } else {
     // the strip of octet st: columns m0 .. m0 + S - 1 of channels 8 st ..
-    // 8 st + 7; zeros past the slab's end and past C
+    // 8 st + 7, or (SEG) the three row segments [m0 + dy Wp, m0 + dy Wp +
+    // SR) one after another; zeros past the slab's end and past C.
+    // Strip position i reads slab column m0 + col(i), if col(i) < n_in.
     const T* xb = x + (size_t)b * C * L + m0;
-    const int n_in = min(S, L - m0);
+    constexpr int SR = Cfg::kSegCols;
+    const int n_in = SEG ? L - m0 : min(S, L - m0);
+    auto col = [&](int i) {
+      if constexpr (SEG) {
+        return i < 3 * SR ? (i / SR) * Wp + i % SR : n_in;
+      } else {
+        return i;
+      }
+    };
     if constexpr (Cfg::kF32) {
       float* strip = reinterpret_cast<float*>(in);  // [8][S], QUAD [4][S]
 #pragma unroll 1
@@ -977,8 +998,9 @@ __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict
         if (c < C) {
           const float* src = xb + (size_t)c * L;
           for (int i = tid; i < S; i += kIgThreads) {
-            if (i < n_in) {
-              cp_async4(d + i, src + i);
+            const int j = col(i);
+            if (j < n_in) {
+              cp_async4(d + i, src + j);
             } else {
               d[i] = 0.f;
             }
@@ -995,7 +1017,8 @@ __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict
       const bf16 zero = __float2bfloat16_rn(0.f);
       if (vec) {
         // column pairs: a 4-byte load a channel, split into the two
-        // columns' words (low halves: column i; high: i + 1)
+        // columns' words (low halves: column i; high: i + 1); a pair lies
+        // in one row segment (SR even)
         constexpr int PER = 3;  // pairs a thread in flight
 #pragma unroll 1
         for (int i0 = 2 * tid; i0 < S; i0 += 2 * PER * kIgThreads) {
@@ -1003,13 +1026,14 @@ __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict
 #pragma unroll
           for (int k = 0; k < PER; ++k) {
             const int i = i0 + 2 * k * kIgThreads;
+            const int j = col(i);
 #pragma unroll
             for (int ch = 0; ch < 8; ++ch) {
               v[k][ch] = 0u;
-              if (ch < nc && i + 1 < n_in) {
-                v[k][ch] = *reinterpret_cast<const unsigned*>(src + (size_t)ch * L + i);
-              } else if (ch < nc && i < n_in) {
-                v[k][ch] = pack_bf16(src[(size_t)ch * L + i], zero);
+              if (ch < nc && j + 1 < n_in) {
+                v[k][ch] = *reinterpret_cast<const unsigned*>(src + (size_t)ch * L + j);
+              } else if (ch < nc && j < n_in) {
+                v[k][ch] = pack_bf16(src[(size_t)ch * L + j], zero);
               }
             }
           }
@@ -1037,10 +1061,10 @@ __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict
           bf16 v[CH][8];
 #pragma unroll
           for (int k = 0; k < CH; ++k) {
-            const int i = i0 + k * kIgThreads;
+            const int j = col(i0 + k * kIgThreads);
 #pragma unroll
             for (int ch = 0; ch < 8; ++ch)
-              v[k][ch] = (ch < nc && i < n_in) ? src[(size_t)ch * L + i] : zero;
+              v[k][ch] = (ch < nc && j < n_in) ? src[(size_t)ch * L + j] : zero;
           }
 #pragma unroll
           for (int k = 0; k < CH; ++k)
@@ -1159,8 +1183,10 @@ __device__ __forceinline__ void ig_compute(const unsigned char* buf, float (&acc
 // reduction's stages through a ring: stages q + 1 .. q + NB - 1 are staged
 // while stage q is multiplied. Each input element is staged once per pass
 // over the outputs; the epilogue applies the affine and LeakyReLU and
-// rounds once.
-template <typename T, bool STACKED, int MT, int NG, bool QUAD>
+// rounds once. SEG (flat form): the strip holds the three row segments of
+// IgCfg::kSegCols columns, so its size does not depend on W, and the taps'
+// row stride in it is kSegCols in place of Wp.
+template <typename T, bool STACKED, int MT, int NG, bool QUAD, bool SEG>
 __global__ void __launch_bounds__(kIgThreads, 2)
 conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
               const float* __restrict__ scale, const float* __restrict__ bias,
@@ -1181,8 +1207,8 @@ conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
 
   // stage q of this block: output group q / nst, reduction chunk q % nst
   auto stage_in = [&](int q) {
-    ig_stage<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, x, w, q % nst,
-                                       q / nst * 16 * MT, b, m0, C, O, L, M, S, vec);
+    ig_stage<T, STACKED, MT, NG, QUAD, SEG>(ig_smem + (q % NB) * stage_bytes, x, w, q % nst,
+                                            q / nst * 16 * MT, b, m0, C, O, L, M, S, Wp, vec);
   };
 
   float acc[MT][NG][4];
@@ -1206,7 +1232,8 @@ conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
     cp_async_commit();
     cp_async_wait(NB - 1);
     __syncthreads();
-    ig_compute<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, acc, wcol, Wp, S);
+    ig_compute<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, acc, wcol,
+                                         SEG ? Cfg::kSegCols : Wp, S);
     __syncthreads();
 
     if (q % nst == nst - 1) {
@@ -1250,42 +1277,66 @@ conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, bool STACKED, int MT, int NG, bool QUAD = false>
-cudaError_t launch_igemm(const T* x, const T* w, const float* scale,
-                         const float* bias, T* out, int B, int C, int O, int Wp,
-                         int L, int M, float alpha, cudaStream_t stream) {
+template <typename T, bool STACKED, int MT, int NG, bool QUAD, bool SEG>
+cudaError_t launch_ig(const T* x, const T* w, const float* scale, const float* bias,
+                      T* out, int B, int C, int O, int Wp, int L, int M, int S,
+                      size_t smem, int vec, float alpha, cudaStream_t stream) {
   using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
-  constexpr int NCOL = Cfg::kCols;
-  int S;
-  if (STACKED) {
-    // rows NCOL + 8 elements apart: fp32 8 words mod 32 (the 4-byte B loads
-    // of 4 rows x 8 columns hit 32 banks); bf16 16 bytes mod 128 (the 8 rows
-    // of an ldmatrix hit 8 different 16-byte bank groups)
-    S = NCOL + 8;
-  } else if (Cfg::kF32) {
-    // reads reach 2 Wp + 2 past the tile's last column; a channel row 8
-    // words mod 32, as for the stacked tile
-    S = (NCOL + 2 * Wp + 2 - 8 + 31) / 32 * 32 + 8;
-  } else {
-    S = (NCOL + 2 * Wp + 2 + 1) / 2 * 2;  // column pairs
-  }
-  const size_t smem = (size_t)Cfg::kBufs * (Cfg::kWBytes + Cfg::in_bytes(S));
-  if (smem > 227 * 1024) return cudaErrorInvalidConfiguration;
-  auto kernel = conv3x3_igemm<T, STACKED, MT, NG, QUAD>;
+  auto kernel = conv3x3_igemm<T, STACKED, MT, NG, QUAD, SEG>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  // stacked: rows by 16-byte copies; flat bf16: the slab's rows 4-byte
-  // aligned, so column pairs load 4 bytes at a time
-  const int vec = STACKED ? M % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0
-                          : L % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
   const int vec2 = M % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
-  const dim3 grid((M + NCOL - 1) / NCOL, B);
+  const dim3 grid((M + Cfg::kCols - 1) / Cfg::kCols, B);
   kernel<<<grid, kIgThreads, smem, stream>>>(x, w, scale, bias, out, C, O, Wp, L,
                                              M, S, vec, vec2, alpha);
   return cudaGetLastError();
+}
+
+// The implicit GEMM at one tiling. The flat form stages the window of
+// NCOL + 2 Wp + 2 columns its taps read; where W makes that too large for
+// shared memory, it stages the three row segments instead (SEG, *rows = 1).
+template <typename T, bool STACKED, int MT, int NG, bool QUAD = false>
+cudaError_t launch_igemm(const T* x, const T* w, const float* scale,
+                         const float* bias, T* out, int B, int C, int O, int Wp,
+                         int L, int M, float alpha, cudaStream_t stream, int* rows) {
+  using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
+  constexpr int NCOL = Cfg::kCols;
+  constexpr size_t kMaxSmem = 227 * 1024;
+  auto smem_of = [](int S) {
+    return (size_t)Cfg::kBufs * (Cfg::kWBytes + Cfg::in_bytes(S));
+  };
+  // fp32 channel rows 8 words mod 32 apart: the 4-byte B loads of 4 rows x 8
+  // columns hit 32 banks
+  auto f32_row = [](int n) { return (n - 8 + 31) / 32 * 32 + 8; };
+  if constexpr (STACKED) {
+    // rows NCOL + 8 elements apart: fp32 8 words mod 32 (the 4-byte B loads
+    // of 4 rows x 8 columns hit 32 banks); bf16 16 bytes mod 128 (the 8 rows
+    // of an ldmatrix hit 8 different 16-byte bank groups)
+    const int S = NCOL + 8;
+    const int vec = M % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    if (smem_of(S) > kMaxSmem) return cudaErrorInvalidConfiguration;
+    return launch_ig<T, true, MT, NG, QUAD, false>(x, w, scale, bias, out, B, C, O, Wp, L, M,
+                                                   S, smem_of(S), vec, alpha, stream);
+  } else {
+    // reads reach 2 Wp + 2 past the tile's last column (fp32: channel rows
+    // of f32_row; bf16: column pairs)
+    const int S = Cfg::kF32 ? f32_row(NCOL + 2 * Wp + 2) : (NCOL + 2 * Wp + 2 + 1) / 2 * 2;
+    // bf16: the slab's rows 4-byte aligned, so column pairs load 4 bytes at
+    // a time (SEG: each segment's start too, so Wp even)
+    const bool x4 = L % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+    if (smem_of(S) <= kMaxSmem)
+      return launch_ig<T, false, MT, NG, QUAD, false>(x, w, scale, bias, out, B, C, O, Wp, L,
+                                                      M, S, smem_of(S), x4, alpha, stream);
+    const int SS = Cfg::kF32 ? f32_row(3 * Cfg::kSegCols) : 3 * Cfg::kSegCols;
+    if (smem_of(SS) > kMaxSmem) return cudaErrorInvalidConfiguration;
+    if (rows != nullptr) *rows = 1;
+    return launch_ig<T, false, MT, NG, QUAD, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
+                                                   SS, smem_of(SS), x4 && Wp % 2 == 0, alpha,
+                                                   stream);
+  }
 }
 
 // Every shape outside the serving instances, both forms, both types: the
@@ -1293,39 +1344,46 @@ cudaError_t launch_igemm(const T* x, const T* w, const float* scale,
 template <typename T, bool STACKED>
 cudaError_t dispatch_igemm(const T* x, const T* w, const float* scale,
                            const float* bias, T* out, int B, int C, int O,
-                           int Wp, int L, int M, float alpha, cudaStream_t s) {
+                           int Wp, int L, int M, float alpha, cudaStream_t s,
+                           int* rows = nullptr) {
   if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
   if constexpr (std::is_same_v<T, float> && !STACKED) {
     if (C <= 4) {
       if (O <= 16)
         return launch_igemm<T, false, 1, 8, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                  alpha, s);
+                                                  alpha, s, rows);
       if (O <= 32)
         return launch_igemm<T, false, 2, 4, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                  alpha, s);
+                                                  alpha, s, rows);
       if (O <= 64)
         return launch_igemm<T, false, 4, 4, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                  alpha, s);
+                                                  alpha, s, rows);
       return launch_igemm<T, false, 8, 2, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                alpha, s);
+                                                alpha, s, rows);
     }
   }
   if (O <= 16)
-    return launch_igemm<T, STACKED, 1, 8>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+    return launch_igemm<T, STACKED, 1, 8>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
+                                          rows);
   if (O <= 32)
-    return launch_igemm<T, STACKED, 2, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+    return launch_igemm<T, STACKED, 2, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
+                                          rows);
   if (O <= 64)
-    return launch_igemm<T, STACKED, 4, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+    return launch_igemm<T, STACKED, 4, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
+                                          rows);
   // 128 outputs a pass, 128 columns a block
-  return launch_igemm<T, STACKED, 8, 2>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s);
+  return launch_igemm<T, STACKED, 8, 2>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
+                                        rows);
 }
 
 // The flat form: the serving stem's two (C, O) instances on their own
-// kernels, every other shape on the implicit GEMM. A launch error returns.
+// kernels, every other shape on the implicit GEMM (*rows = 1 where it
+// stages row segments). A launch error returns.
 template <typename T>
 cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
                           const float* bias, T* out, int B, int C, int O,
-                          int Wp, int L, int M, float alpha, cudaStream_t s) {
+                          int Wp, int L, int M, float alpha, cudaStream_t s,
+                          int* rows) {
   if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
   bool taken = false;
   cudaError_t e = cudaSuccess;
@@ -1350,7 +1408,7 @@ cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
   }
   if (taken || e != cudaSuccess) return e;
   return dispatch_igemm<T, false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha,
-                                 s);
+                                 s, rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -1545,15 +1603,17 @@ cudaError_t dispatch_stacked(const float* xs, const float* w,
 }  // namespace
 
 // x (B, C, (H+2)*(W+2)+2), w (9, O, C), scale/bias (O,), out (B, O, H*(W+2)).
-// Returns the cudaError_t of the launch (0 = launched).
+// Returns the cudaError_t of the launch (0 = launched); sets *rows (when
+// not null) to 1 if the launch staged row segments (conv3x3_igemm's SEG
+// form, past the width where the window fits), and leaves it otherwise.
 extern "C" int conv3x3_bn_act_flat(const float* x, const float* w,
                                    const float* scale, const float* bias,
                                    float* out, int B, int C, int O, int H,
-                                   int W, float alpha, void* stream) {
+                                   int W, float alpha, void* stream, int* rows) {
   const int Wp = W + 2;
   return (int)dispatch_flat<float>(x, w, scale, bias, out, B, C, O, Wp,
                                    (H + 2) * Wp + 2, H * Wp, alpha,
-                                   (cudaStream_t)stream);
+                                   (cudaStream_t)stream, rows);
 }
 
 // xs (B, 9, C, M), w (9, O, C), scale/bias (O,), out (B, O, M).
@@ -1569,11 +1629,11 @@ extern "C" int conv3x3_bn_act_stacked(const float* xs, const float* w,
 extern "C" int conv3x3_bn_act_flat_bf16(const bf16* x, const bf16* w,
                                         const float* scale, const float* bias,
                                         bf16* out, int B, int C, int O, int H,
-                                        int W, float alpha, void* stream) {
+                                        int W, float alpha, void* stream, int* rows) {
   const int Wp = W + 2;
   return (int)dispatch_flat<bf16>(x, w, scale, bias, out, B, C, O, Wp,
                                   (H + 2) * Wp + 2, H * Wp, alpha,
-                                  (cudaStream_t)stream);
+                                  (cudaStream_t)stream, rows);
 }
 
 // K3 in bf16 runs the implicit GEMM at every (C, O)

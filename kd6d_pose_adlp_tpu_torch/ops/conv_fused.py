@@ -24,7 +24,10 @@ shape and dtype), so that `torch.export` records the kernel as one node of
 the graph. On a CUDA tensor the op allocates its output with `torch.empty`,
 launches the kernel on PyTorch's current stream and counts the launch in
 `launches` under (kernel name, C, O, dtype name), also when it is called
-from a loaded exported program. For CPU tensors (and only for them) it runs
+from a loaded exported program. K2 takes any width: where the window of
+two image rows that its implicit GEMM stages for a tile does not fit in
+shared memory, it stages the tile's three row segments instead, and that
+launch counts under the name `conv3x3_bn_act_flat_rows`. For CPU tensors (and only for them) it runs
 the plain PyTorch version beside it, which computes the same flat formula,
 garbage columns included, in float32 from the inputs' values and rounds its
 result to x's dtype once. A CUDA tensor of any other type raises.
@@ -43,6 +46,8 @@ from ..utils import cuda_build
 # kernel launches since the last reset, keyed (kernel name, C, O, dtype
 # name: "float32" or "bfloat16")
 launches: collections.Counter = collections.Counter()
+# the name K2's launches count under where they stage row segments
+ROWS_NAME = "conv3x3_bn_act_flat_rows"
 
 
 def reset_launch_counts():
@@ -183,7 +188,7 @@ def _lib():
     for suffix in ("", "_bf16"):
         flat = getattr(lib, "conv3x3_bn_act_flat" + suffix)
         stacked = getattr(lib, "conv3x3_bn_act_stacked" + suffix)
-        flat.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+        flat.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p, p]
         stacked.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
         flat.restype = stacked.restype = i
     return lib
@@ -260,13 +265,14 @@ def _flat_op(x_flat: torch.Tensor, wmat: torch.Tensor, scale: torch.Tensor,
     O = wmat.shape[1]
     out = torch.empty((B, O, H * (W + 2)), device=x_flat.device, dtype=x_flat.dtype)
     name = "conv3x3_bn_act_flat"
+    rows = ctypes.c_int(0)      # set to 1 where the row-segment form ran
     with torch.cuda.device(x_flat.device):
         err = getattr(_lib(), name + _SUFFIX[x_flat.dtype])(
             x_flat.data_ptr(), wmat.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, C, O, H, W, alpha,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(rows))
     _raise_on(err, name + _SUFFIX[x_flat.dtype])
-    launches[(name, C, O, _dtype_name(x_flat))] += 1
+    launches[(ROWS_NAME if rows.value else name, C, O, _dtype_name(x_flat))] += 1
     return out
 
 

@@ -16,9 +16,14 @@ it runs `solve_potentials_plain` beside it, the same loop in torch ops.
 There is no fallback: a build or launch error propagates.
 
 The eps list and the damping factors are computed on the host by
-`ops/sinkhorn.schedule`, in double precision, and passed to the kernel as float32; rho enters only
-through lambda. P and T may be anything up to 128 (the kernel raises
-above); padding semantics are JAX's: log-weight -1e30, and a row whose
+`ops/sinkhorn.schedule`, in double precision; the kernel reads them, with
+1 / eps rounded once, as float32 from one device array per schedule and
+device, copied at the first call that uses it (so a step that has run once
+copies nothing and can be captured in a CUDA graph); rho enters only
+through lambda. As in the JAX package, P, T >= 1 and the schedule's length
+are unbounded: past 128 points the kernel takes routes of its own, and
+where N is below two thirds of the SM count or the clouds pass one block's
+shared memory, a device workspace that the wrapper allocates. Padding semantics are JAX's: log-weight -1e30, and a row whose
 entries are all -1e30 gives log(T) through the max-subtract.
 """
 from __future__ import annotations
@@ -28,13 +33,11 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils import cuda_build
 from .sinkhorn import _softmin, cost_matrix, schedule
-
-MAX_POINTS = 128      # largest P or T the kernel takes
-MAX_EPS = 64          # longest eps schedule the kernel takes
 
 # kernel launches since the last reset, keyed (kernel name, P, T)
 launches: collections.Counter = collections.Counter()
@@ -78,9 +81,27 @@ def _lib():
     lib = cuda_build.load("sinkhorn_potentials")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sinkhorn_potentials.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                        i, i, i, vp, vp, i, f, i, vp]
+                                        i, i, i, vp, i, f, i, vp, vp]
     lib.sinkhorn_potentials.restype = i
+    lib.sinkhorn_potentials_workspace.argtypes = [i, i, i]
+    lib.sinkhorn_potentials_workspace.restype = ctypes.c_longlong
     return lib
+
+
+def schedule_values(eps_list, lams) -> np.ndarray:
+    """The schedule as the kernel reads it: eps, lam and 1 / eps, 3 n
+    float32 (1 / eps divided once in float32 from the float32 eps, as the
+    plain version's division by a host scalar rounds it)."""
+    eps = np.asarray(eps_list, np.float32)
+    return np.concatenate([eps, np.asarray(lams, np.float32), np.float32(1.0) / eps])
+
+
+@functools.lru_cache(maxsize=None)
+def device_schedule(p: float, blur: float, scaling: float, reach: Optional[float],
+                    diameter: float, device: torch.device) -> torch.Tensor:
+    """schedule_values of one schedule on `device`, copied once."""
+    return torch.from_numpy(schedule_values(*schedule(p, blur, scaling, reach,
+                                                      diameter))).to(device)
 
 
 def _check(x, y, a_log, b_log):
@@ -115,25 +136,20 @@ def solve_potentials(x, y, a_log, b_log, *, p: float = 2.0, blur: float = 1e-3,
             return solve_potentials_plain(x, y, a_log, b_log, debias=debias, **kw)
 
     N, P, T = x.shape[0], x.shape[1], y.shape[1]
-    if P > MAX_POINTS or T > MAX_POINTS:
-        raise ValueError(f"sinkhorn_potentials takes P, T <= {MAX_POINTS}, "
-                         f"got P={P}, T={T}")
-    eps_list, lams = schedule(**kw)
-    if len(eps_list) > MAX_EPS:
-        raise ValueError(f"eps schedule of {len(eps_list)} steps > {MAX_EPS}")
     x, y, a_log, b_log = (t.contiguous() for t in (x, y, a_log, b_log))
     a_x, b_x = (torch.empty((N, P), device=x.device) for _ in range(2))
     b_y, a_y = (torch.empty((N, T), device=x.device) for _ in range(2))
     if N == 0:
         return a_x, b_y, a_y, b_x
-    eps_h = (ctypes.c_float * len(eps_list))(*eps_list)
-    lam_h = (ctypes.c_float * len(lams))(*lams)
     with torch.cuda.device(x.device):
+        sched = device_schedule(p, blur, scaling, reach, diameter, x.device)
+        n_ws = _lib().sinkhorn_potentials_workspace(N, P, T)
+        ws = torch.empty(n_ws, device=x.device) if n_ws else None
         err = _lib().sinkhorn_potentials(
             x.data_ptr(), y.data_ptr(), a_log.data_ptr(), b_log.data_ptr(),
             a_x.data_ptr(), b_y.data_ptr(), a_y.data_ptr(), b_x.data_ptr(),
-            N, P, T, ctypes.addressof(eps_h), ctypes.addressof(lam_h),
-            len(eps_list), p, int(debias),
+            N, P, T, sched.data_ptr(), sched.numel() // 3, p, int(debias),
+            None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sinkhorn_potentials: CUDA error {err} at launch")

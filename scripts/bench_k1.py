@@ -4,18 +4,25 @@ split its time into a fixed part and a part per eps step.
 
     python3 scripts/bench_k1.py                       # the committed source
     python3 scripts/bench_k1.py --sources a.cu b.cu   # versions side by side
+    python3 scripts/bench_k1.py --scaling 0.9 --shape 8 1000 1000   # 74 eps steps
+    python3 scripts/bench_k1.py --pin_routes --shape 64 256 256     # both wide routes
 
 Each source (default: kd6d_pose_adlp_tpu_torch/csrc/sinkhorn_potentials.cu)
 is built with the port's nvcc flags and called through the same C interface
 as `ops/sinkhorn_fused.solve_potentials`. Inputs are those of chip_smoke's
 K1 check: N = 128 problems of P = T = 64 points in [0, 1]^2, a quarter of
-the weights zero, KDConfig's schedule (p = 2, blur 1e-3, scaling 0.5,
-reach 0.5: 12 eps steps), and the 128-point cap. Each source is first held
-against the plain version with chip_smoke's per-potential gate, then timed
-by CUDA-graph replay at both shapes, the sources in turn and back (a, b, b,
-a), and at 1 to 36 eps steps (the schedule repeated) at the main shape; a
+the weights zero, KDConfig's schedule (p = 2, blur 1e-3, reach 0.5; scaling
+0.5, 12 eps steps, unless --scaling or --blur say otherwise), and P = T =
+128; each --shape N P T adds a shape (any P, T: past 128 points the kernel
+takes its wide routes; --pin_routes also builds each source with the
+shared and with the global route pinned, where the shared one fits, so the
+two are timed on the same inputs). Each build is first held against the
+plain version with chip_smoke's per-potential gate, then timed by
+CUDA-graph replay at every shape, the builds in turn and back (a, b, b,
+a), and at 1 to 74 eps steps (the schedule repeated) at the main shape; a
 least-squares line through those times gives the fixed and the per-step
-time. Prints one JSON line; runs only on the card.
+time. The sources share the C interface of the committed one (the
+schedule in device memory). Prints one JSON line; runs only on the card.
 """
 from __future__ import annotations
 
@@ -25,19 +32,29 @@ import json
 import os
 import sys
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from _bench import build  # noqa: E402
 
-EPS_STEPS = (1, 2, 4, 8, 12, 24, 36)
+EPS_STEPS = (1, 2, 4, 8, 12, 24, 36, 74)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sources", nargs="+", default=[os.path.join(
         ROOT, "kd6d_pose_adlp_tpu_torch", "csrc", "sinkhorn_potentials.cu")])
+    ap.add_argument("--scaling", type=float, default=None,
+                    help="the schedule's scaling (default: KDConfig's)")
+    ap.add_argument("--blur", type=float, default=None,
+                    help="the schedule's blur (default: KDConfig's)")
+    ap.add_argument("--shape", nargs=3, type=int, action="append", default=[],
+                    metavar=("N", "P", "T"), help="another shape to time")
+    ap.add_argument("--pin_routes", action="store_true",
+                    help="time each source with the shared and the global route pinned too")
     args = ap.parse_args(argv)
 
     import torch
@@ -50,26 +67,34 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     kd = Config().kd
-    kw = dict(p=kd.p, blur=kd.blur, scaling=kd.scaling, reach=kd.reach, diameter=2.0,
+    blur = kd.blur if args.blur is None else args.blur
+    scaling = kd.scaling if args.scaling is None else args.scaling
+    kw = dict(p=kd.p, blur=blur, scaling=scaling, reach=kd.reach, diameter=2.0,
               debias=True)
-    eps_list, lams = sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)
+    eps_list, lams = sk.schedule(kd.p, blur, scaling, kd.reach, 2.0)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs = build(args.sources, {"sinkhorn_potentials": [vp] * 8 + [i, i, i, vp, vp, i, f, i, vp]})
+    variants = (("", ()),) + ((("_shared", ("-DK1_WIDE_ROUTE=1",)),
+                               ("_global", ("-DK1_WIDE_ROUTE=2",))) if args.pin_routes else ())
+    libs = build(args.sources, {"sinkhorn_potentials": [vp] * 8 + [i, i, i, vp, i, f, i, vp, vp],
+                                "sinkhorn_potentials_workspace": [i, i, i]}, variants)
+    for lib in libs.values():
+        lib.sinkhorn_potentials_workspace.restype = ctypes.c_longlong
 
     def solver(lib, steps=len(eps_list)):
-        eps = (list(eps_list) * 3)[:steps]
-        lam = (list(lams) * 3)[:steps]
-        eps_h = (ctypes.c_float * steps)(*eps)
-        lam_h = (ctypes.c_float * steps)(*lam)
+        # the schedule repeated to `steps`, as the kernel reads it
+        sched = torch.from_numpy(sf.schedule_values(
+            np.resize(eps_list, steps), np.resize(lams, steps))).to(dev)
 
         def run(x, y, a_log, b_log):
             N, P, T = x.shape[0], x.shape[1], y.shape[1]
             a_x, b_x = (torch.empty((N, P), device=dev) for _ in range(2))
             b_y, a_y = (torch.empty((N, T), device=dev) for _ in range(2))
+            n_ws = lib.sinkhorn_potentials_workspace(N, P, T)
+            ws = torch.empty(n_ws, device=dev) if n_ws else None
             err = lib.sinkhorn_potentials(
                 x.data_ptr(), y.data_ptr(), a_log.data_ptr(), b_log.data_ptr(),
                 a_x.data_ptr(), b_y.data_ptr(), a_y.data_ptr(), b_x.data_ptr(), N, P, T,
-                ctypes.addressof(eps_h), ctypes.addressof(lam_h), steps, kd.p, 1,
+                sched.data_ptr(), steps, kd.p, 1, None if ws is None else ws.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
@@ -90,9 +115,11 @@ def main(argv=None) -> int:
         a, b = w(n, p_), w(n, t_)
         return (x, y, sk._safe_log_weights(a), sk._safe_log_weights(b)), a, b
 
-    shapes = {"main": (128, 64, 64), "cap": (128, 128, 128)}
+    shapes = {"main": (128, 64, 64), "P=T=128": (128, 128, 128)}
+    shapes.update({f"N={n} P={p_} T={t_}": (n, p_, t_) for n, p_, t_ in args.shape})
     inputs = {k: problems(*v) for k, v in shapes.items()}
-    result = {"card": cs.gpu_name_and_power(), "shapes": shapes, "sources": {}}
+    result = {"card": cs.gpu_name_and_power(), "shapes": shapes, "eps_steps": len(eps_list),
+              "sources": {}}
     for name, lib in libs.items():
         gate = {}
         for shape, (t, a, b) in inputs.items():

@@ -111,7 +111,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    flat_args, stacked_args = [p, p, p, p, p, i, i, i, i, i, f, p], [p, p, p, p, p, i, i, i, i, f, p]
+    # the flat entry points' last argument, the row-segment flag, is passed
+    # as NULL (a source that predates it ignores the extra argument)
+    flat_args = [p, p, p, p, p, i, i, i, i, i, f, p, p]
+    stacked_args = [p, p, p, p, p, i, i, i, i, f, p]
     libs = build(args.sources, {"conv3x3_bn_act_flat": flat_args,
                                 "conv3x3_bn_act_stacked": stacked_args,
                                 "conv3x3_bn_act_flat_bf16": flat_args,
@@ -125,7 +128,7 @@ def main(argv=None) -> int:
             out = torch.empty((B, O, H * (W + 2)), device=dev, dtype=xf.dtype)
             err = getattr(lib, "conv3x3_bn_act_flat" + suffix[xf.dtype])(
                 xf.data_ptr(), w.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(),
-                B, C, O, H, W, alpha, torch.cuda.current_stream().cuda_stream)
+                B, C, O, H, W, alpha, torch.cuda.current_stream().cuda_stream, None)
             if err != 0:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
             return out
