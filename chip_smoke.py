@@ -48,14 +48,16 @@ Phases:
            atol 1e-4, bf16 within one bf16 rounding), timed beside the
            library chain in the same type. K2 past the widths where its
            implicit GEMM's window of two image rows fits in shared memory
-           (K2_WIDE: every instance of its row-segment form, fp32 at C > 4
-           @4x700-1000, fp32 at C <= 4 @4x2200, bf16 @4x3400, and the wide
-           plan's s2 shape, 32->32 @960², each counted under
-           conv_fused.ROWS_NAME), held and timed as the serving shapes are;
+           (K2_WIDE: conv3x3_rows' kinds and routes, fp32 at C > 4
+           @4x700-1000, fp32 at C <= 4 @4x2200, bf16 @4x3400, the wide
+           plan's s2 shape, 32->32 @960², B = 2 across images, reloaded
+           weights and 2-row tiles, each counted under
+           conv_fused.ROWS_NAME), held and timed as the serving shapes are,
+           its fp32 kinds also on a slab at an odd element offset;
            the wide plan's eval-mode DarkNet (tiny-h-wide) at input_res
            1920, B = 1, in both types: its stem segment held stage by stage
            against the plain segment, its K2 launches read (fp32's s2 conv
-           on the row-segment form).
+           on conv3x3_rows).
            Then K1 (sinkhorn_potentials) at the KD loss's shape (N = 128
            problems of P = T = 64 points in [0, 1]², a quarter of the
            weights zero) against its plain version: each of the four
@@ -506,23 +508,35 @@ K2_EDGES = ((1, 3, 8, 255, 255), (1, 3, 8, 41, 61), (1, 3, 8, 33, 30),
             (1, 8, 16, 3, 3), (2, 8, 16, 17, 30),
             (2, 16, 64, 20, 20), (2, 5, 12, 9, 7)) + IGEMM_EDGES
 # K2 past the widths where conv3x3_igemm's window of two image rows fits in
-# shared memory (B, C, O, H, W, dtype), one shape for each tiling of its
-# row-segment form: fp32 at C > 4 with O <= 16, 32, 64 and past 64 (the
-# window fits up to ~860, 920, 780 and 550 columns), fp32 at C <= 4 (taps
-# paired, ~1,700-2,100), bf16 (~2,900-3,300); then the wide plan's eval
-# segment's s2 conv at WIDE_SEGMENT_RES (32 -> 32 @960²), the shape the main
-# path gives the form. Each stages row segments (its launches count under
-# conv_fused.ROWS_NAME), is held as K2_EDGES are and timed as a row of the
-# kernels line
+# shared memory (B, C, O, H, W, dtype), where it runs conv3x3_rows: fp32 at
+# C > 4 with O <= 16, 32, 64 and past 64 (the window fits up to ~860, 920,
+# 780 and 550 columns), fp32 at C <= 4 (taps paired, ~1,700-2,100), bf16
+# (~2,900-3,300), the fp32 C > 4 ones on clusters that split the channel
+# octets (conv_fused.rows_plan); then the wide plan's eval segment's s2
+# conv at WIDE_SEGMENT_RES (32 -> 32 @960², one block a cluster, 8-row
+# tiles), the shape the main path gives the form; then the routes no shape
+# above takes: B = 2 with more tiles than block slots (a persistent block's
+# tiles cross from one image into the next), a cluster whose weights do
+# not fit and are reloaded a chunk at a time (512 -> 128, one-row tiles),
+# 2-row tiles (64 -> 32), bf16 on clusters (64 -> 16); the last two at odd
+# W + 2, where output columns are stored one at a time and the bf16 strip
+# is gathered 2 bytes at a time.
+# Each runs conv3x3_rows (its launches count under conv_fused.ROWS_NAME), is
+# held as K2_EDGES are and timed as a row of the kernels line
 K2_WIDE = ((1, 12, 8, 4, 900, "float32"), (1, 32, 32, 4, 1000, "float32"),
            (1, 32, 64, 4, 900, "float32"), (1, 32, 128, 4, 700, "float32"),
            (1, 4, 16, 4, 2200, "float32"), (1, 3, 32, 4, 2200, "float32"),
            (1, 3, 64, 4, 2200, "float32"), (1, 4, 128, 4, 2200, "float32"),
            (1, 16, 16, 4, 3400, "bfloat16"), (1, 32, 32, 4, 3400, "bfloat16"),
            (1, 32, 64, 4, 3400, "bfloat16"), (1, 32, 128, 4, 3400, "bfloat16"),
-           (1, 32, 32, 960, 960, "float32"))
+           (1, 32, 32, 960, 960, "float32"),
+           (2, 32, 32, 100, 1000, "float32"), (1, 512, 128, 1, 1000, "float32"),
+           (1, 64, 32, 2, 1201, "float32"), (1, 64, 16, 1, 3401, "bfloat16"))
+# K2_WIDE's fp32 kinds again on a slab one element past a 16-byte boundary,
+# where conv3x3_rows stages 4 bytes at a time (B, C, O, H, W)
+K2_WIDE_OFFSET = ((1, 32, 32, 4, 1000), (1, 3, 32, 4, 2200))
 # the wide plan's eval segment (tiny-h-wide: 3 -> 32, 32 -> 32) at this
-# input_res, B = 1: its s2 conv at 960 columns in fp32 stages row segments
+# input_res, B = 1: its s2 conv at 960 columns in fp32 runs conv3x3_rows
 WIDE_SEGMENT_RES = 1920
 # K1 past the small routes (N, P, T, scaling): a 74-step schedule (scaling
 # 0.9) at the main shape; then k1_wide, whose global route takes N below
@@ -905,9 +919,20 @@ def k2_wide(torch, F, cf, dev):
                          stacked_too=False)
         if not (cf.launches.get((cf.ROWS_NAME, C, O, dname))
                 and not cf.launches.get(("conv3x3_bn_act_flat", C, O, dname))):
-            raise AssertionError(f"K2 at {C}->{O} @{H}x{W} {dname} did not stage row "
-                                 f"segments: launches {dict(cf.launches)}")
+            raise AssertionError(f"K2 at {C}->{O} @{H}x{W} {dname} did not run "
+                                 f"conv3x3_rows: launches {dict(cf.launches)}")
         rows += [dict(x, name=cf.ROWS_NAME) for x in r]
+    for B, C, O, H, W in K2_WIDE_OFFSET:
+        _, w, sc, bi, _, xf = conv_case(torch, cf, g, dev, B, C, O, H, W, torch.float32)
+        off = torch.empty(xf.numel() + 1, device=dev)[1:].view_as(xf)
+        off.copy_(xf)
+        got = cf.conv3x3_bn_act_flat(off, w, sc, bi, H=H, W=W)
+        torch.cuda.synchronize()
+        err, ok = kernel_gate(torch, got, cf.conv3x3_bn_act_flat_plain(xf, w, sc, bi, H=H, W=W))
+        log(f"[kernel] {cf.ROWS_NAME} {C}->{O} @{H}x{W} float32, slab at an odd element "
+            f"offset: max|kernel-plain| {err:.3e}")
+        if not ok:
+            raise AssertionError(f"K2 at {C}->{O} @{H}x{W} disagrees on an offset slab")
 
     res, runs, launches = WIDE_SEGMENT_RES, {}, {}
     x = torch.rand((1, res, res, 3), generator=g, device=dev)

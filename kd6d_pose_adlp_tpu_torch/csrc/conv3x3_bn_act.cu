@@ -110,11 +110,9 @@
 // - the flat form stages, of each channel octet, the window of NCOL + 2 (W
 //   + 2) + 2 columns that a tile's nine taps read; past the width where a
 //   ring of those windows no longer fits in 227 KB of shared memory (fp32
-//   about 780-920 columns at C > 4, 1,950-2,110 at C <= 4; bf16 about
-//   3,200), it stages instead the three row segments [m0 + dy (W + 2),
-//   + NCOL + 2) that tap rows dy = 0, 1, 2 read (SEG), one after another,
-//   so its shared memory no longer depends on W: the taps' row stride in
-//   the strip becomes NCOL + 2, and the products are the same;
+//   about 550-920 columns at C > 4, 1,700-2,110 at C <= 4; bf16 about
+//   2,900-3,300), the flat form runs conv3x3_rows instead (below: its own
+//   note);
 // - fp32 runs 3xTF32 m16n8k8 (split_tf32; one plain TF32 product misses by
 //   ~1e-3 of each term), two taps of four channels a k8 step at C <= 4;
 //   bf16 m16n8k16, kept as bf16 in shared memory;
@@ -125,8 +123,10 @@
 //   pair's k16 step), both 32 banks a warp; the stacked form has no shift,
 //   so its bf16 fragments come by ldmatrix.trans from rows padded to 16
 //   bytes mod 128, and its rows by 16-byte cp.async where M allows;
-// - mma.sync, not wgmma: at O <= 64 a 64-row warpgroup tile would be mostly
-//   padding, and the shifted B fragments cannot be described to wgmma.
+// - mma.sync, not wgmma: with outputs as M, at O <= 64 a 64-row warpgroup
+//   tile would be mostly padding, and the shifted B fragments cannot be
+//   described to wgmma (conv3x3_rows, below, makes pixels M and loads its
+//   shifted operand into registers instead).
 // Sums are fp32 in either type; the epilogue applies the affine and the
 // LeakyReLU and rounds once. On an H100 80GB HBM3 at 700 W (B = 8) the
 // stacked form runs at 1.4-2.1x its byte bound, the flat form at 2.1-5.6x
@@ -134,6 +134,7 @@
 // the TF32 rate; bf16 waits on its register gather and per-stage loads);
 // PERF.md has the times.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -142,6 +143,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 template <typename T>
@@ -822,9 +824,6 @@ struct IgCfg {
   static constexpr int kSteps = STACKED ? 2 : (kF32 && !QUAD ? 9 : 5);  // steps a stage
   static constexpr int kRows = 2 * kK;                             // stacked rows a stage
   static constexpr int kCols = kIgWarps * NG * 8;
-  // the row-segment form (SEG) of the flat strip: per tap row dy, the
-  // kCols + 2 columns from m0 + dy * Wp that the row's three dx taps read
-  static constexpr int kSegCols = kCols + 2;
   static constexpr int kWBytes = kSteps * MT * 32 * 16;            // A fragments
   // stages in the ring: the cp.async forms keep two in flight while one is
   // multiplied; the flat bf16 strip is gathered through registers
@@ -850,7 +849,7 @@ struct IgCfg {
 // registers into 16-byte columns of 8 channels: column pairs by 4-byte
 // loads where the slab's rows are 4-byte aligned (`vec`), else by 2-byte
 // loads.
-template <typename T, bool STACKED, int MT, int NG, bool QUAD, bool SEG>
+template <typename T, bool STACKED, int MT, int NG, bool QUAD>
 __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict__ x,
                                          const T* __restrict__ w,
                                          int st, int o0, int b, int m0, int C, int O, int L,
@@ -976,19 +975,11 @@ __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict
     }
   } else {
     // the strip of octet st: columns m0 .. m0 + S - 1 of channels 8 st ..
-    // 8 st + 7, or (SEG) the three row segments [m0 + dy Wp, m0 + dy Wp +
-    // SR) one after another; zeros past the slab's end and past C.
-    // Strip position i reads slab column m0 + col(i), if col(i) < n_in.
+    // 8 st + 7; zeros past the slab's end and past C. Strip position i
+    // reads slab column m0 + col(i), if col(i) < n_in.
     const T* xb = x + (size_t)b * C * L + m0;
-    constexpr int SR = Cfg::kSegCols;
-    const int n_in = SEG ? L - m0 : min(S, L - m0);
-    auto col = [&](int i) {
-      if constexpr (SEG) {
-        return i < 3 * SR ? (i / SR) * Wp + i % SR : n_in;
-      } else {
-        return i;
-      }
-    };
+    const int n_in = min(S, L - m0);
+    auto col = [](int i) { return i; };
     if constexpr (Cfg::kF32) {
       float* strip = reinterpret_cast<float*>(in);  // [8][S], QUAD [4][S]
 #pragma unroll 1
@@ -1017,8 +1008,7 @@ __device__ __forceinline__ void ig_stage(unsigned char* buf, const T* __restrict
       const bf16 zero = __float2bfloat16_rn(0.f);
       if (vec) {
         // column pairs: a 4-byte load a channel, split into the two
-        // columns' words (low halves: column i; high: i + 1); a pair lies
-        // in one row segment (SR even)
+        // columns' words (low halves: column i; high: i + 1)
         constexpr int PER = 3;  // pairs a thread in flight
 #pragma unroll 1
         for (int i0 = 2 * tid; i0 < S; i0 += 2 * PER * kIgThreads) {
@@ -1183,10 +1173,8 @@ __device__ __forceinline__ void ig_compute(const unsigned char* buf, float (&acc
 // reduction's stages through a ring: stages q + 1 .. q + NB - 1 are staged
 // while stage q is multiplied. Each input element is staged once per pass
 // over the outputs; the epilogue applies the affine and LeakyReLU and
-// rounds once. SEG (flat form): the strip holds the three row segments of
-// IgCfg::kSegCols columns, so its size does not depend on W, and the taps'
-// row stride in it is kSegCols in place of Wp.
-template <typename T, bool STACKED, int MT, int NG, bool QUAD, bool SEG>
+// rounds once.
+template <typename T, bool STACKED, int MT, int NG, bool QUAD>
 __global__ void __launch_bounds__(kIgThreads, 2)
 conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
               const float* __restrict__ scale, const float* __restrict__ bias,
@@ -1207,7 +1195,7 @@ conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
 
   // stage q of this block: output group q / nst, reduction chunk q % nst
   auto stage_in = [&](int q) {
-    ig_stage<T, STACKED, MT, NG, QUAD, SEG>(ig_smem + (q % NB) * stage_bytes, x, w, q % nst,
+    ig_stage<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, x, w, q % nst,
                                             q / nst * 16 * MT, b, m0, C, O, L, M, S, Wp, vec);
   };
 
@@ -1232,8 +1220,7 @@ conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
     cp_async_commit();
     cp_async_wait(NB - 1);
     __syncthreads();
-    ig_compute<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, acc, wcol,
-                                         SEG ? Cfg::kSegCols : Wp, S);
+    ig_compute<T, STACKED, MT, NG, QUAD>(ig_smem + (q % NB) * stage_bytes, acc, wcol, Wp, S);
     __syncthreads();
 
     if (q % nst == nst - 1) {
@@ -1277,12 +1264,12 @@ conv3x3_igemm(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, bool STACKED, int MT, int NG, bool QUAD, bool SEG>
+template <typename T, bool STACKED, int MT, int NG, bool QUAD>
 cudaError_t launch_ig(const T* x, const T* w, const float* scale, const float* bias,
                       T* out, int B, int C, int O, int Wp, int L, int M, int S,
                       size_t smem, int vec, float alpha, cudaStream_t stream) {
   using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
-  auto kernel = conv3x3_igemm<T, STACKED, MT, NG, QUAD, SEG>;
+  auto kernel = conv3x3_igemm<T, STACKED, MT, NG, QUAD>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1295,13 +1282,692 @@ cudaError_t launch_ig(const T* x, const T* w, const float* scale, const float* b
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the flat form past the width where conv3x3_igemm's window fits:
+// conv3x3_rows
+// ---------------------------------------------------------------------------
+//
+// K2 (kd6d_pose_adlp_tpu/ops/conv_pallas.py:105, conv3x3_bn_act_flat) at
+// every shape where a ring of conv3x3_igemm's windows (NCOL + 2 (W + 2) + 2
+// columns of a channel octet) overflows 227 KB of shared memory: fp32 past
+// about 550-920 columns (C > 4), 1,700-2,100 (C <= 4), bf16 past about
+// 2,900-3,300. The main path gives it one shape, the wide plan's eval s2
+// conv at input_res 1,920 (32 -> 32 @960², B = 1, fp32): 17 GFLOP, 51 as
+// three TF32 products, 0.104 ms at 495 TFLOP/s against 0.071 ms of bytes,
+// so it is bound by its products; the four-row shapes of chip_smoke's
+// K2_WIDE are a few microseconds of either, so they are bound by how soon
+// the card fills and drains. What the design does about it:
+// - pixels are the products' M and outputs their N, 8, 16 or 32 a pass
+//   (more outputs in groups: more blocks), so no O pads past 8: fp32 at C > 4 on wgmma (m64nNk8, 3xTF32: A, a warp's 16
+//   pixels by 8 channels, from registers, loaded from the strip at the
+//   tap's shift and split hi / lo once for all N; B, the weights, from
+//   shared memory through a descriptor, K-major core matrices without
+//   swizzle), fp32 at C <= 4 (two taps of four channels a k8 step) and
+//   bf16 on mma.sync (m16n8k8 3xTF32, m16n8k16), two m16 tiles a warp;
+// - a tile is 256 output columns as R image rows of 256 / R (R = 1 .. 8,
+//   no taller than the image), whose nine taps read R + 2 row segments of
+//   256 / R + 2 columns, so each input element is staged (R + 2)(256 / R
+//   + 2) / 256 times (1.33 at R = 8; the row segments of a one-row tile
+//   staged it 3.02 times);
+// - the grid is persistent: a block keeps its channel octets' weights,
+//   split hi / lo once, in shared memory (bf16 by cp.async beside its
+//   first strip where C is even), and walks its tiles, across images,
+//   through one cp.async ring of (tile, octet) stages, so a tile's
+//   epilogue runs while the next tile's first stages land; weights that do
+//   not fit (large C O) are reloaded a chunk of `cw` octets at a time;
+// - where tiles are fewer than the card's block slots, the plan takes
+//   fewer outputs a pass (more output groups) and a thread-block cluster
+//   of ks blocks splits the channel octets: each block sums its octets,
+//   the cluster hands its partial sums over in distributed shared memory,
+//   and each pixel's sum is taken over the ranks in rank order, so the
+//   result does not depend on timing; the affine and LeakyReLU apply once,
+//   after the whole sum, and lanes swap a value so each stores two
+//   neighbouring columns;
+// - the launch plan (outputs a pass, R, ks, the grid, cw) is worked out on
+//   the host (ops/conv_fused.rows_plan) from the shape and the SM count and
+//   checked here against the shared memory this source lays out.
+// The slab's channel rows are L * 4 bytes apart (L = (H + 2)(W + 2) + 2)
+// and a row segment starts at any element, so neither 16-byte cp.async nor
+// TMA tiles fit its source: the fp32 strip lands by 4-byte cp.async,
+// channel rows 8 words mod 32 apart (an A fragment's 4-byte loads hit 32
+// banks), the bf16 strip is gathered through registers into 16-byte columns
+// of 8 channels. On an H100 80GB HBM3 at 700 W (scripts/bench_k2.py
+// --wide; PERF.md has every shape) the main-path shape takes ~0.33 ms
+// (3.1x its bound; the former row-segment form 0.47, cuDNN 0.88). Tried and lost
+// there: mma.sync for fp32 at C > 4 (0.372 ms), a third A-register set so
+// wgmma waits on the group before last (0.344), 4- and 16-row tiles
+// (0.337, 0.328 against 0.320 at 8), streaming stores (no change), and
+// 16-byte cp.async strips from each segment's aligned superset, the
+// remainder folded into the A loads (0.356: remainders that differ by
+// channel cost those loads their bank spread; a version that shifted each
+// segment into place instead read 0.58 and failed its gate). Taken out
+// one at a time, the strip staging (0.224 ms without it; 0.301 with every
+// copy from one address, so it is the 4-byte cp.async instructions more
+// than the traffic), the products (0.204) and the stores (0.249) each cost
+// their own share: the three add up rather than overlap, which a kernel
+// whose warps issue all three in turn, 16 warps an SM, does not hide.
+
+// wgmma (sm_90a), m64nNk8 TF32 with A from registers (a warp's 16 rows as
+// in mma.sync's m16n8k8 A fragment) and B from shared memory through a
+// descriptor: no swizzle, K-major core matrices of 8 rows x 16 bytes, LBO
+// the byte step between the two core matrices along K, SBO the step
+// between 8-row groups along N
+__device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo, unsigned sbo) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a >> 4) & 0x3FFFu) | (uint64_t)((lbo >> 4) & 0x3FFFu) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFFu) << 32;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[nt][e] += A (64 x 8, registers) B (8 x 8 NT, descriptor); d in the
+// layout of NT m16n8 D fragments of the warp's 16 rows
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[NT][4], const unsigned (&a)[4], uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<1>(float (&d)[1][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<2>(float (&d)[2][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<4>(float (&d)[4][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+
+constexpr int kRowsWarps = 8;
+constexpr int kRowsThreads = kRowsWarps * 32;
+constexpr int kRowsMw = 2;                             // m16 tiles a warp
+constexpr int kRowsPix = kRowsWarps * kRowsMw * 16;    // output columns a tile
+constexpr long kRowsSmemMax = 227 * 1024;
+
+// channel rows of an fp32 strip of n columns: 8 words mod 32
+__host__ __device__ constexpr int rows_f32_stride(int n) { return (n - 8 + 31) / 32 * 32 + 8; }
+
+// One kind of the form: fp32 at C > 4 (a stage is a channel octet under the
+// nine taps, a k8 step a tap), fp32 at C <= 4 (QUAD: one stage of four
+// channels, a k8 step two taps), bf16 (a stage an octet, a k16 step two
+// taps, a tenth tap of zeros); NT n tiles of 8 outputs.
+template <typename T, bool QUAD, int NT>
+struct RowsCfg {
+  static constexpr bool kF32 = std::is_same_v<T, float>;
+  static constexpr bool kWg = kF32 && !QUAD;  // wgmma; mma.sync otherwise
+  static constexpr int kSteps = kF32 && !QUAD ? 9 : 5;
+  static constexpr int kCh = QUAD ? 4 : 8;
+  // B operands of one octet: wgmma's core matrices [tap][hi, lo][nt]
+  // (kWg), else mma.sync's fragments [step][nt][lane], fp32 (b0 hi, b1 hi,
+  // b0 lo, b1 lo), bf16 (b0, b1)
+  static constexpr int kWBytes = kSteps * NT * 32 * (kF32 ? 16 : 8);
+  static constexpr int kBufs = kF32 ? 3 : 2;
+  static constexpr int kRedBytes = kRowsThreads * kRowsMw * NT * 4 * 4;
+  // a ring stage of RS strip positions: fp32 [kCh][rows_f32_stride(RS)]
+  // floats, bf16 [RS] columns of 8 channels
+  static __host__ __device__ constexpr int strip_bytes(int RS) {
+    return kF32 ? kCh * 4 * rows_f32_stride(RS) : 16 * RS;
+  }
+};
+
+// out[b, o, m] for the tiles and output group of this block's cluster:
+// tile t (of ntiles = B nbands nchunks) is image t / (nbands nchunks), rows
+// [R band, + R), columns [NC chunk, + NC) of the (H, Wp) output rows;
+// cluster c takes output group c % ngo and tiles c / ngo + k (clusters /
+// ngo); its rank r sums channel octets [r n8 / ks, (r + 1) n8 / ks).
+template <typename T, bool QUAD, int NT>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+conv3x3_rows(const T* __restrict__ x, const T* __restrict__ w,
+             const float* __restrict__ scale, const float* __restrict__ bias,
+             T* __restrict__ out, int C, int O, int H, int Wp, int L, int M, int R,
+             int ks, int ngo, int cw, int nbands, int nchunks, int ntiles, int vec,
+             int vec2, int wvec, float alpha) {
+  using Cfg = RowsCfg<T, QUAD, NT>;
+  constexpr int NB = Cfg::kBufs;
+  extern __shared__ __align__(16) unsigned char rw_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int NC = kRowsPix / R, SR = NC + 2, RS = (R + 2) * SR;
+  const int SB = Cfg::strip_bytes(RS), CS = rows_f32_stride(RS);
+  unsigned char* wsm = rw_smem;
+  unsigned char* ring = rw_smem + cw * Cfg::kWBytes;
+  float* red = reinterpret_cast<float*>(ring + NB * SB);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = ks > 1 ? (int)cluster.block_rank() : 0;
+  const int cl = blockIdx.x / ks, ncl = gridDim.x / ks;
+  const int o0 = cl % ngo * 8 * NT;
+  const int n8 = QUAD ? 1 : (C + 7) / 8;
+  const int oct0 = rank * n8 / ks, noct = (rank + 1) * n8 / ks - oct0;
+  const int t0 = cl / ngo, tstep = ncl / ngo;
+  const int ntl = t0 < ntiles ? (ntiles - 1 - t0) / tstep + 1 : 0;
+  const int nq = ntl * noct;
+  const int nchk = (noct + cw - 1) / cw;
+  const unsigned mSR = 0xffffffffu / SR + 1u;  // i / SR = umulhi(i, mSR) here
+
+  // strip position of pixel row g of each m16 tile of the warp at tap 0
+  int pos[kRowsMw];
+#pragma unroll
+  for (int mw = 0; mw < kRowsMw; ++mw) {
+    const int i = mw * kRowsWarps + warp, ri = i / (NC / 16);
+    pos[mw] = ri * SR + (i - ri * (NC / 16)) * 16 + g;
+  }
+
+  auto tile = [&](int it, int& b, int& h0, int& w0) {
+    const int t = t0 + it * tstep;
+    b = t / (nbands * nchunks);
+    const int r = t - b * nbands * nchunks, band = r / nchunks;
+    h0 = band * R;
+    w0 = (r - band * nchunks) * NC;
+  };
+
+  // the B fragments of local octets k0 .. k0 + cnt - 1 into weight slots
+  // 0 .. cnt - 1, zero past O, C and the ninth tap; entry e = ((slot *
+  // kSteps + step) NT + nt) 32 + lane, U entries a thread loaded before any
+  // is stored. fp32 at C > 4: the weights of tap `step` as wgmma's B,
+  // [tap][hi, lo][nt][k half][8 outputs][4 channels], core matrices of 128
+  // bytes; QUAD and bf16: mma.sync's B fragments, [step][nt][lane]
+  auto load_w = [&](int k0, int cnt, bool async) {
+    constexpr int U = 8;
+    constexpr int NV = Cfg::kF32 ? 2 : 4;
+    auto wv = [&](int t, int o, int c) {
+      return t < 9 && o < O && c < C ? w[((size_t)t * O + o) * C + c] : from_f<T>(0.f);
+    };
+    const int n = cnt * Cfg::kSteps * NT * 32;
+    if constexpr (!Cfg::kF32) {
+      if (async) {
+        // bf16 at C even: each word a channel pair of one tap, 4-byte
+        // aligned, by cp.async into the caller's commit group
+        for (int e = tid; e < n; e += kRowsThreads) {
+          const int ln = e & 31, nt = (e >> 5) % NT, sp = (e >> 5) / NT;
+          const int st = sp % Cfg::kSteps, oct = oct0 + k0 + sp / Cfg::kSteps;
+          const int o = o0 + 8 * nt + (ln >> 2), c = 8 * oct + 2 * (ln & 3);
+          unsigned* d = reinterpret_cast<unsigned*>(wsm) + 2 * e;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int t = 2 * st + hf;
+            if (t < 9 && o < O && c < C) {
+              cp_async4(reinterpret_cast<float*>(d + hf),
+                        reinterpret_cast<const float*>(w + ((size_t)t * O + o) * C + c));
+            } else {
+              d[hf] = 0u;
+            }
+          }
+        }
+        return;
+      }
+    }
+#pragma unroll 1
+    for (int e0 = tid; e0 < n; e0 += U * kRowsThreads) {
+      T v[U][NV];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * kRowsThreads;
+        const int ln = e & 31, nt = (e >> 5) % NT, sp = (e >> 5) / NT;
+        const int st = sp % Cfg::kSteps, oct = oct0 + k0 + sp / Cfg::kSteps;
+        const int o = e < n ? o0 + 8 * nt + (ln >> 2) : O;
+        if constexpr (Cfg::kF32) {
+          // k tg, tg + 4 of the step: channels tg, tg + 4 at tap st, or
+          // (QUAD) channel tg at taps 2 st, 2 st + 1
+          const int c = QUAD ? (ln & 3) : 8 * oct + (ln & 3);
+          v[u][0] = QUAD ? wv(2 * st, o, c) : wv(st, o, c);
+          v[u][1] = QUAD ? wv(2 * st + 1, o, c) : wv(st, o, c + 4);
+        } else {
+          // k 2 tg, 2 tg + 1 of tap 2 st (b0) and of tap 2 st + 1 (b1)
+          const int c = 8 * oct + 2 * (ln & 3);
+          v[u][0] = wv(2 * st, o, c);
+          v[u][1] = wv(2 * st, o, c + 1);
+          v[u][2] = wv(2 * st + 1, o, c);
+          v[u][3] = wv(2 * st + 1, o, c + 1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * kRowsThreads;
+        if (e < n) {
+          if constexpr (Cfg::kWg) {
+            const int ln = e & 31, nt = (e >> 5) % NT, sp = (e >> 5) / NT;
+            unsigned* d = reinterpret_cast<unsigned*>(wsm + sp / 9 * Cfg::kWBytes) +
+                          ((sp % 9 * 2) * NT + nt) * 64 + (ln >> 2) * 4 + (ln & 3);
+            split_tf32(v[u][0], d[0], d[NT * 64]);
+            split_tf32(v[u][1], d[32], d[NT * 64 + 32]);
+          } else if constexpr (Cfg::kF32) {
+            uint4 f;
+            split_tf32(v[u][0], f.x, f.z);
+            split_tf32(v[u][1], f.y, f.w);
+            reinterpret_cast<uint4*>(wsm)[e] = f;
+          } else {
+            reinterpret_cast<uint2*>(wsm)[e] = make_uint2(pack_bf16(v[u][0], v[u][1]),
+                                                          pack_bf16(v[u][2], v[u][3]));
+          }
+        }
+      }
+    }
+  };
+
+  // stage q (tile q / noct, local octet q % noct) into ring slot q % NB:
+  // strip position i = r SR + j reads slab column mb + r Wp + j of each
+  // channel, zero past the slab's end and past C
+  auto stage_in = [&](int q) {
+    const int it = q / noct, k = q - it * noct;
+    int b, h0, w0;
+    tile(it, b, h0, w0);
+    const int mb = h0 * Wp + w0;
+    const int cb = QUAD ? 0 : 8 * (oct0 + k);
+    const int nc = min(Cfg::kCh, C - cb);
+    const T* xb = x + ((size_t)b * C + cb) * L;
+    unsigned char* buf = ring + (q % NB) * SB;
+    auto col = [&](int i) {
+      const int r = __umulhi((unsigned)i, mSR);
+      return mb + r * Wp + (i - r * SR);
+    };
+    if constexpr (Cfg::kF32) {
+      float* strip = reinterpret_cast<float*>(buf);
+      const unsigned mRS = 0xffffffffu / RS + 1u;
+      for (int e = tid; e < Cfg::kCh * RS; e += kRowsThreads) {
+        const int ch = __umulhi((unsigned)e, mRS), i = e - ch * RS;
+        const int f = col(i);
+        float* d = strip + ch * CS + i;
+        if (ch < nc && f < L) {
+          cp_async4(d, xb + (size_t)ch * L + f);
+        } else {
+          *d = 0.f;
+        }
+      }
+    } else {
+      uint4* cols = reinterpret_cast<uint4*>(buf);
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      if (vec) {
+        // column pairs (i even: one row segment, SR even; the slab column
+        // even, L and Wp even): a 4-byte load a channel, split into the two
+        // columns' words
+        constexpr int PER = 3;
+#pragma unroll 1
+        for (int i0 = 2 * tid; i0 < RS; i0 += 2 * PER * kRowsThreads) {
+          unsigned v[PER][8];
+#pragma unroll
+          for (int k2 = 0; k2 < PER; ++k2) {
+            const int i = i0 + 2 * k2 * kRowsThreads;
+            const int j = i < RS ? col(i) : L;
+#pragma unroll
+            for (int ch = 0; ch < 8; ++ch) {
+              v[k2][ch] = 0u;
+              if (ch < nc && j + 1 < L) {
+                v[k2][ch] = *reinterpret_cast<const unsigned*>(xb + (size_t)ch * L + j);
+              } else if (ch < nc && j < L) {
+                v[k2][ch] = pack_bf16(xb[(size_t)ch * L + j], zero);
+              }
+            }
+          }
+#pragma unroll
+          for (int k2 = 0; k2 < PER; ++k2) {
+            const int i = i0 + 2 * k2 * kRowsThreads;
+            if (i < RS) {
+              cols[i] = make_uint4(__byte_perm(v[k2][0], v[k2][1], 0x5410),
+                                   __byte_perm(v[k2][2], v[k2][3], 0x5410),
+                                   __byte_perm(v[k2][4], v[k2][5], 0x5410),
+                                   __byte_perm(v[k2][6], v[k2][7], 0x5410));
+              cols[i + 1] = make_uint4(__byte_perm(v[k2][0], v[k2][1], 0x7632),
+                                       __byte_perm(v[k2][2], v[k2][3], 0x7632),
+                                       __byte_perm(v[k2][4], v[k2][5], 0x7632),
+                                       __byte_perm(v[k2][6], v[k2][7], 0x7632));
+            }
+          }
+        }
+      } else {
+        // 2-byte loads, two columns a thread in flight
+        constexpr int CH = 2;
+#pragma unroll 1
+        for (int i0 = tid; i0 < RS; i0 += CH * kRowsThreads) {
+          bf16 v[CH][8];
+#pragma unroll
+          for (int k2 = 0; k2 < CH; ++k2) {
+            const int i = i0 + k2 * kRowsThreads;
+            const int j = i < RS ? col(i) : L;
+#pragma unroll
+            for (int ch = 0; ch < 8; ++ch)
+              v[k2][ch] = ch < nc && j < L ? xb[(size_t)ch * L + j] : zero;
+          }
+#pragma unroll
+          for (int k2 = 0; k2 < CH; ++k2)
+            if (i0 + k2 * kRowsThreads < RS)
+              cols[i0 + k2 * kRowsThreads] =
+                  make_uint4(pack_bf16(v[k2][0], v[k2][1]), pack_bf16(v[k2][2], v[k2][3]),
+                             pack_bf16(v[k2][4], v[k2][5]), pack_bf16(v[k2][6], v[k2][7]));
+        }
+      }
+    }
+  };
+
+  float acc[kRowsMw][NT][4];
+#pragma unroll
+  for (int mw = 0; mw < kRowsMw; ++mw)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mw][nt][e] = 0.f;
+
+  // the products of one stage (strip `buf`, weight slot ws); A rows g,
+  // g + 8 of each m16 tile: the tile's pixels at the tap's shift
+  auto compute = [&](const unsigned char* buf, int ws) {
+    if constexpr (Cfg::kWg) {
+      // a warpgroup's m64 tile mw is its four warps' m16 tiles mw; per tap
+      // the three products of both tiles are one commit group, and the A
+      // registers alternate between two sets, so a tap's loads and splits
+      // overlap the products of the one before
+      const float* xs = reinterpret_cast<const float*>(buf) + tg * CS;
+      const unsigned char* wb = wsm + ws * Cfg::kWBytes;
+      unsigned ah[2][kRowsMw][4], al[2][kRowsMw][4];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int off = t / 3 * SR + t % 3;
+#pragma unroll
+        for (int mw = 0; mw < kRowsMw; ++mw) {
+          const float* p = xs + pos[mw] + off;
+          split_tf32(p[0], ah[t & 1][mw][0], al[t & 1][mw][0]);
+          split_tf32(p[8], ah[t & 1][mw][1], al[t & 1][mw][1]);
+          split_tf32(p[4 * CS], ah[t & 1][mw][2], al[t & 1][mw][2]);
+          split_tf32(p[4 * CS + 8], ah[t & 1][mw][3], al[t & 1][mw][3]);
+        }
+        const uint64_t dh = wg_desc(wb + 2 * t * NT * 256, 128, 256);
+        const uint64_t dl = wg_desc(wb + (2 * t + 1) * NT * 256, 128, 256);
+        wg_fence();
+#pragma unroll
+        for (int mw = 0; mw < kRowsMw; ++mw) wgmma_tf32<NT>(acc[mw], al[t & 1][mw], dh);
+#pragma unroll
+        for (int mw = 0; mw < kRowsMw; ++mw) wgmma_tf32<NT>(acc[mw], ah[t & 1][mw], dl);
+#pragma unroll
+        for (int mw = 0; mw < kRowsMw; ++mw) wgmma_tf32<NT>(acc[mw], ah[t & 1][mw], dh);
+        wg_commit();
+        wg_wait<1>();
+      }
+      wg_wait<0>();
+    } else if constexpr (Cfg::kF32) {
+      // QUAD: k tg, tg + 4 are channel tg at taps 2 st, 2 st + 1
+      const float* xs = reinterpret_cast<const float*>(buf) + tg * CS;
+      const uint4* wf = reinterpret_cast<const uint4*>(wsm + ws * Cfg::kWBytes) + lane;
+#pragma unroll
+      for (int st = 0; st < 5; ++st) {
+        const int ta = 2 * st, tb = 2 * st + 1;
+        const int offa = ta / 3 * SR + ta % 3, offb = tb / 3 * SR + tb % 3;
+        unsigned ah[kRowsMw][4], al[kRowsMw][4];
+#pragma unroll
+        for (int mw = 0; mw < kRowsMw; ++mw) {
+          const float* p = xs + pos[mw];
+          split_tf32(p[offa], ah[mw][0], al[mw][0]);
+          split_tf32(p[offa + 8], ah[mw][1], al[mw][1]);
+          if (tb >= 9) {
+            ah[mw][2] = al[mw][2] = ah[mw][3] = al[mw][3] = 0u;
+          } else {
+            split_tf32(p[offb], ah[mw][2], al[mw][2]);
+            split_tf32(p[offb + 8], ah[mw][3], al[mw][3]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint4 bw = wf[(st * NT + nt) * 32];
+          // small terms first; MW products lie between two that depend on
+          // each other
+#pragma unroll
+          for (int mw = 0; mw < kRowsMw; ++mw) mma_tf32(acc[mw][nt], al[mw], bw.x, bw.y);
+#pragma unroll
+          for (int mw = 0; mw < kRowsMw; ++mw) mma_tf32(acc[mw][nt], ah[mw], bw.z, bw.w);
+#pragma unroll
+          for (int mw = 0; mw < kRowsMw; ++mw) mma_tf32(acc[mw][nt], ah[mw], bw.x, bw.y);
+        }
+      }
+    } else {
+      // channel pair (2 tg, 2 tg + 1) of strip column c: word 4 c + tg
+      const unsigned* xw = reinterpret_cast<const unsigned*>(buf) + tg;
+      const uint2* wf = reinterpret_cast<const uint2*>(wsm + ws * Cfg::kWBytes) + lane;
+#pragma unroll
+      for (int st = 0; st < 5; ++st) {
+        const int ta = 2 * st, tb = 2 * st + 1;
+        const int offa = ta / 3 * SR + ta % 3, offb = tb / 3 * SR + tb % 3;
+        unsigned a[kRowsMw][4];
+#pragma unroll
+        for (int mw = 0; mw < kRowsMw; ++mw) {
+          a[mw][0] = xw[4 * (pos[mw] + offa)];
+          a[mw][1] = xw[4 * (pos[mw] + 8 + offa)];
+          a[mw][2] = tb < 9 ? xw[4 * (pos[mw] + offb)] : 0u;
+          a[mw][3] = tb < 9 ? xw[4 * (pos[mw] + 8 + offb)] : 0u;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 bw = wf[(st * NT + nt) * 32];
+#pragma unroll
+          for (int mw = 0; mw < kRowsMw; ++mw) mma_bf16(acc[mw][nt], a[mw], bw.x, bw.y);
+        }
+      }
+    }
+  };
+
+  // tile `it` done: (ks > 1) the ranks' partial sums through distributed
+  // shared memory, each m16 tile finished by rank i % ks, summed over the
+  // ranks in order; then the affine and LeakyReLU, rounded once. D rows
+  // (pixels) g, g + 8, columns (outputs) 2 tg, 2 tg + 1 of each n tile.
+  auto finish = [&](int it) {
+    int b, h0, w0;
+    tile(it, b, h0, w0);
+    if (ks > 1) {
+#pragma unroll
+      for (int mw = 0; mw < kRowsMw; ++mw)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[((mw * NT + nt) * 4 + e) * kRowsThreads + tid] = acc[mw][nt][e];
+      cluster.sync();
+    }
+#pragma unroll
+    for (int mw = 0; mw < kRowsMw; ++mw) {
+      const int i = mw * kRowsWarps + warp, ri = i / (NC / 16);
+      const int h = h0 + ri, c0 = w0 + (i - ri * (NC / 16)) * 16 + g;
+      if (h >= H || (ks > 1 && i % ks != rank)) continue;
+      if (ks > 1) {
+        // rank r's sums, all of a rank's loads in flight at once
+#pragma unroll 1
+        for (int r = 0; r < ks; ++r) {
+          const float* rr = cluster.map_shared_rank(red, r) + mw * NT * 4 * kRowsThreads + tid;
+          float v[NT][4];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[nt][e] = rr[(nt * 4 + e) * kRowsThreads];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mw][nt][e] = r == 0 ? v[nt][e] : acc[mw][nt][e] + v[nt][e];
+        }
+      }
+      T* ob = out + (size_t)b * O * M + (size_t)h * Wp;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = o0 + 8 * nt + 2 * tg + (e & 1);
+          const float v = o < O ? acc[mw][nt][e] * scale[o] + bias[o] : 0.f;
+          y[e] = v >= 0.f ? v : alpha * v;
+        }
+        if (vec2) {
+          // lanes g, g ^ 1 swap a value, so lane g even holds columns c0,
+          // c0 + 1 of output 2 tg, lane g odd columns c0 - 1, c0 of output
+          // 2 tg + 1 (and the same 8 columns on): one 2-element store each
+          const int odd = g & 1;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float r = __shfl_xor_sync(0xffffffffu, odd ? y[2 * hh] : y[2 * hh + 1], 4);
+            const int o = o0 + 8 * nt + 2 * tg + odd, c = c0 + 8 * hh - odd;
+            if (o < O && c < Wp) {
+              const float lo = odd ? r : y[2 * hh], hi = odd ? y[2 * hh + 1] : r;
+              if constexpr (Cfg::kF32) {
+                *reinterpret_cast<float2*>(ob + (size_t)o * M + c) = make_float2(lo, hi);
+              } else {
+                *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)o * M + c) =
+                    __floats2bfloat162_rn(lo, hi);
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int o = o0 + 8 * nt + 2 * tg + (e & 1), c = c0 + 8 * (e >> 1);
+            if (o < O && c < Wp) ob[(size_t)o * M + c] = from_f<T>(y[e]);
+          }
+        }
+      }
+    }
+    if (ks > 1) cluster.sync();  // every rank's sums read before they are rewritten
+#pragma unroll
+    for (int mw = 0; mw < kRowsMw; ++mw)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mw][nt][e] = 0.f;
+  };
+
+  // one commit group a stage (empty past the last), so "all but the NB - 1
+  // newest groups" is always "stage q"; weights that stay for the whole
+  // walk ride with stage 0 where they come by cp.async, else load while the
+  // first stages land
+  if (nchk == 1 && wvec) load_w(0, noct, true);
+#pragma unroll
+  for (int p = 0; p < NB - 1; ++p) {
+    if (p < nq) stage_in(p);
+    cp_async_commit();
+  }
+  if (nchk == 1 && !wvec) load_w(0, noct, false);
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q) {
+    if (q + NB - 1 < nq) stage_in(q + NB - 1);
+    cp_async_commit();
+    cp_async_wait(NB - 1);
+    const int k = q % noct;
+    if (nchk > 1 && k % cw == 0) load_w(k, min(cw, noct - k), false);
+    __syncthreads();
+    compute(ring + (q % NB) * SB, k % cw);
+    __syncthreads();
+    if (k == noct - 1) finish(q / noct);
+  }
+}
+
+// One kind and n-tile count of conv3x3_rows on the caller's plan, checked
+// against this source's layout: a plan that does not fit returns
+// cudaErrorInvalidValue and launches nothing.
+template <typename T, bool QUAD, int NT>
+cudaError_t launch_rows_nt(const T* x, const T* w, const float* scale, const float* bias,
+                           T* out, int B, int C, int O, int Wp, int L, int M, float alpha,
+                           cudaStream_t stream, const int* plan) {
+  using Cfg = RowsCfg<T, QUAD, NT>;
+  const int R = plan[1], ks = plan[2], grid = plan[3], ngo = plan[4], cw = plan[5];
+  const int n8 = QUAD ? 1 : (C + 7) / 8, H = M / Wp;
+  if ((R != 1 && R != 2 && R != 4 && R != 8) || ks < 1 || ks > 8 || ks > n8 ||
+      ngo != (O + 8 * NT - 1) / (8 * NT) || grid < ngo || grid % ngo != 0 || cw < 1)
+    return cudaErrorInvalidValue;
+  const int NC = kRowsPix / R, RS = (R + 2) * (NC + 2);
+  const long smem = (long)cw * Cfg::kWBytes + (long)Cfg::kBufs * Cfg::strip_bytes(RS) +
+                    (ks > 1 ? Cfg::kRedBytes : 0);
+  if (smem != plan[6] || smem > kRowsSmemMax) return cudaErrorInvalidValue;
+  auto kernel = conv3x3_rows<T, QUAD, NT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int nbands = (H + R - 1) / R, nchunks = (Wp + NC - 1) / NC;
+  const int vec = !Cfg::kF32 && L % 2 == 0 && Wp % 2 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  // two output columns a store: pairs start at even columns of even rows
+  const int vec2 = Wp % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
+  // bf16 weights by 4-byte cp.async: channel pairs aligned
+  const int wvec = !Cfg::kF32 && C % 2 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid * ks);
+  cfg.blockDim = dim3(kRowsThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = ks > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, w, scale, bias, out, C, O, H, Wp,
+                                           L, M, R, ks, ngo, cw, nbands, nchunks,
+                                           B * nbands * nchunks, vec, vec2, wvec, alpha);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// conv3x3_rows at the plan's n-tile count (plan[0]): fp32 at C <= 4 pairs
+// its taps (QUAD)
+template <typename T, bool QUAD>
+cudaError_t launch_rows_kind(const T* x, const T* w, const float* scale, const float* bias,
+                             T* out, int B, int C, int O, int Wp, int L, int M, float alpha,
+                             cudaStream_t s, const int* plan) {
+  switch (plan[0]) {
+    case 1: return launch_rows_nt<T, QUAD, 1>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s, plan);
+    case 2: return launch_rows_nt<T, QUAD, 2>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s, plan);
+    case 4: return launch_rows_nt<T, QUAD, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s, plan);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_rows(const T* x, const T* w, const float* scale, const float* bias,
+                        T* out, int B, int C, int O, int Wp, int L, int M, float alpha,
+                        cudaStream_t s, const int* plan) {
+  if (plan == nullptr) return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, float>) {
+    if (C <= 4)
+      return launch_rows_kind<T, true>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
+                                       plan);
+  }
+  return launch_rows_kind<T, false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s, plan);
+}
+
 // The implicit GEMM at one tiling. The flat form stages the window of
 // NCOL + 2 Wp + 2 columns its taps read; where W makes that too large for
-// shared memory, it stages the three row segments instead (SEG, *rows = 1).
+// shared memory, the launch goes to conv3x3_rows on the caller's plan
+// (*rows = 1).
 template <typename T, bool STACKED, int MT, int NG, bool QUAD = false>
 cudaError_t launch_igemm(const T* x, const T* w, const float* scale,
                          const float* bias, T* out, int B, int C, int O, int Wp,
-                         int L, int M, float alpha, cudaStream_t stream, int* rows) {
+                         int L, int M, float alpha, cudaStream_t stream, int* rows,
+                         const int* plan) {
   using Cfg = IgCfg<T, STACKED, MT, NG, QUAD>;
   constexpr int NCOL = Cfg::kCols;
   constexpr size_t kMaxSmem = 227 * 1024;
@@ -1318,24 +1984,20 @@ cudaError_t launch_igemm(const T* x, const T* w, const float* scale,
     const int S = NCOL + 8;
     const int vec = M % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     if (smem_of(S) > kMaxSmem) return cudaErrorInvalidConfiguration;
-    return launch_ig<T, true, MT, NG, QUAD, false>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                   S, smem_of(S), vec, alpha, stream);
+    return launch_ig<T, true, MT, NG, QUAD>(x, w, scale, bias, out, B, C, O, Wp, L, M, S,
+                                            smem_of(S), vec, alpha, stream);
   } else {
     // reads reach 2 Wp + 2 past the tile's last column (fp32: channel rows
     // of f32_row; bf16: column pairs)
     const int S = Cfg::kF32 ? f32_row(NCOL + 2 * Wp + 2) : (NCOL + 2 * Wp + 2 + 1) / 2 * 2;
     // bf16: the slab's rows 4-byte aligned, so column pairs load 4 bytes at
-    // a time (SEG: each segment's start too, so Wp even)
+    // a time
     const bool x4 = L % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
     if (smem_of(S) <= kMaxSmem)
-      return launch_ig<T, false, MT, NG, QUAD, false>(x, w, scale, bias, out, B, C, O, Wp, L,
-                                                      M, S, smem_of(S), x4, alpha, stream);
-    const int SS = Cfg::kF32 ? f32_row(3 * Cfg::kSegCols) : 3 * Cfg::kSegCols;
-    if (smem_of(SS) > kMaxSmem) return cudaErrorInvalidConfiguration;
+      return launch_ig<T, false, MT, NG, QUAD>(x, w, scale, bias, out, B, C, O, Wp, L, M, S,
+                                               smem_of(S), x4, alpha, stream);
     if (rows != nullptr) *rows = 1;
-    return launch_ig<T, false, MT, NG, QUAD, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                   SS, smem_of(SS), x4 && Wp % 2 == 0, alpha,
-                                                   stream);
+    return launch_rows(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, stream, plan);
   }
 }
 
@@ -1345,45 +2007,45 @@ template <typename T, bool STACKED>
 cudaError_t dispatch_igemm(const T* x, const T* w, const float* scale,
                            const float* bias, T* out, int B, int C, int O,
                            int Wp, int L, int M, float alpha, cudaStream_t s,
-                           int* rows = nullptr) {
+                           int* rows = nullptr, const int* plan = nullptr) {
   if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
   if constexpr (std::is_same_v<T, float> && !STACKED) {
     if (C <= 4) {
       if (O <= 16)
         return launch_igemm<T, false, 1, 8, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                  alpha, s, rows);
+                                                  alpha, s, rows, plan);
       if (O <= 32)
         return launch_igemm<T, false, 2, 4, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                  alpha, s, rows);
+                                                  alpha, s, rows, plan);
       if (O <= 64)
         return launch_igemm<T, false, 4, 4, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                  alpha, s, rows);
+                                                  alpha, s, rows, plan);
       return launch_igemm<T, false, 8, 2, true>(x, w, scale, bias, out, B, C, O, Wp, L, M,
-                                                alpha, s, rows);
+                                                alpha, s, rows, plan);
     }
   }
   if (O <= 16)
     return launch_igemm<T, STACKED, 1, 8>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
-                                          rows);
+                                          rows, plan);
   if (O <= 32)
     return launch_igemm<T, STACKED, 2, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
-                                          rows);
+                                          rows, plan);
   if (O <= 64)
     return launch_igemm<T, STACKED, 4, 4>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
-                                          rows);
+                                          rows, plan);
   // 128 outputs a pass, 128 columns a block
   return launch_igemm<T, STACKED, 8, 2>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha, s,
-                                        rows);
+                                        rows, plan);
 }
 
 // The flat form: the serving stem's two (C, O) instances on their own
 // kernels, every other shape on the implicit GEMM (*rows = 1 where it
-// stages row segments). A launch error returns.
+// runs conv3x3_rows). A launch error returns.
 template <typename T>
 cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
                           const float* bias, T* out, int B, int C, int O,
                           int Wp, int L, int M, float alpha, cudaStream_t s,
-                          int* rows) {
+                          int* rows, const int* plan) {
   if (B < 1 || C < 1 || O < 1 || M < 1) return cudaErrorInvalidValue;
   bool taken = false;
   cudaError_t e = cudaSuccess;
@@ -1408,7 +2070,7 @@ cudaError_t dispatch_flat(const T* x, const T* w, const float* scale,
   }
   if (taken || e != cudaSuccess) return e;
   return dispatch_igemm<T, false>(x, w, scale, bias, out, B, C, O, Wp, L, M, alpha,
-                                 s, rows);
+                                 s, rows, plan);
 }
 
 // ---------------------------------------------------------------------------
@@ -1604,16 +2266,21 @@ cudaError_t dispatch_stacked(const float* xs, const float* w,
 
 // x (B, C, (H+2)*(W+2)+2), w (9, O, C), scale/bias (O,), out (B, O, H*(W+2)).
 // Returns the cudaError_t of the launch (0 = launched); sets *rows (when
-// not null) to 1 if the launch staged row segments (conv3x3_igemm's SEG
-// form, past the width where the window fits), and leaves it otherwise.
+// not null) to 1 if the launch ran conv3x3_rows (past the width where
+// conv3x3_igemm's window fits), and leaves it otherwise. `plan` is
+// conv3x3_rows' launch plan (7 ints: nt, R, ks, grid, ngo, cw, smem;
+// ops/conv_fused.rows_plan),
+// read only where that form runs: a missing or inconsistent plan there
+// returns cudaErrorInvalidValue.
 extern "C" int conv3x3_bn_act_flat(const float* x, const float* w,
                                    const float* scale, const float* bias,
                                    float* out, int B, int C, int O, int H,
-                                   int W, float alpha, void* stream, int* rows) {
+                                   int W, float alpha, void* stream, int* rows,
+                                   const int* plan) {
   const int Wp = W + 2;
   return (int)dispatch_flat<float>(x, w, scale, bias, out, B, C, O, Wp,
                                    (H + 2) * Wp + 2, H * Wp, alpha,
-                                   (cudaStream_t)stream, rows);
+                                   (cudaStream_t)stream, rows, plan);
 }
 
 // xs (B, 9, C, M), w (9, O, C), scale/bias (O,), out (B, O, M).
@@ -1629,11 +2296,12 @@ extern "C" int conv3x3_bn_act_stacked(const float* xs, const float* w,
 extern "C" int conv3x3_bn_act_flat_bf16(const bf16* x, const bf16* w,
                                         const float* scale, const float* bias,
                                         bf16* out, int B, int C, int O, int H,
-                                        int W, float alpha, void* stream, int* rows) {
+                                        int W, float alpha, void* stream, int* rows,
+                                        const int* plan) {
   const int Wp = W + 2;
   return (int)dispatch_flat<bf16>(x, w, scale, bias, out, B, C, O, Wp,
                                   (H + 2) * Wp + 2, H * Wp, alpha,
-                                  (cudaStream_t)stream, rows);
+                                  (cudaStream_t)stream, rows, plan);
 }
 
 // K3 in bf16 runs the implicit GEMM at every (C, O)

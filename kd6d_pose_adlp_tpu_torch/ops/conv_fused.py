@@ -26,8 +26,9 @@ launches the kernel on PyTorch's current stream and counts the launch in
 `launches` under (kernel name, C, O, dtype name), also when it is called
 from a loaded exported program. K2 takes any width: where the window of
 two image rows that its implicit GEMM stages for a tile does not fit in
-shared memory, it stages the tile's three row segments instead, and that
-launch counts under the name `conv3x3_bn_act_flat_rows`. For CPU tensors (and only for them) it runs
+shared memory, the launch runs `conv3x3_rows` on the plan `rows_plan`
+works out here from the shape and the card's SM count, and counts under the
+name `conv3x3_bn_act_flat_rows`. For CPU tensors (and only for them) it runs
 the plain PyTorch version beside it, which computes the same flat formula,
 garbage columns included, in float32 from the inputs' values and rounds its
 result to x's dtype once. A CUDA tensor of any other type raises.
@@ -46,7 +47,8 @@ from ..utils import cuda_build
 # kernel launches since the last reset, keyed (kernel name, C, O, dtype
 # name: "float32" or "bfloat16")
 launches: collections.Counter = collections.Counter()
-# the name K2's launches count under where they stage row segments
+# the name K2's launches count under where they run conv3x3_rows (past the
+# width where the implicit GEMM's window fits)
 ROWS_NAME = "conv3x3_bn_act_flat_rows"
 
 
@@ -177,6 +179,114 @@ def conv3x3_bn_act_ref(x, k, scale, bias, alpha: float = 0.1) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# conv3x3_rows' launch plan
+# ---------------------------------------------------------------------------
+
+# The layout of csrc/conv3x3_bn_act.cu's conv3x3_rows (RowsCfg there, which
+# checks a plan's shared memory against its own): a tile is ROWS_PIX output
+# columns, `rows` image rows of ROWS_PIX // rows; a block keeps `cw` channel
+# octets of weights (B fragments, fp32 split hi / lo), a ring of input
+# strips, and where a cluster of ks > 1 blocks splits the octets, its
+# partial sums.
+ROWS_PIX = 256
+ROWS_TILE_ROWS = (1, 2, 4, 8)
+ROWS_NTS = (1, 2, 4)             # n tiles of 8 outputs a pass (the source's instances)
+_ROWS_SMEM_MAX = 227 * 1024      # a block's shared memory on an H100
+_SM_SMEM = 228 * 1024            # an SM's, of which a block reserves 1 KB more
+_ROWS_MAX_CLUSTER = 8            # the portable cluster size
+
+RowsPlan = collections.namedtuple("RowsPlan", "nt rows ks grid ngo cw smem")
+RowsPlan.__doc__ = """conv3x3_rows' launch: nt n tiles of 8 outputs a pass, tiles of
+`rows` image rows, clusters of ks blocks splitting the channel octets,
+`grid` clusters (a multiple of ngo, the output groups), cw octets of
+weights a block holds at a time, `smem` bytes of shared memory a block."""
+
+
+def rows_kind(C: int, dtype_name: str) -> str:
+    """conv3x3_rows' kind: "bf16", "quad" (fp32 at C <= 4, two taps a k8
+    step) or "f32"."""
+    return "bf16" if dtype_name == "bfloat16" else ("quad" if C <= 4 else "f32")
+
+
+def rows_octets(C: int, kind: str) -> int:
+    """Reduction stages of a tile: channel octets (one stage at "quad")."""
+    return 1 if kind == "quad" else -(-C // 8)
+
+
+def rows_smem(kind: str, nt: int, rows: int, ks: int, cw: int) -> int:
+    """Shared memory bytes of a conv3x3_rows block (RowsCfg): cw octets of
+    B fragments, the ring of strips ((rows + 2) row segments of
+    ROWS_PIX // rows + 2 columns: fp32 channel rows 8 words mod 32 apart,
+    bf16 16-byte columns of 8 channels) and, for ks > 1, the partial sums."""
+    rs = (rows + 2) * (ROWS_PIX // rows + 2)
+    if kind == "bf16":
+        wbytes, strip, bufs = 5 * nt * 32 * 8, 16 * rs, 2
+    else:
+        steps, ch = (5, 4) if kind == "quad" else (9, 8)
+        wbytes, strip, bufs = steps * nt * 32 * 16, ch * 4 * ((rs - 8 + 31) // 32 * 32 + 8), 3
+    return cw * wbytes + bufs * strip + (256 * 2 * nt * 4 * 4 if ks > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(B: int, C: int, O: int, H: int, W: int, dtype_name: str,
+              sms: int) -> RowsPlan:
+    """conv3x3_rows' plan for a (B, C, H, W) slab into O outputs on a card
+    of `sms` SMs. The most n tiles a pass (fp32 at C > 4, on wgmma, two at
+    least where O allows) and the smallest cluster whose blocks number 45%
+    of the SMs at least, else the plan with the most blocks; among
+    tile heights (no taller than the image) the one a time model ranks
+    first: rounds of the resident clusters over the tiles, each a stage an
+    octet (its products, its strip's columns staged) and a fixed part.
+    Fitted to the four-row K2_WIDE shapes on an H100 (PERF.md §6),
+    where a block's fixed latency dominates: more output groups or larger
+    clusters than that filled the card no better and each block paid it
+    again."""
+    kind = rows_kind(C, dtype_name)
+    n8 = rows_octets(C, kind)
+    need = 1 if O <= 8 else 2 if O <= 16 else 4
+    steps, ch = {"f32": (9, 8), "quad": (5, 4), "bf16": (5, 8)}[kind]
+    fits = [n for n in ROWS_NTS if n <= need and (kind != "f32" or n >= min(2, need))]
+    heights = [r for r in ROWS_TILE_ROWS if r <= H] or [1]
+    target = max(1, sms * 9 // 20)
+    most = None
+    for nt in sorted(fits, reverse=True):
+        ngo = -(-O // (8 * nt))
+        wbytes = rows_smem(kind, nt, 1, 1, 1) - rows_smem(kind, nt, 1, 1, 0)
+        for ks in range(1, min(_ROWS_MAX_CLUSTER, n8) + 1):
+            per = -(-n8 // ks)
+            best = None
+            for rows in heights:
+                cols = ROWS_PIX // rows
+                tiles = B * -(-H // rows) * -(-(W + 2) // cols)
+                fixed = rows_smem(kind, nt, rows, ks, 0)
+                cw = min(per, (_ROWS_SMEM_MAX - fixed) // wbytes)
+                if cw < 1:
+                    continue
+                smem = fixed + cw * wbytes
+                per_sm = min(2, _SM_SMEM // (smem + 1024))
+                clusters = min(tiles, max(1, sms * per_sm // (ks * ngo)))
+                stage = steps * nt * 60 + ch * (rows + 2) * (cols + 2) // 4
+                cost = tiles / clusters * (per * stage + (per * nt * 100 if cw < per else 0)
+                                           + 1000)
+                if best is None or (cost, -rows) < best[0]:
+                    best = ((cost, -rows), RowsPlan(nt, rows, ks, ngo * clusters, ngo, cw,
+                                                    smem))
+            if best is None:
+                continue
+            plan = best[1]
+            if plan.grid * ks >= target:
+                return plan
+            if most is None or plan.grid * ks > most.grid * most.ks:
+                most = plan
+    return most
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -188,7 +298,7 @@ def _lib():
     for suffix in ("", "_bf16"):
         flat = getattr(lib, "conv3x3_bn_act_flat" + suffix)
         stacked = getattr(lib, "conv3x3_bn_act_stacked" + suffix)
-        flat.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p, p]
+        flat.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p, p, p]
         stacked.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
         flat.restype = stacked.restype = i
     return lib
@@ -265,12 +375,14 @@ def _flat_op(x_flat: torch.Tensor, wmat: torch.Tensor, scale: torch.Tensor,
     O = wmat.shape[1]
     out = torch.empty((B, O, H * (W + 2)), device=x_flat.device, dtype=x_flat.dtype)
     name = "conv3x3_bn_act_flat"
-    rows = ctypes.c_int(0)      # set to 1 where the row-segment form ran
+    rows = ctypes.c_int(0)      # set to 1 where conv3x3_rows ran
+    plan = rows_plan(B, C, O, H, W, _dtype_name(x_flat), _sm_count(x_flat.device.index))
     with torch.cuda.device(x_flat.device):
         err = getattr(_lib(), name + _SUFFIX[x_flat.dtype])(
             x_flat.data_ptr(), wmat.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, C, O, H, W, alpha,
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(rows))
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(rows),
+            (ctypes.c_int * len(plan))(*plan))
     _raise_on(err, name + _SUFFIX[x_flat.dtype])
     launches[(ROWS_NAME if rows.value else name, C, O, _dtype_name(x_flat))] += 1
     return out

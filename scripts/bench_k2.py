@@ -29,9 +29,18 @@ serving instances and their eval batch). The segments are held to the
 plain versions stage by stage (chip_smoke.segment_gate). `--sweep` also times K2 and K3 at the
 serving shapes at B = 1, 2, 4, 8 and one tiny graph node (a block's
 latency against throughput); `--sass` prints the opcode counts of the
-serving-instance kernels and conv3x3_igemm's instances (cuobjdump). Prints
-one JSON line, then the card's name and power limit; runs only on the
-card.
+serving-instance kernels and conv3x3_igemm's instances (cuobjdump).
+`--wide` takes in place of all of those chip_smoke's K2_WIDE shapes, the
+widths where K2 runs conv3x3_rows (its last, 32->32 @960² fp32, is the
+main path's): each source is held there against the plain version
+(kernel_gate; fp32 also against the library conv on the valid columns),
+then the sources and the library call (F.conv2d, the affine and
+leaky_relu in the same dtype, TF32 off) are timed in turn and back (a, b,
+cuDNN, cuDNN, b, a), with each shape's bound and plan (`--only` keeps the
+shapes whose key holds a word). Prints one JSON line, then
+the card's name and power limit; runs only on the card.
+
+    python3 scripts/bench_k2.py --wide --sources parent.cu new.cu
 """
 from __future__ import annotations
 
@@ -67,7 +76,8 @@ def sass_histogram(lib_path):
         if s.startswith("Function :"):
             name = s.split(":", 1)[1].strip()
             keep = ("conv3x3_flat_" in name or "conv3x3_stacked" in name
-                    or "conv3x3_igemm" in name or "conv3x3_bn_act_kernel" in name)
+                    or "conv3x3_igemm" in name or "conv3x3_rows" in name
+                    or "conv3x3_bn_act_kernel" in name)
             cur = hist.setdefault(name, {}) if keep else None
         elif cur is not None and s.startswith("/*") and "*/" in s:
             body = s.split("*/", 1)[1].strip()
@@ -99,6 +109,8 @@ def main(argv=None) -> int:
                          "against throughput)")
     ap.add_argument("--only", nargs="+", default=None,
                     help="keep only the cases and segments whose key holds one of these")
+    ap.add_argument("--wide", action="store_true",
+                    help="time K2 at chip_smoke's K2_WIDE shapes beside the cuDNN call")
     args = ap.parse_args(argv)
 
     import torch
@@ -111,9 +123,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # the flat entry points' last argument, the row-segment flag, is passed
-    # as NULL (a source that predates it ignores the extra argument)
-    flat_args = [p, p, p, p, p, i, i, i, i, i, f, p, p]
+    # the flat entry points' last two arguments: the flag conv3x3_rows sets
+    # (passed as NULL) and that form's launch plan (a source that predates
+    # either ignores the extra arguments)
+    flat_args = [p, p, p, p, p, i, i, i, i, i, f, p, p, p]
     stacked_args = [p, p, p, p, p, i, i, i, i, f, p]
     libs = build(args.sources, {"conv3x3_bn_act_flat": flat_args,
                                 "conv3x3_bn_act_stacked": stacked_args,
@@ -121,14 +134,18 @@ def main(argv=None) -> int:
                                 "conv3x3_bn_act_stacked_bf16": stacked_args})
     suffix = {torch.float32: "", torch.bfloat16: "_bf16"}
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def flat_fn(lib):
         def run(xf, w, sc, bi, *, H, W, alpha=0.1):
             B, C, _ = xf.shape
             O = w.shape[1]
             out = torch.empty((B, O, H * (W + 2)), device=dev, dtype=xf.dtype)
+            plan = cf.rows_plan(B, C, O, H, W, str(xf.dtype).removeprefix("torch."), sms)
             err = getattr(lib, "conv3x3_bn_act_flat" + suffix[xf.dtype])(
                 xf.data_ptr(), w.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(),
-                B, C, O, H, W, alpha, torch.cuda.current_stream().cuda_stream, None)
+                B, C, O, H, W, alpha, torch.cuda.current_stream().cuda_stream, None,
+                (ctypes.c_int * len(plan))(*plan))
             if err != 0:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
             return out
@@ -149,6 +166,9 @@ def main(argv=None) -> int:
 
     g = torch.Generator(device=dev)
     g.manual_seed(0)
+    if args.wide:
+        return wide(torch, cf, libs, flat_fn, g, dev,
+                    lambda key: args.only is None or any(w in key for w in args.only))
 
     def conv_inputs(B, C, O, H, W, dtype=torch.float32):
         _, w, sc, bi, _, xf = cs.conv_case(torch, cf, g, dev, B, C, O, H, W, dtype)
@@ -288,6 +308,82 @@ def main(argv=None) -> int:
     print(json.dumps(result), flush=True)
     print(result["card"], flush=True)
     return 0
+
+
+def wide(torch, cf, libs, flat_fn, g, dev, kept) -> int:
+    """--wide: K2 at chip_smoke.K2_WIDE from each source beside the
+    library call, gated first, then timed a, b, cuDNN, cuDNN, b, a."""
+    import torch.nn.functional as F
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = []
+    for B, C, O, H, W, dname in cs.K2_WIDE:
+        if not kept(f"{C}->{O} @{H}x{W} B={B} {dname}"):
+            continue
+        dtype = getattr(torch, dname)
+        k, w, sc, bi, x_nhwc, xf = cs.conv_case(torch, cf, g, dev, B, C, O, H, W, dtype)
+        x_nchw = x_nhwc.permute(0, 3, 1, 2).contiguous()
+        k_oihw, sc_l, bi_l = k.permute(3, 2, 0, 1).to(dtype).contiguous(), sc.to(dtype), bi.to(dtype)
+
+        def library(xn, k_oihw=k_oihw, sc_l=sc_l, bi_l=bi_l, O=O):
+            y = F.conv2d(xn, k_oihw, padding=1)
+            return F.leaky_relu(y * sc_l.reshape(1, O, 1, 1) + bi_l.reshape(1, O, 1, 1), 0.1)
+
+        key = f"{C}->{O} @{H}x{W} B={B} {dname}"
+        bound_ms, bound_by, _, _ = cs.k2_bound(B, C, O, H, W, elem=x_nhwc.element_size())
+        cases.append(dict(key=key, shape=(B, C, O, H, W), xf=xf, w=w, sc=sc, bi=bi,
+                          x_nchw=x_nchw, library=library, bound_ms=bound_ms,
+                          bound_by=bound_by,
+                          plan=cf.rows_plan(B, C, O, H, W, dname, sms)._asdict()))
+
+    def call(lib, c):
+        fn, (_, _, _, H, W) = flat_fn(lib), c["shape"]
+        return lambda a: fn(a, c["w"], c["sc"], c["bi"], H=H, W=W)
+
+    result = {"card": cs.gpu_name_and_power(), "cases": {}, "sources": {}, "cudnn": {}}
+    for c in cases:
+        result["cases"][c["key"]] = dict(bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                                         plan=c["plan"])
+        result["cudnn"][c["key"]] = []
+    agrees = True
+    for name, lib in libs.items():
+        gate = {}
+        for c in cases:
+            _, _, _, H, W = c["shape"]
+            got = call(lib, c)(c["xf"])
+            torch.cuda.synchronize()
+            want = cf.conv3x3_bn_act_flat_plain(c["xf"], c["w"], c["sc"], c["bi"], H=H, W=W)
+            err, ok = cs.kernel_gate(torch, got, want)
+            lib_err = (cf.flat_to_nhwc(got, H, W).float()
+                       - c["library"](c["x_nchw"]).permute(0, 2, 3, 1).float()).abs().max().item()
+            ok = ok and (got.dtype != torch.float32 or lib_err <= cs.ATOL_KERNEL)
+            gate[c["key"]] = dict(max_abs_err=err, library_max_abs_err=lib_err, ok=ok)
+            agrees = agrees and ok
+        result["sources"][name] = dict(gate=gate, ms={c["key"]: [] for c in cases})
+        print(f"[gate] {name}: " + "; ".join(
+            f"{k} {v['max_abs_err']:.2e} / {v['library_max_abs_err']:.2e}"
+            + ("" if v["ok"] else " FAILS") for k, v in gate.items()), flush=True)
+
+    def copies(t):
+        return [(t.clone(),) for _ in range(cs.n_copies(t.element_size() * t.numel()))]
+
+    print(f"[clock] before timing: {sm_clock()}", flush=True)
+    order = list(libs) + ["cudnn", "cudnn"] + list(libs)[::-1]
+    for name in order:
+        for c in cases:
+            if name == "cudnn":
+                ms = cs.time_cuda(torch, c["library"], copies(c["x_nchw"]), iters=ITERS)
+                result["cudnn"][c["key"]].append(ms)
+            else:
+                ms = cs.time_cuda(torch, call(libs[name], c), copies(c["xf"]), iters=ITERS)
+                result["sources"][name]["ms"][c["key"]].append(ms)
+            print(f"[time] {name} {c['key']}: {ms * 1e3:.2f} us (bound "
+                  f"{c['bound_ms'] * 1e3:.2f} us by {c['bound_by']})", flush=True)
+    print(f"[clock] after timing: {sm_clock()}", flush=True)
+    result["agrees"] = agrees
+    print(json.dumps(result), flush=True)
+    print(result["card"], flush=True)
+    return 0 if agrees else 1
 
 
 if __name__ == "__main__":

@@ -30,14 +30,17 @@ from kd6d_pose_adlp_tpu_torch.ops import conv_fused as T
 # tiny (3 -> 16, 16 -> 32); then the shapes and mapping edges of the card's
 # implicit GEMM (conv3x3_igemm): the variants' 3 -> 32, 32 -> 32, 32 -> 64
 # and 12 -> 8, a partial channel octet with O past 64 (20 -> 72), odd M
-# (24 -> 24 at 9 x 11)
+# (24 -> 24 at 9 x 11); then widths where the card's fp32 K2 runs
+# conv3x3_rows (past the width where the implicit GEMM's window fits), at
+# C > 4 and C <= 4
 SHAPES = [(2, 16, 16, 3, 8), (2, 12, 20, 8, 16), (1, 8, 8, 16, 64),
           (1, 15, 17, 3, 8), (3, 9, 7, 8, 16), (2, 9, 7, 5, 12),
           (1, 256, 256, 3, 8), (1, 128, 128, 8, 16), (1, 41, 61, 3, 8),
           (3, 67, 61, 8, 16), (2, 30, 30, 8, 16), (2, 64, 64, 3, 16),
           (2, 32, 32, 16, 32),
           (1, 24, 24, 3, 32), (1, 16, 16, 32, 32), (1, 12, 12, 32, 64),
-          (2, 16, 16, 12, 8), (1, 10, 13, 20, 72), (1, 9, 11, 24, 24)]
+          (2, 16, 16, 12, 8), (1, 10, 13, 20, 72), (1, 9, 11, 24, 24),
+          (1, 4, 1000, 32, 32), (1, 4, 900, 32, 64), (1, 4, 2200, 3, 32)]
 
 
 def _inputs(seed, B, H, W, C, O):
@@ -219,3 +222,86 @@ def test_k2_bound_at_the_bf16_serving_shapes(B, C, O, H, elem, want_ms):
     assert nbytes == 2 * B * C * ((H + 2) * Wp + 2) + 2 * 9 * O * C + 8 * O + 2 * B * O * H * Wp
     assert by == "bytes"
     assert ms == pytest.approx(want_ms, rel=1e-8)
+
+
+def _rows_plan_cover(plan, B, C, O, H, W, kind):
+    """What conv3x3_rows (csrc/conv3x3_bn_act.cu) computes on `plan`, by
+    its own index arithmetic: (how often each output (group, b, m) is
+    written, how often each channel octet reaches each written tile)."""
+    rows, ks, ngo = plan.rows, plan.ks, plan.ngo
+    cols, Wp = T.ROWS_PIX // rows, W + 2
+    n8 = T.rows_octets(C, kind)
+    nbands, nchunks = -(-H // rows), -(-Wp // cols)
+    ntiles = B * nbands * nchunks
+    written = np.zeros((ngo, B, H * Wp), np.int64)
+    octets = []
+    ncl = plan.grid
+    tstep = ncl // ngo
+    for cl in range(ncl):
+        grp, t0 = cl % ngo, cl // ngo
+        # each rank's octets [r n8 / ks, (r + 1) n8 / ks)
+        got = np.zeros(n8, np.int64)
+        for r in range(ks):
+            got[r * n8 // ks:(r + 1) * n8 // ks] += 1
+        ntl = (ntiles - 1 - t0) // tstep + 1 if t0 < ntiles else 0
+        for it in range(ntl):
+            t = t0 + it * tstep
+            b, rem = divmod(t, nbands * nchunks)
+            band, chunk = divmod(rem, nchunks)
+            h = band * rows + np.arange(rows)[:, None]
+            c = chunk * cols + np.arange(cols)[None, :]
+            keep = (h < H) & (c < Wp)
+            np.add.at(written[grp, b], (h * Wp + c)[keep], 1)
+            octets.append(got)
+    return written, octets
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+def test_rows_plan_covers_each_column_and_octet_once(sms):
+    """conv3x3_rows' launch plan at chip_smoke's K2_WIDE shapes: every
+    output column of every image and output group is written exactly once,
+    every written tile sums every channel octet exactly once, the cluster
+    splits no fewer than one octet a rank, and a block fits in shared
+    memory."""
+    import chip_smoke
+
+    for B, C, O, H, W, dname in chip_smoke.K2_WIDE:
+        kind = T.rows_kind(C, dname)
+        plan = T.rows_plan(B, C, O, H, W, dname, sms)
+        n8 = T.rows_octets(C, kind)
+        assert plan.ngo == -(-O // (8 * plan.nt)) and plan.grid % plan.ngo == 0
+        assert 1 <= plan.ks <= min(8, n8) and plan.cw >= 1
+        assert plan.smem == T.rows_smem(kind, plan.nt, plan.rows, plan.ks, plan.cw)
+        assert plan.smem <= 227 * 1024
+        written, octets = _rows_plan_cover(plan, B, C, O, H, W, kind)
+        assert (written == 1).all(), (B, C, O, H, W, dname, sms)
+        assert all((o == 1).all() for o in octets)
+
+
+def test_rows_smem_matches_the_cuda_source(tmp_path):
+    """rows_smem (the plan's shared memory, which the source checks on the
+    card) against RowsCfg in csrc/conv3x3_bn_act.cu, compiled on the host
+    with g++ (the data plane's compiler) for every kind, n tiles, tile
+    height, cluster and weight chunk the plans take."""
+    import subprocess
+    from pathlib import Path
+
+    src = (Path(T.__file__).resolve().parent.parent / "csrc" / "conv3x3_bn_act.cu").read_text()
+    start = src.index("constexpr int kRowsWarps")
+    cfg = src[start:src.index("};", src.index("struct RowsCfg")) + 2]
+    cases = [(kind, nt, rows, ks, cw) for kind in ("f32", "quad", "bf16") for nt in T.ROWS_NTS
+             for rows in T.ROWS_TILE_ROWS for ks in (1, 2) for cw in (1, 3)]
+    types = {"f32": "float, false", "quad": "float, true", "bf16": "bf16, false"}
+    prog = tmp_path / "rows_smem.cpp"
+    prog.write_text(
+        "#include <cstdio>\n#include <type_traits>\n#define __host__\n#define __device__\n"
+        "struct bf16 { unsigned short v; };\n" + cfg + "\nint main() {\n" + "".join(
+            f"  {{ using Cfg = RowsCfg<{types[k]}, {nt}>; const int NC = kRowsPix / {r};\n"
+            f"    printf(\"%ld\\n\", (long){cw} * Cfg::kWBytes + (long)Cfg::kBufs * "
+            f"Cfg::strip_bytes(({r} + 2) * (NC + 2)) + ({ks} > 1 ? Cfg::kRedBytes : 0)); }}\n"
+            for k, nt, r, ks, cw in cases) + "}\n")
+    exe = tmp_path / "rows_smem"
+    subprocess.run(["g++", "-std=c++17", "-o", str(exe), str(prog)], check=True)
+    got = [int(v) for v in subprocess.run([str(exe)], check=True, capture_output=True,
+                                          text=True).stdout.split()]
+    assert got == [T.rows_smem(*c) for c in cases]
