@@ -70,10 +70,12 @@ Phases:
            128 balanced and biased; 4, 128, 5) and at P = T = 128 with the
            main path's N, every cloud keeping at least one real point; then
            past the small routes (K1_WIDE: a 74-step schedule, scaling 0.9,
-           at the main shape; then k1_wide's global route at N = 16, P =
-           129, T = 64; N = 8, P = T = 1,000 at 74 steps; N = 2, P = T =
-           5,000, past one block's shared memory; N = 16, P = T = 256; and
-           its shared route at N = 128, P = T = 256; each shape's route
+           at the main shape; then the cluster route's streamed rows at N =
+           16, P = 129, T = 64, at N = 8, P = T = 1,000 at 74 steps and at
+           N = 5, P = 300, T = 131 without debias or reach; the global
+           route at N = 2, P = T = 5,000, past one block's shared memory;
+           the cluster route's kept costs at N = 16 and 128, P = T = 256,
+           and N = 24, P = 196, T = 252; each shape's route and plan
            logged). Timed by CUDA-graph replay beside its bound and the
            plain version, at the main shape, each K1_WIDE shape and (logged)
            at P = T = 128. No single PyTorch call computes it.
@@ -120,8 +122,8 @@ Phases:
            teacher's outputs and votes against the unfolded one's in fp32
            (each field within 1e-4 of its largest magnitude, masks equal).
            Then the B=2 step card vs CPU again with max_pos =
-           max_teacher_cells = 256 (K1 on its shared route), under the same
-           gates.
+           max_teacher_cells = 256 (K1 once, on its cluster route with the
+           costs kept in registers), under the same gates.
   eval     240 synthetic images (10 chunks of 24 at 256², mixed classes)
            through the evaluators on the card. A planted scene (fabricated
            network outputs that decode to the ground truth, every fourth
@@ -538,14 +540,20 @@ K2_WIDE_OFFSET = ((1, 32, 32, 4, 1000), (1, 3, 32, 4, 2200))
 # the wide plan's eval segment (tiny-h-wide: 3 -> 32, 32 -> 32) at this
 # input_res, B = 1: its s2 conv at 960 columns in fp32 runs conv3x3_rows
 WIDE_SEGMENT_RES = 1920
-# K1 past the small routes (N, P, T, scaling): a 74-step schedule (scaling
-# 0.9) at the main shape; then k1_wide, whose global route takes N below
-# two thirds of the SM count: P = 129 (its smallest), 1,000 points at 74
-# steps, 5,000 points (past one block's shared memory: the global route at
-# any N), and the train phase's 256-point step at B = 2; its shared route
-# at the same clouds at B = 16 (N = 128)
-K1_WIDE = ((128, 64, 64, 0.9), (16, 129, 64, 0.5), (8, 1000, 1000, 0.9),
-           (2, 5000, 5000, 0.5), (16, 256, 256, 0.5), (128, 256, 256, 0.5))
+# K1 past the small routes (N, P, T, scaling, debias, reach): a 74-step
+# schedule (scaling 0.9) at the main shape; then the cluster route's
+# streamed rows at P = 129 (its smallest, rows of 129 columns at every
+# shift, rows of 64), 1,000 points at 74 steps and P != T, both past 128,
+# unbalanced and without debias (300 x 131: two passes, rows of 131 at
+# every shift); 5,000 points (past one block's shared memory: the global
+# route); its kept costs at the train phase's 256-point step at B = 2, at
+# the same clouds at B = 16 (N = 128: eight problems a cluster in turn),
+# and at P != T with ragged chunks, idle warps and a second wave partly
+# filled (24 problems of 196 x 252)
+K1_WIDE = ((128, 64, 64, 0.9, True, 0.5), (16, 129, 64, 0.5, True, 0.5),
+           (8, 1000, 1000, 0.9, True, 0.5), (5, 300, 131, 0.5, False, None),
+           (2, 5000, 5000, 0.5, True, 0.5), (16, 256, 256, 0.5, True, 0.5),
+           (128, 256, 256, 0.5, True, 0.5), (24, 196, 252, 0.5, True, 0.5))
 K1_WIDE_ITERS = 10          # timed calls of a K1_WIDE shape of > 1e9 pairs
 # the train phase's 256-point KD step (max_pos = max_teacher_cells) and the
 # cli phase's train_kd --scaling run (its steps)
@@ -1066,15 +1074,16 @@ def sinkhorn_kernel(torch, sf, dev):
             raise AssertionError(f"sinkhorn_potentials disagrees at P={p_}, T={t_}")
     n_eps = len(sk.schedule(kd.p, kd.blur, kd.scaling, kd.reach, 2.0)[0])
 
-    def bound(args_, p_, t_, n_eps=n_eps):
+    def bound(args_, p_, t_, n_eps=n_eps, debias=True):
         """(bound s, bytes, expf count, SFU ops, bound_by) of one solve: per
-        eps 4 softmin passes (x over y, y over x, x over x, y over y), one
-        expf per (row, column) and one logf per row; ~10 fp32 operations per
-        (row, column) for the cost, the scale, the max and the sum."""
+        eps 4 softmin passes (x over y, y over x, x over x, y over y; the
+        first two without debias), one expf per (row, column) and one logf
+        per row; ~10 fp32 operations per (row, column) for the cost, the
+        scale, the max and the sum."""
         n = args_[0].shape[0]
         nbytes = 4 * sum(t.numel() for t in args_) + 4 * n * 2 * (p_ + t_)
-        pairs_ = n * n_eps * (2 * p_ * t_ + p_ * p_ + t_ * t_)
-        sfu_ = pairs_ + n * n_eps * 2 * (p_ + t_)
+        pairs_ = n * n_eps * (2 * p_ * t_ + (p_ * p_ + t_ * t_ if debias else 0))
+        sfu_ = pairs_ + n * n_eps * (2 if debias else 1) * (p_ + t_)
         byte_s_ = nbytes / HBM_BYTES_PER_S
         op_s_ = max(sfu_ / SFU_OPS_PER_S, 10 * pairs_ / FP32_FLOPS)
         return (max(byte_s_, op_s_), nbytes, pairs_, sfu_,
@@ -1120,21 +1129,21 @@ def sinkhorn_kernel(torch, sf, dev):
 
     # past the small routes' limits (K1_WIDE), each against its plain version
     # by the same gate, timed beside its bound and the plain version
-    for n, p_, t_, scaling in K1_WIDE:
-        kw_ = dict(kw, scaling=scaling)
-        n_eps_ = len(sk.schedule(kd.p, kd.blur, scaling, kd.reach, 2.0)[0])
-        shape = f"N={n} P={p_} T={t_} eps={n_eps_}"
-        # the global route is the one that asks for a workspace
-        k1_route = ("small" if max(p_, t_) <= 128 else "global"
-                    if sf._lib().sinkhorn_potentials_workspace(n, p_, t_) else "shared")
+    for n, p_, t_, scaling, debias, reach in K1_WIDE:
+        kw_ = dict(kw, scaling=scaling, debias=debias, reach=reach)
+        n_eps_ = len(sk.schedule(kd.p, kd.blur, scaling, reach, 2.0)[0])
+        shape = f"N={n} P={p_} T={t_} eps={n_eps_}" + (
+            "" if debias and reach == kd.reach else f" debias={debias} reach={reach}")
+        k1_route = sf.route(n, p_, t_)
+        k1_plan = sf.cluster_plan(n, p_, t_, debias, kd.p)
         args_, pe, ok, de, dv = compare(*problems(n, p_, t_), **kw_)
-        log(f"[kernel] sinkhorn_potentials {shape} ({k1_route} route): max|kernel-plain| "
-            f"(over max|plain| at "
-            f"real, padded points): {show(pe)}; divergence {de:.3e} (|divergence| up to "
-            f"{dv.abs().max().item():.3e})")
+        log(f"[kernel] sinkhorn_potentials {shape} ({k1_route} route"
+            + (f", plan {k1_plan}" if k1_plan else "") + "): max|kernel-plain| (over "
+            f"max|plain| at real, padded points): {show(pe)}; divergence {de:.3e} "
+            f"(|divergence| up to {dv.abs().max().item():.3e})")
         if not ok:
             raise AssertionError(f"sinkhorn_potentials disagrees at {shape}")
-        bound_s_, nbytes_, pairs_, sfu_, by_ = bound(args_, p_, t_, n_eps_)
+        bound_s_, nbytes_, pairs_, sfu_, by_ = bound(args_, p_, t_, n_eps_, debias)
         ms_, eager_, plain_ = timed(args_, kw_, iters=K1_WIDE_ITERS if (
             n * n_eps_ * (p_ + t_) ** 2 > 1e9) else 50)
         rows.append(dict(
@@ -1143,7 +1152,8 @@ def sinkhorn_kernel(torch, sf, dev):
             max_abs_err=max(e["max_abs_err"] for e in pe.values()), potentials=pe,
             divergence_max_abs_err=de, ms=ms_, plain_ms=plain_, bound_ms=1e3 * bound_s_,
             bound_by=by_, library_ms=None, eager_ms=eager_, bytes=nbytes_, expf=pairs_,
-            sfu_ops=sfu_, N=n, P=p_, T=t_, eps_steps=n_eps_, k1_route=k1_route))
+            sfu_ops=sfu_, N=n, P=p_, T=t_, eps_steps=n_eps_, k1_route=k1_route,
+            k1_plan=k1_plan))
         log(f"[kernel] sinkhorn_potentials {shape}: {ms_ * 1e3:.1f} us (bound "
             f"{bound_s_ * 1e6:.1f} us by {by_}: {pairs_ / 1e6:.1f} M expf; plain "
             f"{plain_ * 1e3:.1f} us; eager call incl. host {eager_ * 1e3:.1f} us)")
@@ -1692,7 +1702,8 @@ def train_phase(torch, sf, dev, tf32_defaults):
 def wide_cloud_step(torch, sf, dev, cfg, cfg_t, consts, ds, student_sd, teacher_sd, small,
                     uniform):
     """The train phase's B=2 step, card vs CPU, with max_pos =
-    max_teacher_cells = WIDE_CLOUD: K1 once, on its shared route, and the
+    max_teacher_cells = WIDE_CLOUD: K1 once, on its cluster route with the
+    costs kept in registers (N = 16 problems, one cluster each), and the
     same gates as the main configuration's step (metrics 1e-3, the worst
     gradient RTOL_GRADIENTS, BN statistics 1e-4, num_pos equal)."""
     import dataclasses
@@ -1708,19 +1719,24 @@ def wide_cloud_step(torch, sf, dev, cfg, cfg_t, consts, ds, student_sd, teacher_
                    small, uniform, "cpu")
     d = step_diff(torch, card, cpu)
     n_eps = len(sf.schedule(cfg.kd.p, cfg.kd.blur, cfg.kd.scaling, cfg.kd.reach, 2.0)[0])
-    out = dict(N=small.images.shape[0] * 8, P=WIDE_CLOUD, T=WIDE_CLOUD, eps_steps=n_eps,
-               k1=k1.get(("sinkhorn_potentials", WIDE_CLOUD, WIDE_CLOUD), 0), card=card[0],
-               cpu=cpu[0], **{k: v for k, v in d.items() if k != "param_max_abs"})
+    N = small.images.shape[0] * 8
+    k1_plan = sf.cluster_plan(N, WIDE_CLOUD, WIDE_CLOUD, True, cfg.kd.p)
+    out = dict(N=N, P=WIDE_CLOUD, T=WIDE_CLOUD, eps_steps=n_eps,
+               k1=k1.get(("sinkhorn_potentials", WIDE_CLOUD, WIDE_CLOUD), 0), k1_plan=k1_plan,
+               card=card[0], cpu=cpu[0], **{k: v for k, v in d.items() if k != "param_max_abs"})
     log(f"[train] one step B=2 with max_pos = max_teacher_cells = {WIDE_CLOUD}, card vs "
         f"CPU: metrics {card[0]} vs {cpu[0]} (largest relative difference "
         f"{d['metric_rel']:.2e}); worst ||g_card - g_cpu|| / ||g_cpu|| "
-        f"{d['grad_rel_worst']:.2e}; BN statistics {d['bn_stat_rel']:.2e}; K1 launches {k1}")
+        f"{d['grad_rel_worst']:.2e}; BN statistics {d['bn_stat_rel']:.2e}; K1 launches {k1} "
+        f"(plan {k1_plan})")
     if not (card[0]["loss_kd"] > 0 and card[0]["num_pos"] == cpu[0]["num_pos"]
             and d["metric_rel"] <= 1e-3 and d["grad_rel_worst"] <= RTOL_GRADIENTS
             and d["bn_stat_rel"] <= 1e-4 and k1 == {("sinkhorn_potentials", WIDE_CLOUD,
-                                                     WIDE_CLOUD): 1}):
+                                                     WIDE_CLOUD): 1}
+            and k1_plan is not None and k1_plan["kept"] == 1):
         raise AssertionError(f"the KD step at {WIDE_CLOUD}-point clouds on the card and on "
-                             "the CPU disagree, or K1 did not run once")
+                             "the CPU disagree, or K1 did not run once on its cluster route "
+                             "with kept costs")
     return out
 
 

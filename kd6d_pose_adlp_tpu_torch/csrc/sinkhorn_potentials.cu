@@ -58,30 +58,58 @@
 // 2 with P or T above 64, and G = 1, as at P = T = 128) take `k1_streamed`:
 // one lane per row, C recomputed from the coordinates in both sweeps.
 //
-// Design past 128 points (`k1_wide`). A whole warp takes a row, its 32
-// lanes the 32 lanes of the reference reduction below, and the 16 warps of
-// a block take rows r, r + 16, ... of the 2P + 2T (P + T without debias);
-// a row recomputes its costs from the coordinates in both sweeps (max, then
-// the sum). Lane 0 of the row's warp applies lam and the Jacobi average to
-// the row's potential, which lives in its output array between steps, and
-// writes the next eps's h entry. Two routes share that body:
-//   shared: one block per problem runs the whole schedule with the clouds
-//     and the two h buffers in its shared memory (24 bytes a point: P + T
-//     <= 9,685 on an H100), one barrier per eps;
-//   global: the clouds are read where they lie, the h buffers live in a
-//     workspace of N * 4 (P + T) floats that the wrapper allocates, and one
-//     launch per eps has a block per 16 rows of every problem, so the limit
-//     is device memory.
-// The shared route keeps its operands on chip and needs one launch, but
-// runs N blocks: below the SM count it leaves SMs idle, and its time does
-// not fall with N. The global route fills the card at any N, its time
-// proportional to N, but costs ~1.3-1.7 times as much per pair (its loads
-// go through L1). On an H100 (132 SMs, 12 eps; scripts/bench_k1.py
-// --pin_routes) the two cross at N = 76 (P = T = 1,000), 84 (P = T = 256)
-// and 97 (P = 129, T = 64): at P = T = 256 the shared route takes 1.17 ms
-// from N = 16 to 128, the global one 0.245 ms at N = 16, 1.12 at 80, 1.34
-// at 96 and 1.77 at 128. So `route` takes the shared route where it fits
-// and 3 N >= 2 SMs (N >= 88 there), the global one otherwise.
+// Design past 128 points: thread-block clusters, one launch a solve
+// (`k1_cluster_kept`, `k1_cluster_streamed`). A problem runs on a cluster
+// of cs blocks of 512 threads, and the clusters walk the problems c, c +
+// ncl, ... Every block of a cluster holds both clouds (x and y coordinates
+// apart, 16-byte aligned) and two h buffers of the four passes in its
+// shared memory, 24 bytes a point; every row has one owner warp in the
+// cluster, which keeps the row's potential in a register of one of its
+// lanes for the whole schedule and, at the end of an eps step, writes the
+// row's next h entry into the other buffer of every block of the cluster
+// (distributed shared memory); then one cluster barrier. The output is
+// stored once, at the end. Two forms:
+//   kept (P, T multiples of 4 from 128 to 256, as at the train phase's
+//     256-point step): a warp takes 8 rows of one pass and a lane their
+//     costs at its 8 columns (4 l + 128 k + c, the reference's at shift 0),
+//     computed once a problem and kept in registers, so a pair costs a
+//     multiply, a subtract and a max in the first sweep and the same two
+//     before the exp in the second. The 8 rows share their h loads (two
+//     16-byte loads a lane), their lane values are reduced transposed (9
+//     shuffles for 8 rows, one logf a lane; transposed_reduce8), and their
+//     8 new h entries go to each block as two 16-byte stores. 1,024 rows
+//     at P = T = 256 need 128 warps: clusters of 8.
+//   streamed (any other P, T): a warp takes 4 rows at a time (a slot: rows
+//     of one residue mod 4 within 16, so one pass and one shift), 8 lanes a
+//     row; a lane plays 4 reference lanes side by side and folds their sums
+//     through the tree's first steps in registers (as k1_kept's groups do),
+//     costs recomputed from the coordinates in both sweeps, every column
+//     read by 16-byte loads (a shifted row through the two aligned vectors
+//     around each of its own; no bank conflicts).
+// The plan (`wide_plan`, host code that the CPU tests compile with g++)
+// takes the form, then the cluster size, 1-16 (past 8 only where the
+// device runs such clusters: cudaOccupancyMaxActiveClusters, queried once
+// per size and kernel), that costs the fewest rounds of clusters over N
+// times a round's work (kept: one chunk a warp; streamed: a block's
+// batches), the smallest of equals. An H100 runs 15 clusters of 7 or 8
+// blocks at once, 17 of 6, 30 of 4 and 7 of 10-16 (one block an SM), so
+// N = 16 kept problems take two rounds. Past ~9,685 points (P + T) the
+// clouds and buffers pass one block's shared memory and the global route
+// (`k1_wide<PK, false>`) remains: a block per 16 rows of every problem, a
+// warp a row, the h buffers in a workspace of N * 4 (P + T) floats that the
+// wrapper allocates, one launch per eps. Built with -DK1_WIDE_ROUTE=1, the
+// source takes the shared route instead (`k1_wide<PK, true>`: a block a
+// problem) where it fits, with 2 the global route, with 3 the cluster
+// route (its default), so bench_k1.py --pin_routes times all three.
+//
+// Measured on an H100 80GB HBM3 at a 700 W power limit (scripts/
+// bench_k1.py, 12 eps unless said): the kept form 0.099 ms at N = 16, P =
+// T = 256 (the one launch an eps before it: 0.245; bound 0.0121) and 0.444
+// ms at N = 128 (1.18); streamed, 0.055 ms at N = 16, P = 129, T = 64
+// (0.088) and 5.92 ms at N = 8, P = T = 1,000, 74 eps (9.06). A kept eps
+// of one round takes ~3.7 us: the exp sweep ~1.9 at the issue rate (12
+// instructions a pair, 8 of them the accurate expf), the cluster barrier
+// ~0.7, the first sweep and the reductions ~1.1.
 //
 // Rounding. The self potentials a_x, b_y at real points are ~1e-6 at the
 // last eps, and float32 rounding in the earlier eps steps, most of it in
@@ -105,10 +133,18 @@
 // rows are reduced): there the kernel's sum order differs from the plain
 // version's, and the two agree to float32 rounding, not bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kSmallPts = 128;   // clouds of k1_kept / k1_streamed (static shared memory)
 constexpr int kThreads = 512;
@@ -548,25 +584,638 @@ k1_wide(Problem pr, Sched s, float* ws, int n0, int e0, int e1) {
   }
 }
 
-enum Route { kSmall, kShared, kGlobal };
+// ---------------------------------------------------------------------------
+// clouds past 128 points on thread-block clusters: the plan (host and device
+// code that the CPU tests also compile with g++, from here to "plan end")
+// ---------------------------------------------------------------------------
+
+constexpr int kPlanWarps = 16;                       // warps a block (kThreads / 32)
+constexpr int kKeptKV = 2;                           // kept costs: column vectors a lane a row
+constexpr int kKeptRW = 8;                           // kept costs: rows a warp
+constexpr int kKeptRegs = kKeptRW * kKeptKV * 4;     // kept costs a lane: 64 registers
+constexpr int kMaxPotRegs = 8;                       // streamed: potential registers a lane
+constexpr int kStreamG = 8;                          // streamed: lanes a row
+constexpr int kStreamRows = 32 / kStreamG;           // streamed: rows a warp at once
+
+// Pass 0 (b_x) and 2 (a_x) have a row per point of x, 1 (a_y) and 3 (b_y)
+// one per point of y; passes 0 and 3 have a column per point of y, 1 and
+// 2 one per point of x.
+__host__ __device__ inline int pass_rows(int pass, int P, int T) { return pass % 2 ? T : P; }
+__host__ __device__ inline int pass_cols(int pass, int P, int T) {
+  return pass == 0 || pass == 3 ? T : P;
+}
+
+// Row f of a problem's 2P + 2T (P + T without debias) in pass order: its
+// index in its pass.
+__host__ __device__ inline int split_row(int f, int P, int T, int* pass) {
+  int p = 0;
+  if (f >= P) { f -= P; p = 1; }
+  if (p == 1 && f >= T) { f -= T; p = 2; }
+  if (p == 2 && f >= P) { f -= P; p = 3; }
+  *pass = p;
+  return f;
+}
+
+__host__ __device__ inline int kept_chunks(int P, int T, int npass) {
+  int c = 0;
+  for (int p = 0; p < npass; ++p) c += (pass_rows(p, P, T) + kKeptRW - 1) / kKeptRW;
+  return c;
+}
+
+// Kept costs: warp g of a cluster (rank * 16 + warp) takes chunk g, rows
+// i0 .. i0 + kKeptRW - 1 of one pass (those past the pass's rows idle);
+// returns i0, or -1 where the chunks run out before g.
+__host__ __device__ inline int kept_chunk(int g, int P, int T, int npass, int* pass) {
+  *pass = 0;
+  for (int p = 0; p < npass; ++p) {
+    const int c = (pass_rows(p, P, T) + kKeptRW - 1) / kKeptRW;
+    if (g < c) { *pass = p; return g * kKeptRW; }
+    g -= c;
+  }
+  return -1;
+}
+
+// Streamed rows: a batch (slot s) is kStreamRows rows that share their
+// residue mod 4, one a group of kStreamG lanes: rows 16 (s / 4) + s % 4 +
+// 4 grp of split_row's order, so that its rows share a pass and a shift
+// (but near a pass's end) and its groups run the same branches. Warp g of
+// the cluster's W = cs * 16 takes slots g, g + W, ...; in its b-th, group
+// grp's lane b % 8 keeps the row's potential in register b / 8.
+__host__ __device__ inline int slot_row(int s, int grp) { return 16 * (s / 4) + s % 4 + 4 * grp; }
+__host__ __device__ inline int stream_slots(int rows) { return 4 * ((rows + 15) / 16); }
+
+struct WidePlan {
+  int route;          // 3: cluster; 2: global (the clouds pass one block's shared memory)
+  int cs, ncl;        // blocks a cluster; clusters launched, each walking problems c, c + ncl, ...
+  int kept;           // 1: costs kept in registers; 0: recomputed in both sweeps (streamed)
+  int pr;             // streamed: potential registers a lane (1 or kMaxPotRegs)
+  int cloud[4];       // float offsets of x's x, x's y, y's x and y's y coordinates
+  int hoff[4];        // float offset of each pass's h vector in an h buffer
+  int h0, hbuf;       // float offset of h buffer 0, floats a buffer (buffer 1 follows)
+  long long smem;     // dynamic shared memory a block, bytes
+};
+
+// a[i] of a 4-entry array of the plan, by selects (a kernel parameter
+// indexed at run time would be copied to local memory)
+__host__ __device__ inline int pick4(const int (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// Kept costs take clouds of 16-byte column vectors (P, T % 4 == 0, so every
+// row's shift is 0) of 128 .. 128 kKeptKV points.
+__host__ __device__ inline bool keeps_costs(int P, int T) {
+  return P % 4 == 0 && T % 4 == 0 && (P < T ? P : T) >= 128 && (P > T ? P : T) <= 128 * kKeptKV;
+}
+
+// A block's shared memory: the clouds, then two h buffers of four pass
+// vectors (four whatever debias says, so the route does not depend on it),
+// every array on a 16-byte boundary. A kept lane reads its h entries
+// 4 lane + 128 k + c for k < kKeptKV, so a pass's vector spans 128 kKeptKV
+// floats there, zero past its columns.
+inline void wide_layout(int P, int T, int kept, WidePlan& pl) {
+  const int PA = (P + 3) & ~3, TA = (T + 3) & ~3;
+  pl.cloud[0] = 0;
+  pl.cloud[1] = PA;
+  pl.cloud[2] = 2 * PA;
+  pl.cloud[3] = 2 * PA + TA;
+  int off = 0;
+  for (int p = 0; p < 4; ++p) {
+    pl.hoff[p] = off;
+    off += kept ? 128 * kKeptKV : (pass_cols(p, P, T) + 3) & ~3;
+  }
+  pl.h0 = 2 * (PA + TA);
+  pl.hbuf = off;
+  pl.smem = 4LL * (pl.h0 + 2LL * pl.hbuf);
+}
+
+// The plan of N problems past 128 points. live(cs, kept) is how many
+// clusters of cs blocks of that kernel the device runs at once (0 where it
+// runs none, or refuses the size). The cluster size is the smallest of the
+// fastest: kept costs need a warp for each chunk, streamed rows at most
+// 8 kMaxPotRegs batches a warp; the time is the rounds of clusters over N
+// times, kept, one chunk (the same work on every warp at any size), or,
+// streamed, the batches a block runs (its SM's issue slots bound them).
+// Whether the clouds and h buffers fit one block's shared memory (optin
+// bytes): the cluster route, else the global route.
+inline bool cluster_fits(int P, int T, long long optin) {
+  WidePlan lay = {};
+  wide_layout(P, T, 0, lay);
+  return lay.smem <= optin;
+}
+
+template <class Live>
+WidePlan wide_plan(int N, int P, int T, int debias, long long optin, Live live) {
+  WidePlan pl = {};
+  pl.route = cluster_fits(P, T, optin) ? 3 : 2;
+  if (pl.route != 3) return pl;
+  const int npass = debias ? 4 : 2, rows = npass / 2 * (P + T);
+  for (int kept = keeps_costs(P, T) ? 1 : 0; kept >= 0; --kept) {
+    wide_layout(P, T, kept, pl);
+    pl.kept = kept;
+    long long best = -1;
+    for (int cs = 1; cs <= 16; ++cs) {
+      const int n_live = live(cs, kept);
+      const int warps = cs * kPlanWarps, slots = stream_slots(rows);
+      if (n_live < 1 || (kept ? kept_chunks(P, T, npass) > warps
+                              : (slots + warps - 1) / warps > 8 * kMaxPotRegs))
+        continue;
+      // kept: a warp's chunk a round; streamed: a block's batches a round
+      const long long cost =
+          (long long)((N + n_live - 1) / n_live) * (kept ? 1 : (slots + cs - 1) / cs);
+      if (best < 0 || cost < best) {
+        best = cost;
+        pl.cs = cs;
+        pl.ncl = N < n_live ? N : n_live;
+      }
+    }
+    if (best >= 0) break;
+  }
+  // streamed: one potential register a lane up to 8 batches a warp, else 8
+  const int warps = pl.cs * kPlanWarps;
+  pl.pr = pl.cs > 0 && !pl.kept && (stream_slots(rows) + warps - 1) / warps > 8 ? kMaxPotRegs : 1;
+  return pl;   // cs = 0: no cluster size runs; the launch reports it
+}
+
+// plan end
+
+// The problems' clouds in SoA form and their log-weights as h buffer 0.
+__device__ __forceinline__ void load_problem(float* sm, const WidePlan& pl, const Problem& pr,
+                                             int n, int npass) {
+  const int P = pr.P, T = pr.T;
+  const float* xn = pr.x + (size_t)n * 2 * P;
+  const float* yn = pr.y + (size_t)n * 2 * T;
+  for (int j = threadIdx.x; j < P; j += kThreads) {
+    sm[pl.cloud[0] + j] = xn[2 * j];
+    sm[pl.cloud[1] + j] = xn[2 * j + 1];
+  }
+  for (int j = threadIdx.x; j < T; j += kThreads) {
+    sm[pl.cloud[2] + j] = yn[2 * j];
+    sm[pl.cloud[3] + j] = yn[2 * j + 1];
+  }
+  for (int p = 0; p < npass; ++p) {
+    const bool col_y = p == 0 || p == 3;
+    const float* w = col_y ? pr.b_log + (size_t)n * T : pr.a_log + (size_t)n * P;
+    float* hp = sm + pl.h0 + pick4(pl.hoff, p);
+    for (int j = threadIdx.x; j < (col_y ? T : P); j += kThreads) hp[j] = w[j];
+  }
+}
+
+__device__ __forceinline__ float* pass_out(const Problem& pr, int pass, int n) {
+  return pass == 0 ? pr.b_x + (size_t)n * pr.P : pass == 1 ? pr.a_y + (size_t)n * pr.T
+       : pass == 2 ? pr.a_x + (size_t)n * pr.P : pr.b_y + (size_t)n * pr.T;
+}
+
+// The row's next h entry (column i of the pass it feeds) into h buffer
+// `buf` of every block of the cluster.
+__device__ __forceinline__ void broadcast_h(cg::cluster_group& cluster, float* hb,
+                                            const WidePlan& pl, int buf, int pass, int i,
+                                            float v) {
+  const int feed = pass == 0 ? 1 : pass == 1 ? 0 : pass;
+  float* dst = hb + buf * pl.hbuf + pick4(pl.hoff, feed) + i;
+  for (int r = 0; r < pl.cs; ++r) *cluster.map_shared_rank(dst, r) = v;
+}
+
+__device__ __forceinline__ float4 ld4(const float* a, int q) {
+  return reinterpret_cast<const float4*>(a)[q];
+}
+
+// Eight rows' lane values a[r] (lane l holds reference lane l's) reduced
+// over the warp with op, transposed: each step halves the rows a lane
+// keeps and trades the others with its partner, so lane l ends with the
+// total of row (l >> 2) & 7 after 9 shuffles (8 x 5 one row at a time).
+// Each addition pairs the same two partial sums as the reference's
+// shuffle-down tree (offsets 16, 8, 4, 2, 1), the lower position's first or
+// the other way round, which rounds the same; every lane of a row's four
+// ends with the same bits.
+template <class Op>
+__device__ __forceinline__ float transposed_reduce8(const float (&a)[8], Op op) {
+  const int l = threadIdx.x % kLanes;
+  const bool h16 = l & 16, h8 = l & 8, h4 = l & 4;
+  float b[4], c[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    b[k] = op(h16 ? a[k + 4] : a[k], __shfl_xor_sync(0xffffffffu, h16 ? a[k] : a[k + 4], 16));
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    c[k] = op(h8 ? b[k + 2] : b[k], __shfl_xor_sync(0xffffffffu, h8 ? b[k] : b[k + 2], 8));
+  float d = op(h4 ? c[1] : c[0], __shfl_xor_sync(0xffffffffu, h4 ? c[0] : c[1], 4));
+  d = op(d, __shfl_xor_sync(0xffffffffu, d, 2));
+  return op(d, __shfl_xor_sync(0xffffffffu, d, 1));
+}
+
+// Kept costs: warp g of the cluster takes the kKeptRW = 8 rows of chunk g
+// (kept_chunk), computes their costs once a problem and keeps them in
+// registers for the whole schedule (lane l: columns 4 l + 128 k + c, +inf
+// past the row's count, which then adds exp(-inf) = 0 exactly; the
+// reference's order at shift 0: accumulator c takes the columns 4 q + c of
+// the vectors q = l, l + 32, ...). An eps step loads the pass's h entries
+// once for the eight rows, sweeps them for the lane maxima, reduces those
+// transposed, sweeps again for the sums and reduces those transposed, so
+// lane 4 r ends with row r's log-sum-exp and keeps its potential; the
+// eight new h entries go to every block of the cluster as two 16-byte
+// stores a block. One launch runs every problem and every eps step.
+template <int PK, int KV>
+__global__ void __launch_bounds__(kThreads, 1)
+k1_cluster_kept(Problem pr, Sched s, WidePlan pl, int N) {
+  constexpr int RW = kKeptRW;
+  static_assert(RW == 8 && RW * KV * 4 <= kKeptRegs, "eight rows a warp, kept costs a lane");
+  extern __shared__ __align__(16) float csm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = pr.P, T = pr.T, tid = threadIdx.x, lane = tid % kLanes;
+  const int npass = pr.debias ? 4 : 2;
+  int pass;
+  const int i0 = kept_chunk((int)cluster.block_rank() * kWarps + tid / kLanes, P, T, npass,
+                            &pass);
+  const int R = pass_rows(pass, P, T), M = pass_cols(pass, P, T);
+  const bool row_x = pass % 2 == 0, col_y = pass == 0 || pass == 3;
+  const int feed = pass == 0 ? 1 : pass == 1 ? 0 : pass;
+  const int my_row = i0 + lane / 4;                            // lane 4 r: row r's potential
+  const bool mine = i0 >= 0 && lane % 4 == 0 && my_row < R;
+  float* hb = csm + pl.h0;
+  const float *rx = csm + pick4(pl.cloud, row_x ? 0 : 2), *ry = csm + pick4(pl.cloud, row_x ? 1 : 3);
+  const float *cx = csm + pick4(pl.cloud, col_y ? 2 : 0), *cy = csm + pick4(pl.cloud, col_y ? 3 : 1);
+  const int h_in = pick4(pl.hoff, pass), h_out = pick4(pl.hoff, feed);
+  // the pads past each pass's columns, read with +inf costs, stay zero (a
+  // chunk's rows past its pass write zeros there)
+  for (int j = tid; j < 2 * pl.hbuf; j += kThreads) hb[j] = 0.f;
+  cluster.sync();   // every block of the cluster runs before any writes into it
+  for (int n = (int)(blockIdx.x / pl.cs); n < N; n += pl.ncl) {
+    load_problem(csm, pl, pr, n, npass);
+    if (cluster.block_rank() == 0 && !pr.debias) zero_self_potentials(pr, n);
+    __syncthreads();
+    float C[RW][KV][4];
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int q = lane + kLanes * k;   // 16-byte loads: no bank conflicts
+      const bool cols = 4 * q < M;       // M % 4 == 0: a vector is whole or past the row
+      const float4 X = cols ? ld4(cx, q) : float4{}, Y = cols ? ld4(cy, q) : float4{};
+      const float xs[4] = {X.x, X.y, X.z, X.w}, ys[4] = {Y.x, Y.y, Y.z, Y.w};
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const bool on = i0 >= 0 && i0 + r < R && cols;
+        const float px = on ? rx[i0 + r] : 0.f, py = on ? ry[i0 + r] : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          C[r][k][c] = on ? cost<PK>(__fsub_rn(px, xs[c]), __fsub_rn(py, ys[c]), pr.p) : INFINITY;
+      }
+    }
+    const float logw = mine ? (row_x ? pr.a_log[(size_t)n * P + my_row]
+                                     : pr.b_log[(size_t)n * T + my_row]) : 0.f;
+    float pot = 0.f;
+    float inv = s.inv(0);
+    for (int e = 0; e < s.n; ++e) {
+      const Step t = step_at(s, e);
+      if (i0 >= 0) {
+        const float* h = hb + (e & 1) * pl.hbuf + h_in;
+        float4 hv[KV];
+#pragma unroll
+        for (int k = 0; k < KV; ++k) hv[k] = ld4(h, lane + kLanes * k);
+        float hs[KV][4];
+#pragma unroll
+        for (int k = 0; k < KV; ++k) {
+          hs[k][0] = hv[k].x;
+          hs[k][1] = hv[k].y;
+          hs[k][2] = hv[k].z;
+          hs[k][3] = hv[k].w;
+        }
+        float part[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float mx0 = -INFINITY, mx1 = -INFINITY;   // two chains; max is exact in any order
+#pragma unroll
+          for (int k = 0; k < KV; ++k)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float m = __fsub_rn(hs[k][c], __fmul_rn(C[r][k][c], inv));
+              if (c % 2) mx1 = fmaxf(mx1, m);
+              else mx0 = fmaxf(mx0, m);
+            }
+          part[r] = fmaxf(mx0, mx1);
+        }
+        const float row_mx = transposed_reduce8(part, [](float u, float v) { return fmaxf(u, v); });
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const float mx = __shfl_sync(0xffffffffu, row_mx, 4 * r);
+          float v[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            v[c] = 0.f;
+#pragma unroll
+            for (int k = 0; k < KV; ++k) {
+              const float m = __fsub_rn(hs[k][c], __fmul_rn(C[r][k][c], inv));
+              v[c] = k ? __fadd_rn(v[c], expf(__fsub_rn(m, mx))) : expf(__fsub_rn(m, mx));
+            }
+          }
+          part[r] = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), v[2]), v[3]);
+        }
+        const float sum = transposed_reduce8(part, [](float u, float v) { return __fadd_rn(u, v); });
+        float hn = 0.f;   // the row's next h entry; zero past the pass's rows
+        if (mine) {
+          pot = update(t, __fadd_rn(logf(sum), row_mx), pot);
+          hn = __fadd_rn(logw, __fmul_rn(pot, t.inv_next));
+        }
+        if (t.more) {
+          // lane 2 b + q: rows 4 q .. 4 q + 3 into block b
+          const int q = lane & 1;
+          float4 w;
+          w.x = __shfl_sync(0xffffffffu, hn, 16 * q);
+          w.y = __shfl_sync(0xffffffffu, hn, 16 * q + 4);
+          w.z = __shfl_sync(0xffffffffu, hn, 16 * q + 8);
+          w.w = __shfl_sync(0xffffffffu, hn, 16 * q + 12);
+          if (lane < 2 * pl.cs) {
+            float4* dst =
+                reinterpret_cast<float4*>(hb + ((e + 1) & 1) * pl.hbuf + h_out + i0) + q;
+            *cluster.map_shared_rank(dst, lane / 2) = w;
+          }
+        }
+      }
+      cluster.sync();
+      inv = t.inv_next;
+    }
+    if (mine) pass_out(pr, pass, n)[my_row] = pot;
+  }
+}
+
+// Component i of the 8 floats (a, b).
+__device__ __forceinline__ float comp8(const float4& a, const float4& b, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : i == 3 ? a.w
+       : i == 4 ? b.x : i == 5 ? b.y : i == 6 ? b.z : b.w;
+}
+
+// The reference lanes' sums of a row of M >= 128 columns whose first HD
+// columns come before a 16-byte boundary (HD = 4 - shift, or 0): lane l's
+// head column, then its vectors q = l, l + 32, ... (columns HD + 4 q + c,
+// read as components HD + c of the aligned vectors q and q + 1: 16-byte
+// loads, no bank conflicts), then its tail column; accumulator c takes
+// component c; the four added in order. Lane sub of a group of G plays
+// the reference lanes sub + G qq, their vectors side by side.
+template <int HD, int G, class E>
+__device__ __forceinline__ void lane_sums(const float* cx, const float* cy, const float* h,
+                                          int M, E e_of, float (&sums)[kLanes / G]) {
+  constexpr int Q = kLanes / G;
+  const int sub = threadIdx.x % G;
+  const int end = M - HD, nvec = end / 4, tail = 4 * nvec;
+  float acc[Q][4];
+#pragma unroll
+  for (int qq = 0; qq < Q; ++qq) {
+    const int l = sub + G * qq, j = l - (4 - HD);
+    acc[qq][0] = HD && l < 4 && j >= 0 ? e_of(cx[j], cy[j], h[j]) : 0.f;
+    acc[qq][1] = acc[qq][2] = acc[qq][3] = 0.f;
+  }
+  for (int k = 0; sub + kLanes * k < nvec; ++k) {
+#pragma unroll
+    for (int qq = 0; qq < Q; ++qq) {
+      const int q = sub + G * qq + kLanes * k;
+      if (q < nvec) {
+        const float4 X = ld4(cx, q), Y = ld4(cy, q), H = ld4(h, q);
+        const float4 X2 = HD ? ld4(cx, q + 1) : X, Y2 = HD ? ld4(cy, q + 1) : Y,
+                     H2 = HD ? ld4(h, q + 1) : H;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[qq][c] = __fadd_rn(acc[qq][c], e_of(comp8(X, X2, HD + c), comp8(Y, Y2, HD + c),
+                                                  comp8(H, H2, HD + c)));
+      }
+    }
+  }
+#pragma unroll
+  for (int qq = 0; qq < Q; ++qq) {
+    const int j = HD + tail + sub + G * qq;
+    if (j < M) acc[qq][0] = __fadd_rn(acc[qq][0], e_of(cx[j], cy[j], h[j]));
+    sums[qq] = __fadd_rn(__fadd_rn(__fadd_rn(acc[qq][0], acc[qq][1]), acc[qq][2]), acc[qq][3]);
+  }
+}
+
+// The log-sum-exp of a row (px, py) over the M columns (cx, cy) with h
+// vector h, by a group of G lanes (all lanes of the warp take part, a
+// group without a row (on false) on junk): lane sub of the group plays the
+// reference lanes l = sub + G q, q < 32 / G, each with row_lse's columns
+// and accumulators, folds their sums through the reference tree's offsets
+// 16 .. G in registers and shuffles the rest. Every lane of the group
+// returns the same bits.
+template <int PK, int G>
+__device__ __forceinline__ float group_lse(float px, float py, const float* cx, const float* cy,
+                                           const float* h, int M, int shift, float inv, float p,
+                                           bool on) {
+  constexpr int Q = kLanes / G;
+  const int sub = threadIdx.x % G;
+  auto m_of = [&](float x, float y, float hh) {
+    return __fsub_rn(hh, __fmul_rn(cost<PK>(__fsub_rn(px, x), __fsub_rn(py, y), p), inv));
+  };
+  // the max in any order (it is exact): vectors first, then the ragged end
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+  if (on) {
+    for (int q = sub; 4 * q + 3 < M; q += G) {
+      const float4 X = ld4(cx, q), Y = ld4(cy, q), H = ld4(h, q);
+      mx0 = fmaxf(mx0, m_of(X.x, Y.x, H.x));
+      mx1 = fmaxf(mx1, m_of(X.y, Y.y, H.y));
+      mx0 = fmaxf(mx0, m_of(X.z, Y.z, H.z));
+      mx1 = fmaxf(mx1, m_of(X.w, Y.w, H.w));
+    }
+    for (int j = (M & ~3) + sub; j < M; j += G) mx0 = fmaxf(mx0, m_of(cx[j], cy[j], h[j]));
+  }
+  const float mx = group_max<G / 2>(fmaxf(mx0, mx1));
+  auto e_of = [&](float x, float y, float hh) { return expf(__fsub_rn(m_of(x, y, hh), mx)); };
+  float sums[Q];
+#pragma unroll
+  for (int qq = 0; qq < Q; ++qq) sums[qq] = 0.f;
+  if (on && M < 128) {
+    // lane l: columns l, l + 32, l + 64, l + 96 into one accumulator
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) {
+        const int j = sub + G * qq + kLanes * k;
+        if (j < M) sums[qq] = __fadd_rn(sums[qq], e_of(cx[j], cy[j], h[j]));
+      }
+  } else if (on) {
+    switch (shift) {
+      case 0: lane_sums<0, G>(cx, cy, h, M, e_of, sums); break;
+      case 1: lane_sums<3, G>(cx, cy, h, M, e_of, sums); break;
+      case 2: lane_sums<2, G>(cx, cy, h, M, e_of, sums); break;
+      default: lane_sums<1, G>(cx, cy, h, M, e_of, sums); break;
+    }
+  }
+  fold<Q / 2>(sums);
+  return __fadd_rn(logf(group_sum<G / 2>(sums[0])), mx);
+}
+
+// Streamed rows: warp g of the cluster takes the slots g, g + W, ... (W =
+// cs * 16; slot_row), a batch of kStreamRows rows at a time, one a group
+// of kStreamG lanes, with costs recomputed from the SoA clouds in both
+// sweeps; in its b-th batch, group grp's lane b % 8 keeps the row's
+// potential in register b / 8 (so b < 8 PR). One launch runs every problem
+// and every eps step.
+template <int PK, int PR>
+__global__ void __launch_bounds__(kThreads, 1)
+k1_cluster_streamed(Problem pr, Sched s, WidePlan pl, int N) {
+  constexpr int G = kStreamG;
+  extern __shared__ __align__(16) float csm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = pr.P, T = pr.T, lane = threadIdx.x % kLanes;
+  const int grp = lane / G, sub = lane % G;
+  const int npass = pr.debias ? 4 : 2, rows = npass / 2 * (P + T), slots = stream_slots(rows);
+  const int W = pl.cs * kWarps;
+  const int g = (int)cluster.block_rank() * kWarps + threadIdx.x / kLanes;
+  float* hb = csm + pl.h0;
+  // the row of this lane's k-th potential register (batch k * 8 + sub)
+  auto owned = [&](int k) { return slot_row(g + (k * G + sub) * W, grp); };
+  cluster.sync();   // every block of the cluster runs before any writes into it
+  for (int n = (int)(blockIdx.x / pl.cs); n < N; n += pl.ncl) {
+    load_problem(csm, pl, pr, n, npass);
+    if (cluster.block_rank() == 0 && !pr.debias) zero_self_potentials(pr, n);
+    __syncthreads();
+    float pot[PR], logw[PR];
+#pragma unroll
+    for (int k = 0; k < PR; ++k) {
+      const int f = owned(k);
+      int pass;
+      const int i = split_row(f < rows ? f : 0, P, T, &pass);
+      pot[k] = 0.f;
+      logw[k] = f >= rows ? 0.f : pass % 2 == 0 ? pr.a_log[(size_t)n * P + i]
+                                                : pr.b_log[(size_t)n * T + i];
+    }
+    float inv = s.inv(0);
+    for (int e = 0; e < s.n; ++e) {
+      const Step t = step_at(s, e);
+      const float* h = hb + (e & 1) * pl.hbuf;
+      for (int b = 0, sl = g; sl < slots; ++b, sl += W) {
+        const int f = slot_row(sl, grp);
+        const bool on = f < rows;
+        int pass;
+        const int i = split_row(on ? f : 0, P, T, &pass);
+        const bool row_x = pass % 2 == 0, col_y = pass == 0 || pass == 3;
+        const int R = pass_rows(pass, P, T), M = pass_cols(pass, P, T);
+        // the row's place in the plain version's (N, R, M) exp tensor
+        const int shift = (int)((((size_t)n * R + i) & 3) * (M & 3) & 3);
+        const float lse = group_lse<PK, G>(
+            csm[pick4(pl.cloud, row_x ? 0 : 2) + i], csm[pick4(pl.cloud, row_x ? 1 : 3) + i],
+            csm + pick4(pl.cloud, col_y ? 2 : 0), csm + pick4(pl.cloud, col_y ? 3 : 1),
+            h + pick4(pl.hoff, pass), M, shift, inv, pr.p, on);
+        if (on && sub == b % G) {
+#pragma unroll
+          for (int k = 0; k < PR; ++k)
+            if (k == b / G) {
+              pot[k] = update(t, lse, pot[k]);
+              if (t.more)
+                broadcast_h(cluster, hb, pl, (e + 1) & 1, pass, i,
+                            __fadd_rn(logw[k], __fmul_rn(pot[k], t.inv_next)));
+            }
+        }
+      }
+      cluster.sync();
+      inv = t.inv_next;
+    }
+#pragma unroll
+    for (int k = 0; k < PR; ++k) {
+      const int f = owned(k);
+      if (f < rows) {   // a slot past the last one has rows past the problem's
+        int pass;
+        const int i = split_row(f, P, T, &pass);
+        pass_out(pr, pass, n)[i] = pot[k];
+      }
+    }
+  }
+}
+
+enum Route { kSmall, kShared, kGlobal, kCluster };
 
 size_t wide_smem(int P, int T) { return sizeof(float) * 6 * ((size_t)P + T); }
 
+using ClusterKernel = void (*)(Problem, Sched, WidePlan, int);
+
+ClusterKernel cluster_kernel(float p, int kept, int pr) {
+  if (kept) return p == 2.f ? k1_cluster_kept<2, kKeptKV>
+                 : p == 1.f ? k1_cluster_kept<1, kKeptKV> : k1_cluster_kept<0, kKeptKV>;
+  if (pr == 1) return p == 2.f ? k1_cluster_streamed<2, 1>
+                    : p == 1.f ? k1_cluster_streamed<1, 1> : k1_cluster_streamed<0, 1>;
+  return p == 2.f ? k1_cluster_streamed<2, kMaxPotRegs>
+       : p == 1.f ? k1_cluster_streamed<1, kMaxPotRegs> : k1_cluster_streamed<0, kMaxPotRegs>;
+}
+
+// A kernel's shared memory and cluster-size attributes.
+cudaError_t cluster_attributes(ClusterKernel kernel, long long smem, int cs) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess && cs > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, long long smem, cudaStream_t st,
+                                  cudaLaunchAttribute* attr, int cs) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of cs blocks of the kernel the current device runs at
+// once (cudaOccupancyMaxActiveClusters; 0 where it refuses the size),
+// cached per device, kernel, size and shared memory.
+int live_clusters(ClusterKernel kernel, int cs, long long smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, uintptr_t, int, long long>, int> cache;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const auto key = std::make_tuple(dev, reinterpret_cast<uintptr_t>(kernel), cs, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  int n = 0;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(cs, smem, nullptr, attr, cs);
+  if (cluster_attributes(kernel, smem, cs) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    (void)cudaGetLastError();   // the query's error, not a launch's
+    n = 0;
+  }
+  cache[key] = n;
+  return n;
+}
+
+// The shared memory a block of the current device can opt in to.
+bool smem_optin(int* optin) {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess &&
+         cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) ==
+             cudaSuccess;
+}
+
+WidePlan device_plan(int N, int P, int T, int debias, float p) {
+  int optin = 0;
+  if (!smem_optin(&optin)) {
+    WidePlan pl = {};
+    pl.route = kGlobal;
+    return pl;
+  }
+  return wide_plan(N, P, T, debias, optin, [&](int cs, int kept) {
+    WidePlan lay = {};
+    wide_layout(P, T, kept, lay);
+    return live_clusters(cluster_kernel(p, kept, 1), cs, lay.smem);
+  });
+}
+
 // The route of N problems of P and T points (see the header). Built with
-// -DK1_WIDE_ROUTE=1 (shared) or 2 (global), the route past 128 points is
-// pinned where the shared one fits, for bench_k1.py to time both.
+// -DK1_WIDE_ROUTE=1 (shared), 2 (global) or 3 (cluster), the route past
+// 128 points is pinned where the clouds fit one block's shared memory, for
+// bench_k1.py to time all three.
 Route route(int N, int P, int T) {
   if (P <= kSmallPts && T <= kSmallPts) return kSmall;
-  int dev = 0, optin = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      wide_smem(P, T) > (size_t)optin)
-    return kGlobal;
+  int optin = 0;
+  if (!smem_optin(&optin) || !cluster_fits(P, T, optin)) return kGlobal;
 #ifdef K1_WIDE_ROUTE
-  if (K1_WIDE_ROUTE) return K1_WIDE_ROUTE == 1 ? kShared : kGlobal;
+  if (K1_WIDE_ROUTE == 1 && wide_smem(P, T) <= (size_t)optin) return kShared;
+  if (K1_WIDE_ROUTE == 2) return kGlobal;
 #endif
-  return 3 * N >= 2 * sms ? kShared : kGlobal;
+  return kCluster;
 }
 
 template <bool SHARED>
@@ -581,6 +1230,25 @@ void (*wide_kernel(float p))(Problem, Sched, float*, int, int, int) {
 extern "C" long long sinkhorn_potentials_workspace(int N, int P, int T) {
   if (N < 1 || P < 1 || T < 1 || route(N, P, T) != kGlobal) return 0;
   return (long long)N * 4 * ((long long)P + T);
+}
+
+// The route sinkhorn_potentials takes at (N, P, T): 0 small (k1_kept /
+// k1_streamed), 1 shared, 2 global, 3 cluster; -1 for sizes it refuses.
+extern "C" int sinkhorn_potentials_route(int N, int P, int T) {
+  if (N < 1 || P < 1 || T < 1) return -1;
+  return (int)route(N, P, T);
+}
+
+// The cluster route's plan at (N, P, T, debias, p) into out[5]: cluster
+// size, clusters launched, kept costs (1) or streamed rows (0), potential
+// registers a lane, shared memory bytes. Returns 0, or -1 where the route
+// is not the cluster route.
+extern "C" int sinkhorn_potentials_plan(int N, int P, int T, int debias, float p, int* out) {
+  if (N < 1 || P < 1 || T < 1 || route(N, P, T) != kCluster) return -1;
+  const WidePlan pl = device_plan(N, P, T, debias, p);
+  const int v[5] = {pl.cs, pl.ncl, pl.kept, pl.pr, (int)pl.smem};
+  for (int k = 0; k < 5; ++k) out[k] = v[k];
+  return 0;
 }
 
 // x (N, P, 2), y (N, T, 2), a_log (N, P), b_log (N, T) -> a_x (N, P),
@@ -618,6 +1286,17 @@ extern "C" int sinkhorn_potentials(const float* x, const float* y,
     else if (p == 1.f) k1_streamed<1><<<grid, block, 0, st>>>(pr, s);
     else k1_streamed<0><<<grid, block, 0, st>>>(pr, s);
     return (int)cudaGetLastError();
+  }
+  if (rt == kCluster) {
+    const WidePlan pl = device_plan(N, P, T, debias, p);
+    if (pl.cs < 1) return (int)cudaErrorInvalidConfiguration;   // no cluster size runs
+    const ClusterKernel kernel = cluster_kernel(p, pl.kept, pl.pr);
+    cudaError_t e = cluster_attributes(kernel, pl.smem, pl.cs);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(pl.cs * pl.ncl, pl.smem, st, attr, pl.cs);
+    e = cudaLaunchKernelEx(&cfg, kernel, pr, s, pl, N);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
   }
   if (rt == kShared) {
     const size_t smem = wide_smem(P, T);

@@ -21,9 +21,11 @@ The eps list and the damping factors are computed on the host by
 device, copied at the first call that uses it (so a step that has run once
 copies nothing and can be captured in a CUDA graph); rho enters only
 through lambda. As in the JAX package, P, T >= 1 and the schedule's length
-are unbounded: past 128 points the kernel takes routes of its own, and
-where N is below two thirds of the SM count or the clouds pass one block's
-shared memory, a device workspace that the wrapper allocates. Padding semantics are JAX's: log-weight -1e30, and a row whose
+are unbounded: past 128 points the kernel runs each problem on a
+thread-block cluster in one launch (`route` names the route, `cluster_plan`
+its plan), and where the clouds pass one block's shared memory (P + T past
+~9,685) it launches once per eps on a device workspace that the wrapper
+allocates. Padding semantics are JAX's: log-weight -1e30, and a row whose
 entries are all -1e30 gives log(T) through the max-subtract.
 """
 from __future__ import annotations
@@ -85,7 +87,31 @@ def _lib():
     lib.sinkhorn_potentials.restype = i
     lib.sinkhorn_potentials_workspace.argtypes = [i, i, i]
     lib.sinkhorn_potentials_workspace.restype = ctypes.c_longlong
+    lib.sinkhorn_potentials_route.argtypes = [i, i, i]
+    lib.sinkhorn_potentials_route.restype = i
+    lib.sinkhorn_potentials_plan.argtypes = [i, i, i, i, f, vp]
+    lib.sinkhorn_potentials_plan.restype = i
     return lib
+
+
+# the kernel's routes, by the code sinkhorn_potentials_route returns
+ROUTES = ("small", "shared", "global", "cluster")
+
+
+def route(N: int, P: int, T: int) -> str:
+    """The route the kernel takes for N problems of P and T points on the
+    current CUDA device: small (P, T <= 128), cluster or global."""
+    return ROUTES[_lib().sinkhorn_potentials_route(N, P, T)]
+
+
+def cluster_plan(N: int, P: int, T: int, debias: bool = True, p: float = 2.0):
+    """The cluster route's plan on the current CUDA device (None on any
+    other route): blocks a cluster, clusters launched, whether the costs
+    stay in registers, potential registers a lane, shared memory bytes."""
+    out = (ctypes.c_int * 5)()
+    if _lib().sinkhorn_potentials_plan(N, P, T, int(debias), p, out) != 0:
+        return None
+    return dict(zip(("cluster", "clusters", "kept", "pot_regs", "smem_bytes"), out))
 
 
 def schedule_values(eps_list, lams) -> np.ndarray:

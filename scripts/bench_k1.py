@@ -5,7 +5,7 @@ split its time into a fixed part and a part per eps step.
     python3 scripts/bench_k1.py                       # the committed source
     python3 scripts/bench_k1.py --sources a.cu b.cu   # versions side by side
     python3 scripts/bench_k1.py --scaling 0.9 --shape 8 1000 1000   # 74 eps steps
-    python3 scripts/bench_k1.py --pin_routes --shape 64 256 256     # both wide routes
+    python3 scripts/bench_k1.py --pin_routes --shape 64 256 256     # the three wide routes
 
 Each source (default: kd6d_pose_adlp_tpu_torch/csrc/sinkhorn_potentials.cu)
 is built with the port's nvcc flags and called through the same C interface
@@ -15,14 +15,17 @@ the weights zero, KDConfig's schedule (p = 2, blur 1e-3, reach 0.5; scaling
 0.5, 12 eps steps, unless --scaling or --blur say otherwise), and P = T =
 128; each --shape N P T adds a shape (any P, T: past 128 points the kernel
 takes its wide routes; --pin_routes also builds each source with the
-shared and with the global route pinned, where the shared one fits, so the
-two are timed on the same inputs). Each build is first held against the
-plain version with chip_smoke's per-potential gate, then timed by
-CUDA-graph replay at every shape, the builds in turn and back (a, b, b,
-a), and at 1 to 74 eps steps (the schedule repeated) at the main shape; a
-least-squares line through those times gives the fixed and the per-step
-time. The sources share the C interface of the committed one (the
-schedule in device memory). Prints one JSON line; runs only on the card.
+shared, the global and the cluster route pinned (-DK1_WIDE_ROUTE=1, 2, 3;
+the shared one where it fits, and a source that has no cluster route
+takes its global one there), so the three are timed on the same inputs).
+Each build prints its cluster plan at every shape (sources that have
+one), is held against the plain version with chip_smoke's per-potential
+gate, then timed by CUDA-graph replay at every shape, the builds in turn
+and back (a, b, b, a), and at 1 to 74 eps steps (the schedule repeated)
+at the main shape or --fit's; a least-squares line through those times
+gives the fixed and the per-step time. The sources share the C interface
+of the committed one (the schedule in device memory). Prints one JSON
+line; runs only on the card.
 """
 from __future__ import annotations
 
@@ -53,8 +56,11 @@ def main(argv=None) -> int:
                     help="the schedule's blur (default: KDConfig's)")
     ap.add_argument("--shape", nargs=3, type=int, action="append", default=[],
                     metavar=("N", "P", "T"), help="another shape to time")
+    ap.add_argument("--fit", nargs=3, type=int, default=None, metavar=("N", "P", "T"),
+                    help="the shape of the eps-steps fit (default: the main shape)")
     ap.add_argument("--pin_routes", action="store_true",
-                    help="time each source with the shared and the global route pinned too")
+                    help="time each source with the shared, the global and the cluster "
+                         "route pinned too")
     args = ap.parse_args(argv)
 
     import torch
@@ -74,11 +80,14 @@ def main(argv=None) -> int:
     eps_list, lams = sk.schedule(kd.p, blur, scaling, kd.reach, 2.0)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     variants = (("", ()),) + ((("_shared", ("-DK1_WIDE_ROUTE=1",)),
-                               ("_global", ("-DK1_WIDE_ROUTE=2",))) if args.pin_routes else ())
+                               ("_global", ("-DK1_WIDE_ROUTE=2",)),
+                               ("_cluster", ("-DK1_WIDE_ROUTE=3",))) if args.pin_routes else ())
     libs = build(args.sources, {"sinkhorn_potentials": [vp] * 8 + [i, i, i, vp, i, f, i, vp, vp],
                                 "sinkhorn_potentials_workspace": [i, i, i]}, variants)
     for lib in libs.values():
         lib.sinkhorn_potentials_workspace.restype = ctypes.c_longlong
+        if hasattr(lib, "sinkhorn_potentials_plan"):   # sources with a cluster route
+            lib.sinkhorn_potentials_plan.argtypes = [i, i, i, i, f, vp]
 
     def solver(lib, steps=len(eps_list)):
         # the schedule repeated to `steps`, as the kernel reads it
@@ -117,10 +126,20 @@ def main(argv=None) -> int:
 
     shapes = {"main": (128, 64, 64), "P=T=128": (128, 128, 128)}
     shapes.update({f"N={n} P={p_} T={t_}": (n, p_, t_) for n, p_, t_ in args.shape})
+    fit = "main" if args.fit is None else f"N={args.fit[0]} P={args.fit[1]} T={args.fit[2]}"
+    shapes.setdefault(fit, tuple(args.fit or ()))
     inputs = {k: problems(*v) for k, v in shapes.items()}
     result = {"card": cs.gpu_name_and_power(), "shapes": shapes, "eps_steps": len(eps_list),
               "sources": {}}
     for name, lib in libs.items():
+        if hasattr(lib, "sinkhorn_potentials_plan"):
+            plans = {}
+            for shape, (n, p_, t_) in shapes.items():
+                out = (ctypes.c_int * 5)()
+                if lib.sinkhorn_potentials_plan(n, p_, t_, 1, kd.p, out) == 0:
+                    plans[shape] = dict(zip(("cluster", "clusters", "kept", "pot_regs",
+                                             "smem_bytes"), out))
+            print(f"[plan] {name}: {plans}", flush=True)
         gate = {}
         for shape, (t, a, b) in inputs.items():
             got = solver(lib)(*t)
@@ -142,18 +161,19 @@ def main(argv=None) -> int:
             ms = cs.time_cuda(torch, solver(libs[name]), copies(t), iters=100)
             result["sources"][name]["ms"][shape].append(ms)
             print(f"[time] {name} {shape}: {ms * 1e3:.2f} us", flush=True)
-    main_copies = copies(inputs["main"][0])
+    fit_copies = copies(inputs[fit][0])
     for name, lib in libs.items():
-        pts = [(n, cs.time_cuda(torch, solver(lib, n), main_copies, iters=100))
+        pts = [(n, cs.time_cuda(torch, solver(lib, n), fit_copies, iters=100))
                for n in EPS_STEPS]
         mx = sum(n for n, _ in pts) / len(pts)
         my = sum(t for _, t in pts) / len(pts)
         slope = (sum((n - mx) * (t - my) for n, t in pts)
                  / sum((n - mx) ** 2 for n, _ in pts))
-        fit = dict(per_eps_ms=slope, fixed_ms=my - slope * mx, points=pts)
-        result["sources"][name]["eps_steps"] = fit
-        print(f"[steps] {name}: {slope * 1e3:.3f} us per eps step + {fit['fixed_ms'] * 1e3:.2f} us "
-              f"fixed; {[(n, round(t * 1e3, 2)) for n, t in pts]}", flush=True)
+        line = dict(per_eps_ms=slope, fixed_ms=my - slope * mx, points=pts)
+        result["sources"][name]["eps_steps"] = dict(line, shape=fit)
+        print(f"[steps] {name} {fit}: {slope * 1e3:.3f} us per eps step + "
+              f"{line['fixed_ms'] * 1e3:.2f} us fixed; "
+              f"{[(n, round(t * 1e3, 2)) for n, t in pts]}", flush=True)
     print(json.dumps(result), flush=True)
     print(result["card"], flush=True)
     return 0

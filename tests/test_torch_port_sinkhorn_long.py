@@ -21,6 +21,11 @@ with the tolerances and the largest differences measured on this CPU:
     are ~1.2e-6: XLA sums the 200-column rows in another order than
     PyTorch, and the self potentials at real points keep ~1e-4 of that
     float32 noise; the other potentials and groups <= 2.9e-7)
+  potentials, N=4 P=200 T=130,        `_solve_potentials(interpret=True)`
+  without debias and reach
+    a_x, b_y: zero in both; a_y, b_x over all their points: <= 1e-5 *
+    max|JAX|, and over their real and padded points apart <= 2e-4 *
+    max|JAX| there                                   (max ratio 3.1e-7)
   divergence, N=4 P=300 T=200, 74 eps   `ops/sinkhorn.sinkhorn_divergence`
                                      (vmapped, eager): rtol 1e-5 (max 3.1e-7)
   its gradients in a, b              ||port - JAX|| <= 1e-5 ||JAX|| (1.4e-7)
@@ -132,6 +137,30 @@ def wide_clouds():
 @pytest.mark.parametrize("k", range(4), ids=NAMES)
 def test_potentials_at_200_by_130_points_match_the_pallas_kernel(wide_clouds, k):
     got, want, masks = wide_clouds
+    _assert_potential_close(NAMES[k], got[k], want[k], masks[k] > 0, SPLIT_RATIO)
+
+
+@pytest.fixture(scope="module")
+def wide_clouds_unbalanced():
+    """The port's and `_solve_potentials(interpret=True)`'s potentials at
+    N = 4, P = 200, T = 130 without debias and without reach (the two passes
+    of the balanced, biased form, which the CUDA kernel's cluster route runs
+    past 128 points on rows of every shift)."""
+    x, y, a, b = _clouds(16, N=4, P=200, T=130)
+    al, bl = _log_weights(a, b)
+    kw = dict(KW, scaling=0.5, reach=None, debias=False)
+    want = _solve_potentials(*map(jnp.asarray, (x, y, al, bl)), interpret=True, **kw)
+    got = sf.solve_potentials(*(torch.from_numpy(v) for v in (x, y, al, bl)), **kw)
+    return ([g.numpy() for g in got], [np.asarray(w, np.float64) for w in want],
+            (a, b, b, a))
+
+
+@pytest.mark.parametrize("k", range(4), ids=NAMES)
+def test_unbalanced_potentials_without_debias_at_200_by_130_match_the_pallas_kernel(
+        wide_clouds_unbalanced, k):
+    got, want, masks = wide_clouds_unbalanced
+    if k < 2:   # a_x and b_y: zero without debias, in both
+        assert not got[k].any() and not want[k].any()
     _assert_potential_close(NAMES[k], got[k], want[k], masks[k] > 0, SPLIT_RATIO)
 
 
